@@ -1,0 +1,93 @@
+"""Homomorphic evaluation: add/sub, plain add/multiply, NTT-domain chaining.
+
+Counterpart of ``pplp_tpu.bfv.evaluator`` for the operations the protocol
+uses. Every op is exact modular ring arithmetic and the NTT is a ring
+isomorphism, so a chained expression can transform each operand once,
+combine in the spectrum and transform back once, bit-identical to the
+op-by-op coefficient-domain chain.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops import ntt
+from ..ops.modmath import m31
+from .ciphertext import Ciphertext
+from .context import BFVContext
+from .keys import shoup
+from .plaintext import Plaintext
+
+__all__ = ["Evaluator"]
+
+
+class Evaluator:
+    def __init__(self, ctx: BFVContext):
+        self.ctx = ctx
+
+    # -- ct (+|-) ct ----------------------------------------------------
+
+    def _zip(self, a: Ciphertext, b: Ciphertext, fn) -> Ciphertext:
+        assert a.domain == b.domain
+        q2 = self.ctx.q2
+        polys = []
+        for i in range(max(a.size, b.size)):
+            if i >= a.size:
+                polys.append(b.polys[i] if fn is m31.add else m31.neg(b.polys[i], q2))
+            elif i >= b.size:
+                polys.append(a.polys[i])
+            else:
+                polys.append(fn(a.polys[i], b.polys[i], q2))
+        return Ciphertext(tuple(polys), a.domain)
+
+    def add(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        return self._zip(a, b, m31.add)
+
+    def sub(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        return self._zip(a, b, m31.sub)
+
+    # -- ct (+) plain ---------------------------------------------------
+
+    def _plain_pairs(self, plain):
+        if isinstance(plain, Plaintext):
+            return plain.pair_u32(self.ctx.n)
+        return plain  # already host (lo, hi) arrays
+
+    def add_plain(self, a: Ciphertext, plain) -> Ciphertext:
+        assert a.domain == "coeff"
+        term = self.ctx.scale_plain(*self._plain_pairs(plain))
+        return Ciphertext((m31.add(a.polys[0], term, self.ctx.q2),) + a.polys[1:],
+                          a.domain)
+
+    # -- ct * plain -----------------------------------------------------
+
+    def multiply_plain(self, a: Ciphertext, plain) -> Ciphertext:
+        """a * m for an unscaled plaintext polynomial (centered lift)."""
+        m_ntt, m_shoup = self.plain_spectrum(plain)
+        return self.from_ntt(self.multiply_plain_ntt(self.to_ntt(a), (m_ntt, m_shoup)))
+
+    def plain_spectrum(self, plain):
+        """Plaintext -> (m_ntt, m_shoup); a leading batch transforms at once."""
+        ctx = self.ctx
+        m_rq = ctx.lift_plain_centered(*self._plain_pairs(plain))
+        m_ntt = ntt.forward(m_rq, ctx.tables)
+        return m_ntt, shoup(ctx, m_ntt)
+
+    def to_ntt(self, a: Ciphertext) -> Ciphertext:
+        """Transform all components in one stacked NTT."""
+        assert a.domain == "coeff"
+        spec = ntt.forward(torch.stack(a.polys), self.ctx.tables)
+        return Ciphertext(tuple(spec.unbind(0)), "ntt")
+
+    def from_ntt(self, a: Ciphertext) -> Ciphertext:
+        assert a.domain == "ntt"
+        coeff = ntt.inverse(torch.stack(a.polys), self.ctx.tables)
+        return Ciphertext(tuple(coeff.unbind(0)), "coeff")
+
+    def multiply_plain_ntt(self, a: Ciphertext, spectrum) -> Ciphertext:
+        """Pointwise ct * plain with both already in the NTT domain."""
+        assert a.domain == "ntt"
+        m_ntt, m_shoup = spectrum
+        q2 = self.ctx.q2
+        return Ciphertext(
+            tuple(m31.mulmod_shoup(c, m_ntt, m_shoup, q2) for c in a.polys), "ntt")

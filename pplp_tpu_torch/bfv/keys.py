@@ -1,0 +1,106 @@
+"""Key generation: ternary secret, RLWE public key, held in the NTT domain.
+
+Counterpart of ``pplp_tpu.bfv.keys``. Keys carry Shoup companions so every
+key product in encrypt/decrypt is the 3-multiply fast path. Spectra are in
+the port's (stage engine's) order.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..ops import ntt
+from ..ops.modmath import m31
+from . import sampling
+from .context import BFVContext
+
+__all__ = ["SecretKey", "PublicKey", "KeyGenerator", "shoup",
+           "make_keys", "keys_from_reference"]
+
+
+def shoup(ctx: BFVContext, w: torch.Tensor) -> torch.Tensor:
+    """Shoup companions floor(w * 2^32 / q_i) of residues [..., L, n]."""
+    return m31.shoup_precompute(w, ctx.q2)
+
+
+@dataclass
+class SecretKey:
+    s_ntt: torch.Tensor
+    s_shoup: torch.Tensor
+
+
+@dataclass
+class PublicKey:
+    pk0_ntt: torch.Tensor
+    pk1_ntt: torch.Tensor
+    pk0_shoup: torch.Tensor
+    pk1_shoup: torch.Tensor
+
+
+def make_keys(ctx: BFVContext, s: torch.Tensor, a_ntt: torch.Tensor,
+              e: torch.Tensor) -> tuple[SecretKey, PublicKey]:
+    """Keys from a coefficient-domain secret s, a uniform a (NTT domain, as
+    the reference samples it) and coefficient-domain noise e:
+    pk0 = -(a*s + e), pk1 = a."""
+    q2 = ctx.q2
+    spec = ntt.forward(torch.stack([s, e]), ctx.tables)
+    s_ntt, e_ntt = spec[0], spec[1]
+    s_shoup = shoup(ctx, s_ntt)
+    pk0 = m31.neg(m31.add(m31.mulmod_shoup(a_ntt, s_ntt, s_shoup, q2), e_ntt, q2), q2)
+    return (
+        SecretKey(s_ntt=s_ntt, s_shoup=s_shoup),
+        PublicKey(pk0_ntt=pk0, pk1_ntt=a_ntt,
+                  pk0_shoup=shoup(ctx, pk0), pk1_shoup=shoup(ctx, a_ntt)),
+    )
+
+
+class KeyGenerator:
+    """Keys drawn from an explicit ``torch.Generator`` on the context's device."""
+
+    def __init__(self, ctx: BFVContext, generator: torch.Generator):
+        self.ctx = ctx
+        self.generator = generator
+        self._keys: tuple[SecretKey, PublicKey] | None = None
+
+    def _make(self):
+        if self._keys is None:
+            ctx, g = self.ctx, self.generator
+            s = sampling.ternary_poly(g, ctx)
+            a_ntt = sampling.uniform_rq(g, ctx)
+            e = sampling.cbd_poly(g, ctx)
+            self._keys = make_keys(ctx, s, a_ntt, e)
+        return self._keys
+
+    def secret_key(self) -> SecretKey:
+        return self._make()[0]
+
+    def create_public_key(self) -> PublicKey:
+        return self._make()[1]
+
+
+def keys_from_reference(ctx: BFVContext, s_ntt, s_shoup, pk0_ntt, pk1_ntt,
+                        pk0_shoup, pk1_shoup, perm=None):
+    """The reference's key arrays (numpy, [L, n]) as the port's keys.
+
+    Stage-engine spectra carry over as they are. For another engine's
+    spectrum order pass ``perm`` from ``ntt.order_permutation`` (port order
+    indexed by ``perm`` gives the other order); entries are moved back into
+    the port's order. Shoup companions move with their values.
+    """
+
+    def put(a):
+        t = torch.as_tensor(np.asarray(a, dtype=np.int64), device=ctx.device)
+        if perm is None:
+            return t
+        out = torch.empty_like(t)
+        out[..., torch.as_tensor(perm, device=ctx.device)] = t
+        return out
+
+    return (
+        SecretKey(s_ntt=put(s_ntt), s_shoup=put(s_shoup)),
+        PublicKey(pk0_ntt=put(pk0_ntt), pk1_ntt=put(pk1_ntt),
+                  pk0_shoup=put(pk0_shoup), pk1_shoup=put(pk1_shoup)),
+    )

@@ -1,0 +1,210 @@
+"""The port's BFV layer against the reference, bit for bit (tolerance 0).
+
+* The m31 known-answer vectors (``tests/fixtures/bfv_kat_n64_m31.json.gz``)
+  replayed through the port by the injected path of
+  ``tests/test_seal_vectors.py``: keygen from the injected (s, a, e), then
+  encrypt, add, sub, add_plain, multiply_plain and decrypt. Every key leaf,
+  Shoup companions included, equals the reference's.
+* Samplers fed the words ``jax.random.bits`` drew equal the reference's.
+* scale_plain / lift_plain_centered, serialization, and keys carried over
+  from the reference in either spectrum order.
+"""
+
+import gzip
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pplp_tpu import bfv as rbfv
+from pplp_tpu.bfv import sampling as rsampling
+from pplp_tpu.bfv import serialize as rser
+from pplp_tpu.bfv.keys import PublicKey as RPublicKey
+from pplp_tpu.bfv.keys import SecretKey as RSecretKey
+from pplp_tpu.bfv.keys import _shoup as rshoup
+from pplp_tpu.bfv.keys import make_sk_pk_jit
+from pplp_tpu.ops import ntt as rntt
+from pplp_tpu.ops import ntt_vmem
+from pplp_tpu.ops import primes as rprimes
+from pplp_tpu.ops.primes import get_primes
+from pplp_tpu_torch import bfv
+from pplp_tpu_torch.bfv import sampling, serialize
+from pplp_tpu_torch.bfv.keys import keys_from_reference, make_keys
+from pplp_tpu_torch.ops import ntt
+from pplp_tpu_torch.ops import primes
+
+_FIX = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
+                    "bfv_kat_n64_m31.json.gz")
+
+
+@pytest.fixture(scope="module")
+def kat():
+    with gzip.open(_FIX, "rt") as f:
+        return json.load(f)
+
+
+def _residues(coeffs, chain):
+    return np.array([[int(c) % q for c in coeffs] for q in chain], dtype=np.int64)
+
+
+def _np(x):
+    return np.asarray(x).astype(np.int64)
+
+
+def _ctx_pair(n, t, chain):
+    jparms = rbfv.EncryptionParameters.bfv(n, t, coeff_modulus=chain)
+    parms = bfv.EncryptionParameters.bfv(n, t, coeff_modulus=chain)
+    return rbfv.BFVContext.build(jparms), bfv.BFVContext.build(parms, "cpu")
+
+
+def _ct_ints(ct, ctx):
+    return [ctx.crt_compose(p.numpy()) for p in ct.polys]
+
+
+def test_prime_chains_match_reference():
+    for n in (1024, 2048, 4096, 8192, 16384, 32768):
+        assert primes.tpu_default(n) == rprimes.tpu_default(n)
+        assert primes.bfv_default(n) == rprimes.bfv_default(n)
+
+
+def test_kat_n64_m31(kat):
+    n, t, chain = kat["n"], kat["t"], kat["moduli"]
+    jctx, ctx = _ctx_pair(n, t, chain)
+    res = lambda c: _residues(c, chain)  # noqa: E731
+    tres = lambda c: torch.from_numpy(res(c))  # noqa: E731
+
+    # Reference keys, built as tests/test_seal_vectors.py builds them.
+    fwd = lambda c: rntt.forward(jnp.asarray(res(c).astype(np.uint32)), jctx.tables)  # noqa: E731
+    s_ntt = fwd(kat["s"])
+    pk0_ntt, pk1_ntt = fwd(kat["pk0"]), fwd(kat["pk1"])
+    rsk = RSecretKey(s_ntt=s_ntt, s_shoup=rshoup(jctx, s_ntt))
+    rpk = RPublicKey(pk0_ntt=pk0_ntt, pk1_ntt=pk1_ntt,
+                     pk0_shoup=rshoup(jctx, pk0_ntt), pk1_shoup=rshoup(jctx, pk1_ntt))
+
+    # Port keys from the injected keygen randomness.
+    sk, pk = make_keys(ctx, tres(kat["s"]), ntt.forward(tres(kat["a"]), ctx.tables),
+                       tres(kat["e"]))
+    for name in ("s_ntt", "s_shoup"):
+        assert (getattr(sk, name).numpy() == _np(getattr(rsk, name))).all(), name
+    for name in ("pk0_ntt", "pk1_ntt", "pk0_shoup", "pk1_shoup"):
+        assert (getattr(pk, name).numpy() == _np(getattr(rpk, name))).all(), name
+
+    exp = kat["expected"]
+    want = lambda key: [[int(v) % ctx.q for v in p] for p in exp[key]]  # noqa: E731
+    enc = bfv.Encryptor(ctx, pk)
+    ct1 = enc.encrypt_with_randomness(bfv.Plaintext(kat["m1"]), tres(kat["u1"]),
+                                      tres(kat["e01"]), tres(kat["e11"]))
+    ct2 = enc.encrypt_with_randomness(bfv.Plaintext(kat["m2"]), tres(kat["u2"]),
+                                      tres(kat["e02"]), tres(kat["e12"]))
+    assert _ct_ints(ct1, ctx) == want("ct1")
+    assert _ct_ints(ct2, ctx) == want("ct2")
+
+    dec = bfv.Decryptor(ctx, sk)
+    assert dec.decrypt(ct1).coeffs[:n] == exp["decrypt_ct1"]
+
+    ev = bfv.Evaluator(ctx)
+    assert _ct_ints(ev.add(ct1, ct2), ctx) == want("add")
+    assert _ct_ints(ev.sub(ct1, ct2), ctx) == want("sub")
+    assert _ct_ints(ev.add_plain(ct1, bfv.Plaintext(kat["m2"])), ctx) == want("add_plain_m2")
+    assert (_ct_ints(ev.multiply_plain(ct1, bfv.Plaintext(kat["m2"])), ctx)
+            == want("multiply_plain_m2"))
+
+
+@pytest.mark.parametrize("kind", ["uniform", "ternary", "cbd"])
+def test_samplers_match_reference_on_same_words(kind, kat):
+    n, t, chain = kat["n"], kat["t"], kat["moduli"]
+    jctx, ctx = _ctx_pair(n, t, chain)
+    key = jax.random.key(11)
+    batch = (3,)
+    if kind == "uniform":
+        want = rsampling.uniform_rq(key, jctx, batch)
+        words = jax.random.bits(key, batch + (2, len(chain), n), jnp.uint32)
+        got = sampling.uniform_rq_from_bits(_np(words), ctx)
+    elif kind == "ternary":
+        want = rsampling.ternary_poly(key, jctx, batch)
+        words = jax.random.bits(key, batch + (n,), jnp.uint32)
+        got = sampling.ternary_poly_from_bits(_np(words), ctx)
+    else:
+        want = rsampling.cbd_poly(key, jctx, batch)
+        words = jax.random.bits(key, batch + (2, n), jnp.uint32)
+        got = sampling.cbd_poly_from_bits(_np(words), ctx)
+    assert (got.numpy() == _np(want)).all()
+    # The generator-driven form draws the same shapes from torch's words.
+    g = torch.Generator().manual_seed(3)
+    fn = {"uniform": sampling.uniform_rq, "ternary": sampling.ternary_poly,
+          "cbd": sampling.cbd_poly}[kind]
+    drawn = fn(g, ctx, batch)
+    assert drawn.shape == got.shape and bool((drawn < ctx.q2).all())
+
+
+@pytest.mark.parametrize("t", [1 << 56, 65537])
+def test_scale_and_lift_plain_match_reference(t):
+    n = 4096
+    chain = rprimes.tpu_default(n)
+    jctx, ctx = _ctx_pair(n, t, chain)
+    rng = np.random.default_rng(t % 1000)
+    m = rng.integers(0, t, size=(2, n), dtype=np.uint64)
+    m[0, :4] = [0, 1, (t + 1) // 2, t - 1]
+    lo = (m & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    hi = (m >> np.uint64(32)).astype(np.uint32)
+    want = jctx.scale_plain(jnp.asarray(lo), jnp.asarray(hi))
+    assert (ctx.scale_plain(lo, hi).numpy() == _np(want)).all()
+    want = jctx.lift_plain_centered(jnp.asarray(lo), jnp.asarray(hi))
+    assert (ctx.lift_plain_centered(lo, hi).numpy() == _np(want)).all()
+
+
+def test_serialize_byte_identical(kat):
+    n, t, chain = kat["n"], kat["t"], kat["moduli"]
+    jctx, ctx = _ctx_pair(n, t, chain)
+    assert serialize.save_parms(ctx.parms) == rser.save_parms(jctx.parms)
+    assert serialize.load_parms(rser.save_parms(jctx.parms)) == ctx.parms
+    rng = np.random.default_rng(4)
+    polys = [_residues(rng.integers(0, 1 << 40, n), chain) for _ in range(2)]
+    rct = rbfv.Ciphertext(tuple(jnp.asarray(p.astype(np.uint32)) for p in polys))
+    ct = bfv.Ciphertext(tuple(torch.from_numpy(p) for p in polys))
+    blob = rser.save_ciphertext(rct, jctx)
+    assert serialize.save_ciphertext(ct, ctx) == blob
+    back = serialize.load_ciphertext(blob, ctx)
+    assert all((a.numpy() == p).all() for a, p in zip(back.polys, polys))
+
+
+def _roundtrip(ctx, sk, pk, values):
+    g = torch.Generator().manual_seed(9)
+    plain = bfv.Plaintext(values, n=ctx.n)
+    ct = bfv.Encryptor(ctx, pk).encrypt(plain, g)
+    return bfv.Decryptor(ctx, sk).decrypt(ct).coeffs[: ctx.n], ct
+
+
+@pytest.mark.parametrize("engine", ["stage", "vmem"])
+def test_keys_from_reference(engine):
+    n, t = 256, 65537
+    chain = list(get_primes(28, 1, n)) + list(get_primes(27, 1, n))
+    jparms = rbfv.EncryptionParameters.bfv(n, t, coeff_modulus=chain)
+    jctx = rbfv.BFVContext.build(jparms, engine=engine)
+    ctx = bfv.BFVContext.build(bfv.EncryptionParameters.bfv(n, t, coeff_modulus=chain), "cpu")
+    rsk, rpk = make_sk_pk_jit(jctx, 5)
+    perm = None
+    if engine == "vmem":
+        mono = np.zeros((len(chain), n), np.uint32)
+        mono[:, 1] = 1
+        x_spec = ntt_vmem.forward_vmem(jnp.asarray(mono), jctx.tables.four_step)
+        perm = ntt.order_permutation(_np(x_spec), ctx.tables)
+    sk, pk = keys_from_reference(
+        ctx, _np(rsk.s_ntt), _np(rsk.s_shoup), _np(rpk.pk0_ntt), _np(rpk.pk1_ntt),
+        _np(rpk.pk0_shoup), _np(rpk.pk1_shoup), perm=perm)
+    # The secret is the same polynomial: its port spectrum is ours.
+    s_coeff = _np(jax.jit(lambda v: rntt.inverse(v, jctx.tables))(rsk.s_ntt))
+    assert (sk.s_ntt.numpy() == ntt.forward(torch.from_numpy(s_coeff), ctx.tables).numpy()).all()
+    assert (sk.s_shoup.numpy() == bfv.keys.shoup(ctx, sk.s_ntt).numpy()).all()
+    assert (pk.pk0_shoup.numpy() == bfv.keys.shoup(ctx, pk.pk0_ntt).numpy()).all()
+    # Port encryption under the carried-over keys decrypts in both packages.
+    values = list(range(1, 40))
+    got, ct = _roundtrip(ctx, sk, pk, values)
+    assert got == values + [0] * (n - len(values))
+    rct = rser.load_ciphertext(serialize.save_ciphertext(ct, ctx), jctx)
+    x = jax.jit(lambda c: rbfv.Decryptor(jctx, rsk).ct_value_rns(c))(rct)
+    assert jctx.decode_plain_from_ct_value(np.asarray(x).astype(object))[: len(values)] == values

@@ -1,0 +1,154 @@
+"""The port's NTT against the reference's stage engine and its Pallas kernel.
+
+* Tables, forward, inverse and polymul are bit-equal to ``pplp_tpu.ops.ntt``
+  with ``engine="stage"`` (tolerance 0: exact integer arithmetic).
+* Against the Pallas kernel (``ntt_vmem.forward_vmem``/``inverse_vmem``, in
+  interpret mode as ``tests/test_ntt_vmem.py`` runs it on the CPU): the
+  permutation between the two spectrum orders is derived from the spectra
+  of the monomial X, then ``port_forward(x)[..., perm] == forward_vmem(x)``.
+* On the CPU the dispatch takes the plain version; the CUDA wrapper refuses
+  CPU tensors, and building the kernel without nvcc raises. The kernel
+  itself is compared with the plain version on a card by
+  ``tests/test_torch_cuda.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pplp_tpu.ops import ntt as ref_ntt
+from pplp_tpu.ops import ntt_vmem
+from pplp_tpu.ops.primes import Modulus, get_primes, tpu_default
+from pplp_tpu_torch.ops import ntt, ntt_cuda
+from pplp_tpu_torch.ops.primes import Modulus as PortModulus
+
+
+def _chain(n):
+    """tpu_default chain where one exists, else two primes of 28/27 bits."""
+    if n >= 1024:
+        return list(tpu_default(n))
+    return list(get_primes(28, 1, n)) + list(get_primes(27, 1, n))
+
+
+def _tables(n, engine="stage"):
+    chain = _chain(n)
+    tb_ref = ref_ntt.build_tables([Modulus(q) for q in chain], n, engine=engine)
+    tb = ntt.build_tables([PortModulus(q) for q in chain], n, "cpu")
+    return chain, tb_ref, tb
+
+
+def _rand(rng, chain, n, batch=()):
+    qs = np.array(chain, np.uint64).reshape((1,) * len(batch) + (-1, 1))
+    v = rng.integers(0, 1 << 62, size=batch + (len(chain), n)).astype(np.uint64) % qs
+    return v.astype(np.int64)
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a).astype(np.int64))
+
+
+def _np(x):
+    return np.asarray(x).astype(np.int64)
+
+
+@pytest.mark.parametrize("n", [64, 4096])
+def test_tables_match_reference(n):
+    _, tb_ref, tb = _tables(n)
+    for name in ("q", "w", "ws", "iw", "iws", "n_inv", "n_inv_s"):
+        assert (getattr(tb, name).numpy() == _np(getattr(tb_ref, name))).all(), name
+
+
+@pytest.mark.parametrize("n", [64, 256, 4096, 8192])
+def test_forward_inverse_match_stage_engine(n):
+    rng = np.random.default_rng(n)
+    chain, tb_ref, tb = _tables(n)
+    x = _rand(rng, chain, n, batch=(3,))
+    spec_ref = jax.jit(lambda v: ref_ntt.forward(v, tb_ref))(jnp.asarray(x.astype(np.uint32)))
+    spec = ntt.forward(_t(x), tb)
+    assert (spec.numpy() == _np(spec_ref)).all()
+    back_ref = jax.jit(lambda v: ref_ntt.inverse(v, tb_ref))(spec_ref)
+    back = ntt.inverse(spec, tb)
+    assert (back.numpy() == _np(back_ref)).all()
+    assert (back.numpy() == x).all()
+
+
+@pytest.mark.parametrize("n", [64, 4096])
+def test_polymul_matches_stage_engine(n):
+    rng = np.random.default_rng(n + 1)
+    chain, tb_ref, tb = _tables(n)
+    a, b = _rand(rng, chain, n), _rand(rng, chain, n)
+    want = jax.jit(lambda u, v: ref_ntt.negacyclic_polymul(u, v, tb_ref))(
+        jnp.asarray(a.astype(np.uint32)), jnp.asarray(b.astype(np.uint32)))
+    got = ntt.negacyclic_polymul(_t(a), _t(b), tb)
+    assert (got.numpy() == _np(want)).all()
+    # Schoolbook negacyclic product on limb 0, small n only.
+    if n == 64:
+        q = chain[0]
+        c = [0] * n
+        for i in range(n):
+            for j in range(n):
+                k, sign = (i + j, 1) if i + j < n else (i + j - n, -1)
+                c[k] += sign * int(a[0, i]) * int(b[0, j])
+        assert got[0].tolist() == [v % q for v in c]
+
+
+@pytest.mark.parametrize("n", [256, 4096])
+def test_matches_pallas_kernel_up_to_order(n):
+    rng = np.random.default_rng(n + 2)
+    chain, tb_vmem, tb = _tables(n, engine="vmem")
+    tb4 = tb_vmem.four_step
+    mono = np.zeros((len(chain), n), np.uint32)
+    mono[:, 1] = 1
+    x_spec = np.asarray(ntt_vmem.forward_vmem(jnp.asarray(mono), tb4))
+    perm = ntt.order_permutation(x_spec, tb)
+    assert sorted(perm.tolist()) == list(range(n))
+
+    x = _rand(rng, chain, n, batch=(2,))
+    spec_vmem = _np(ntt_vmem.forward_vmem(jnp.asarray(x.astype(np.uint32)), tb4))
+    spec = ntt.forward(_t(x), tb)
+    assert (spec[..., perm].numpy() == spec_vmem).all()
+    # The inverse maps back either way round.
+    back_vmem = ntt_vmem.inverse_vmem(
+        jnp.asarray(spec[..., perm].numpy().astype(np.uint32)), tb4)
+    assert (_np(back_vmem) == x).all()
+    ours = torch.empty_like(spec)
+    ours[..., torch.from_numpy(perm)] = _t(spec_vmem)
+    assert (ntt.inverse(ours, tb).numpy() == x).all()
+
+
+def test_dispatch_rejects_bad_input():
+    _, _, tb = _tables(64)
+    with pytest.raises(TypeError):
+        ntt.forward(torch.zeros((2, 64), dtype=torch.int32), tb)
+    with pytest.raises(ValueError):
+        ntt.forward(torch.zeros((3, 64), dtype=torch.int64), tb)
+    with pytest.raises(ValueError):
+        ntt.build_tables([PortModulus(q) for q in _chain(64)], 32, "cpu")
+    with pytest.raises(NotImplementedError):
+        ntt.build_tables([PortModulus((1 << 36) - 0x1FFF)], 64, "cpu")
+
+
+def test_cuda_wrapper_refuses_cpu_tensors():
+    """The kernel wrapper never runs the plain version: a CPU tensor raises."""
+    _, _, tb = _tables(64)
+    x = torch.zeros((2, 64), dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ntt_cuda.forward(x, tb)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ntt_cuda.inverse(x, tb)
+    assert ntt_cuda.launches == 0
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    from torch.utils import cpp_extension
+
+    monkeypatch.setattr(ntt_cuda, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(cpp_extension, "CUDA_HOME", None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        ntt_cuda.build()
+    assert not (tmp_path / "build").exists()

@@ -1,0 +1,186 @@
+"""The port's proximity protocol, end to end on the CPU, against the reference.
+
+* ``run_local_demo`` gives the clear-oracle verdict and the blind distance
+  s(d^2 + r) mod t on the cases of ``tests/test_protocol.py``.
+* With injected randomness (s, a, e and each message's u, e0, e1 drawn with
+  numpy) the port's roles and the reference's put byte-identical messages
+  on the wire: the three ciphertexts, w ‖ BF, and the blind distance.
+* ``import pplp_tpu_torch`` loads neither jax nor the JAX package; without a
+  card the device chooser and ``chip_smoke.py`` fail instead of falling back.
+"""
+
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pplp_tpu.bfv import Encryptor as REncryptor
+from pplp_tpu.bfv import Plaintext as RPlaintext
+from pplp_tpu.bfv.ciphertext import Ciphertext as RCiphertext
+from pplp_tpu.bfv.keys import PublicKey as RPublicKey
+from pplp_tpu.bfv.keys import SecretKey as RSecretKey
+from pplp_tpu.bfv.keys import _shoup as rshoup
+from pplp_tpu.bfv.serialize import save_ciphertext as rsave_ciphertext
+from pplp_tpu.ops import ntt as rntt
+from pplp_tpu.ops.modmath import m31 as rm31
+from pplp_tpu.protocol import ProtocolConfig as RProtocolConfig
+from pplp_tpu.protocol.roles import ProximityClient as RClient
+from pplp_tpu.protocol.roles import ProximityServer as RServer
+from pplp_tpu.utils.hexcodec import uint64_to_hex_string
+from pplp_tpu_torch import cli
+from pplp_tpu_torch.device import cuda_device
+from pplp_tpu_torch.primitives import Blinding
+from pplp_tpu_torch.protocol import ProtocolConfig, run_local_demo
+from pplp_tpu_torch.protocol.roles import ProximityClient, ProximityServer
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMALL = dict(poly_modulus_degree_bits=12, plain_modulus_bits=40, profile="tpu",
+             seed=1234, false_positive_probability=1e-6)
+
+
+@pytest.mark.parametrize(
+    "xa,ya,xb,yb,radius,expect_near",
+    [
+        (1234, 1212, 1000, 1000, 128, False),   # d^2 = 99700 > 128^2
+        (1234, 1212, 1000, 1000, 320, True),    # d^2 = 99700 < 320^2
+        (500, 500, 500, 500, 1, True),          # identical points
+        (0, 0, 100, 0, 100, False),             # boundary: d^2 == r^2 -> far
+        (0, 0, 100, 0, 101, True),
+    ],
+)
+def test_demo_verdicts_match_clear_oracle(xa, ya, xb, yb, radius, expect_near):
+    cfg = ProtocolConfig(xa=xa, ya=ya, xb=xb, yb=yb, radius=radius, **SMALL)
+    res = run_local_demo(cfg, verbose=False, device="cpu")
+    d2 = (xa - xb) ** 2 + (ya - yb) ** 2
+    assert (d2 < radius * radius) == expect_near  # oracle self-check
+    assert res.is_near == expect_near
+    bl = Blinding.for_protocol(cfg.plain_modulus_bits, cfg.sq_radius, cfg.seed)
+    assert res.blind_distance == (bl.s * (d2 + bl.r)) % cfg.plain_modulus
+    assert set(res.stage_ns) == {"setParms", "kGen", "setBF", "enc", "homoCalc", "dec"}
+    assert res.bf_device == torch.device("cpu")
+
+
+def _reference_keys(ctx, s_res, a_ntt, e_res):
+    """The reference keygen (``protocol/jitted.py::keygen_fn``) on injected
+    randomness instead of threefry draws."""
+
+    def f(s, a, e):
+        q2 = ctx.tables.q_b(1)
+        s_ntt = rntt.forward(s, ctx.tables)
+        s_shoup = rshoup(ctx, s_ntt)
+        e_ntt = rntt.forward(e, ctx.tables)
+        pk0 = rm31.neg(rm31.add(rm31.mulmod_shoup(a, s_ntt, s_shoup, q2), e_ntt, q2), q2)
+        return s_ntt, s_shoup, pk0, rshoup(ctx, pk0), rshoup(ctx, a)
+
+    s_ntt, s_shoup, pk0, pk0s, pk1s = jax.jit(f)(s_res, a_ntt, e_res)
+    return (RSecretKey(s_ntt, s_shoup),
+            RPublicKey(pk0_ntt=pk0, pk1_ntt=a_ntt, pk0_shoup=pk0s, pk1_shoup=pk1s))
+
+
+def test_wire_messages_byte_identical_with_injected_randomness():
+    kw = dict(xa=1234, ya=1212, xb=1000, yb=1000, radius=320, **SMALL)
+    cfg, rcfg = ProtocolConfig(**kw), RProtocolConfig(**kw)
+    rng = np.random.default_rng(77)
+    n = cfg.poly_modulus_degree
+    chain = cfg.encryption_parameters().coeff_modulus
+    qs = np.array(chain, dtype=np.int64)[:, None]
+    ternary = lambda: rng.integers(-1, 2, size=n)  # noqa: E731
+    noise = lambda: rng.integers(-6, 7, size=n)  # noqa: E731
+    s, e = ternary(), noise()
+    a_ntt = (rng.integers(0, 1 << 62, size=(len(chain), n)) % qs).astype(np.int64)
+    msgs = [(ternary(), noise(), noise()) for _ in range(3)]
+    res = lambda v: jnp.asarray((np.asarray(v)[None, :] % qs).astype(np.uint32))  # noqa: E731
+
+    # Reference roles: keys and encryptions from the injected arrays.
+    rclient = RClient(rcfg)
+    rsk, rpk = _reference_keys(rclient.ctx, res(s), jnp.asarray(a_ntt.astype(np.uint32)),
+                               res(e))
+    rclient.sk = rsk
+    enc = REncryptor(rclient.ctx, rpk)
+    assemble = jax.jit(lambda *a: enc._assemble(*a).polys)
+    values = (kw["xa"] ** 2 + kw["ya"] ** 2, kw["xa"] << 1, kw["ya"] << 1)
+    rblobs = []
+    for v, (u, e0, e1) in zip(values, msgs):
+        lo, hi = RPlaintext(uint64_to_hex_string(v), n=n).pair_u32(n)
+        polys = assemble(jnp.asarray(lo), jnp.asarray(hi), res(u), res(e0), res(e1))
+        rblobs.append(rsave_ciphertext(RCiphertext(tuple(polys), "coeff"), rclient.ctx))
+    rserver = RServer(rcfg)
+    rserver.receive_parms(rclient.parms_message())
+    rserver.build_bloom_filter()
+    rserver.receive_ciphertexts(rblobs)
+    rbd, rbf = rserver.blind_distance_message(), rserver.bf_message()
+    rclient.receive_bf(rbf)
+    r_near = rclient.receive_blind_distance(rbd)
+
+    # The port's roles on the same arrays.
+    client = ProximityClient(cfg, "cpu")
+    client.keygen(inject=(s, a_ntt, e))
+    blobs = client.ciphertext_messages(inject=msgs)
+    server = ProximityServer(cfg, "cpu")
+    server.receive_parms(client.parms_message())
+    server.build_bloom_filter()
+    server.receive_ciphertexts(blobs)
+    bd, bf = server.blind_distance_message(), server.bf_message()
+    client.receive_bf(bf)
+    near = client.receive_blind_distance(bd)
+
+    assert client.parms_message() == rclient.parms_message()
+    assert blobs == rblobs
+    assert bf == rbf
+    assert bd == rbd
+    assert near is r_near is True
+    assert client.blind_distance == rclient.blind_distance
+
+
+def test_import_loads_no_jax():
+    code = (
+        "import sys, pplp_tpu_torch, pplp_tpu_torch.cli, pplp_tpu_torch.protocol, "
+        "pplp_tpu_torch.ops.ntt_cuda\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+        "or m == 'pplp_tpu' or m.startswith('pplp_tpu.')]\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_cuda_device_raises_without_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cuda_device()
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_fails_without_card(where, tmp_path):
+    """No card, or no repo beside it: a non-zero exit and no result line."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; chip_smoke.py would run for real")
+    script = os.path.join(REPO, "chip_smoke.py")
+    cwd = REPO
+    if where == "alone":
+        cwd = str(tmp_path)
+        with open(script) as src, open(tmp_path / "chip_smoke.py", "w") as dst:
+            dst.write(src.read())
+        script = str(tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, script], cwd=cwd, capture_output=True,
+                         text=True, timeout=120, env=env)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_cli_demo_runs_on_cpu(capsys):
+    assert cli.main(["demo", "--device", "cpu", "-d", "12", "-b", "40", "-r", "16",
+                     "--seed", "3"]) == 0
+    assert capsys.readouterr().out.strip().splitlines()[-2] == "far"
+
+
+def test_cli_seal_profile_not_ported():
+    with pytest.raises(NotImplementedError, match="m62"):
+        cli.main(["demo", "--device", "cpu", "-d", "12", "--profile", "seal"])
