@@ -5,19 +5,31 @@
 
 Phases, each of which ends the run with a non-zero exit code if it fails:
 
-1. device  -- require CUDA; print the card (nvidia-smi name and power
-              limit), the CUDA version and the nvcc version;
-2. build   -- compile ``pplp_tpu_torch/csrc/ntt.cu`` for sm_90a;
-3. kernels -- the NTT kernel against its plain PyTorch version on the card,
-              bit-exact (tolerance 0: all arithmetic is exact integer
-              arithmetic), at n = 4096/L = 4, n = 8192/L = 8 and
-              n = 32768/L = 31 with 64 rows per limb, and at the shapes the
-              demo gives it; round trips; CUDA-event times of both;
-4. slice   -- the local proximity demo (``run_local_demo``) at -d 13 -b 56
-              on the tpu profile: r = 4096 with a near pair and r = 128 with
-              a far pair. Each verdict must equal the clear oracle, the blind
-              distance must equal s(d^2 + r) mod t, the NTT kernel must have
-              been launched and the Bloom filter must live on the card.
+1. device   -- require CUDA; print the card (nvidia-smi name and power
+               limit), the CUDA version and the nvcc version;
+2. build    -- compile every ``pplp_tpu_torch/csrc/*.cu`` for sm_90a, one
+               nvcc per source, all at once;
+3. kernels  -- the NTT kernel against its plain PyTorch version on the card,
+               bit-exact (tolerance 0: all arithmetic is exact integer
+               arithmetic), at n = 4096/L = 4, n = 8192/L = 8 and
+               n = 32768/L = 31 with 64 rows per limb, and at the shapes the
+               demo gives it; round trips; CUDA-event times of both;
+4. slice    -- the local proximity demo (``run_local_demo``) at -d 13 -b 56
+               on the tpu profile: r = 4096 with a near pair and r = 128 with
+               a far pair. Each verdict must equal the clear oracle, the blind
+               distance must equal s(d^2 + r) mod t, the NTT kernel must have
+               been launched and the Bloom filter must live on the card;
+5. multiply -- the BFV ct x ct multiply at n = 4096 on the tpu chain
+               (4 primes, |B_sk| = 6), t = 2^16, batch 256, through
+               ``Evaluator``: multiply + relinearize with width-2 (default)
+               and width-1 keys, multiply alone, relinearize alone, and one
+               real product (encrypt, multiply + relinearize, decrypt) equal
+               to the host negacyclic product. Each kernel result is
+               bit-exact against the plain version run with the plain NTTs;
+               the BEHZ kernels must have been launched; CUDA-event times of
+               kernel and plain at batch 256, and mult+relin/s;
+6. probe    -- the mulmod chain (16 Shoup products) on [256, 4, 4096],
+               bit-exact against its plain version, with times and mulmods/s.
 
 The last lines are a JSON object with one entry per kernel, the card's name
 and power limit, and the result line
@@ -38,49 +50,44 @@ DEMO_N_BITS = 13
 DEMO_T_BITS = 56
 # (radius, xa, ya, xb, yb): d^2 = 99,700 is below 4096^2 and above 128^2.
 DEMO_CASES = ((4096, 1234, 1212, 1000, 1000), (128, 1234, 1212, 1000, 1000))
-REPLACES = "pplp_tpu/ops/ntt_vmem.py:272"
-SOURCE = "pplp_tpu_torch/csrc/ntt.cu"
+MUL_N = 4096
+MUL_T_BITS = 16
+MUL_BATCH = 256
+PROBE_SHAPE = (256, 4, 4096)
+KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    "ntt_forward": ("pplp_tpu_torch/csrc/ntt.cu", "pplp_tpu/ops/ntt_vmem.py:272"),
+    "ntt_inverse": ("pplp_tpu_torch/csrc/ntt.cu", "pplp_tpu/ops/ntt_vmem.py:272"),
+    "behz_multiply_relin": ("pplp_tpu_torch/csrc/behz.cu",
+                            "pplp_tpu/bfv/behz_fused.py:257"),
+    "mulmod_chain": ("pplp_tpu_torch/csrc/mulmod_chain.cu",
+                     "scripts/gated_profile.py:105"),
+}
 
 
 def log(*args):
     print(*args, flush=True)
 
 
-def smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()
-    return out[0]
-
-
-def cuda_ms(fn, iters: int = 20) -> float:
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean milliseconds per call from CUDA events, after a warm-up."""
-    import torch
+    from pplp_tpu_torch.device import window_ms
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+    return window_ms(fn, iters)
 
 
 def phase_device():
     import torch
 
-    from pplp_tpu_torch.device import cuda_device
-    from pplp_tpu_torch.ops import ntt_cuda
+    from pplp_tpu_torch.device import cuda_device, smi_line
+    from pplp_tpu_torch.ops import cuda_build
 
     dev = cuda_device(0)
     log(f"[device] nvidia-smi: {smi_line()}")
     log(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(dev)}, count {torch.cuda.device_count()}")
-    nvcc = ntt_cuda.find_nvcc()
+    nvcc = cuda_build.find_nvcc()
     ver = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[-1]
     log(f"[device] nvcc: {nvcc}: {ver}")
@@ -88,15 +95,18 @@ def phase_device():
 
 
 def phase_build():
-    from pplp_tpu_torch.ops import ntt_cuda
+    from pplp_tpu_torch.ops import behz_cuda, cuda_build, mulmod_chain, ntt_cuda
 
     t0 = time.perf_counter()
-    path = ntt_cuda.build()
-    ntt_cuda.load()
-    log(f"[build] {path.name} in {time.perf_counter() - t0:.2f} s")
-    for line in ntt_cuda.build_info.get("log", "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"[build] ptxas: {line.strip()}")
+    paths = cuda_build.build(sorted(cuda_build.CSRC.glob("*.cu")))
+    for mod in (ntt_cuda, behz_cuda, mulmod_chain):
+        mod.load()
+    log(f"[build] {len(paths)} libraries in {time.perf_counter() - t0:.2f} s: "
+        + ", ".join(p.name for p in paths.values()))
+    for name, info in sorted(cuda_build.build_info.items()):
+        for line in info.get("log", "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"[build] {name} ptxas: {line.strip()}")
 
 
 def _random_residues(tb, batch, gen):
@@ -197,8 +207,141 @@ def phase_slice(dev):
     return launches
 
 
+def _negacyclic_mod(a, b, t):
+    """a * b mod (x^n + 1, t) on the host (int64 is exact: a, b < 2^16)."""
+    import numpy as np
+
+    n = len(a)
+    full = np.concatenate([np.convolve(a, b), [0]])
+    return [int(v) % t for v in full[:n] - full[n:]]
+
+
+def _max_err(got, want) -> int:
+    assert got.size == want.size, f"sizes {got.size} and {want.size}"
+    return max(int((x - y).abs().max()) for x, y in zip(got.polys, want.polys))
+
+
+def phase_multiply(dev):
+    """BFV ct x ct multiply + relinearization through the BEHZ kernels."""
+    import numpy as np
+    import torch
+
+    from pplp_tpu_torch import bfv
+    from pplp_tpu_torch.bfv import behz
+    from pplp_tpu_torch.bfv.behz_fused import FusedMultiplier
+    from pplp_tpu_torch.ops import behz_cuda, ntt_cuda
+
+    card = torch.cuda.get_device_name(dev)
+    parms = bfv.EncryptionParameters.bfv(MUL_N, 1 << MUL_T_BITS, profile="tpu")
+    ctx = bfv.BFVContext.build(parms, dev)
+    mul = behz.multiplier(ctx)
+    gen = torch.Generator(device=dev).manual_seed(4096)
+    sk2, rlk2 = behz.make_keys(ctx, gen)
+    rlk1 = behz.create_relin_keys(ctx, sk2, gen, width=1)
+    kg = bfv.KeyGenerator(ctx, gen)
+    sk, pk = kg.secret_key(), kg.create_public_key()
+    rlk_real = behz.create_relin_keys(ctx, sk, gen)
+    log(f"[multiply] n={ctx.n} L={ctx.L} |B_sk|={mul.K} t=2^{MUL_T_BITS} "
+        f"batch={MUL_BATCH}; key groups width 2 {rlk2.groups}, width 1 {rlk1.groups}")
+
+    def synthetic():  # random canonical residues, as bench.py::_synthetic_cts
+        x = torch.randint(0, 1 << 62, (MUL_BATCH, ctx.L, ctx.n), generator=gen,
+                          device=dev, dtype=torch.int64)
+        return x % ctx.q2
+
+    ct1 = bfv.Ciphertext((synthetic(), synthetic()))
+    ct2 = bfv.Ciphertext((synthetic(), synthetic()))
+    rng = np.random.default_rng(7)
+    ma, mb = (rng.integers(0, 1 << MUL_T_BITS, size=ctx.n) for _ in range(2))
+    enc = bfv.Encryptor(ctx, pk)
+    ca = enc.encrypt(bfv.Plaintext(ma.tolist()), gen)
+    cb = enc.encrypt(bfv.Plaintext(mb.tolist()), gen)
+
+    # The counted run: every call goes through the Evaluator, as a user's would.
+    torch.cuda.synchronize()
+    behz_cuda.reset_launches()
+    ntt_cuda.reset_launches()
+    ev = bfv.Evaluator(ctx)
+    out2 = ev.multiply_relinearize(ct1, ct2, rlk2)
+    out1 = ev.multiply_relinearize(ct1, ct2, rlk1)
+    out3 = ev.multiply(ct1, ct2)
+    rel2 = ev.relinearize(out3, rlk2)
+    real = ev.multiply_relinearize(ca, cb, rlk_real)
+    torch.cuda.synchronize()
+    launches = dict(behz_cuda.launches_by_kernel)
+    ntt_launches = dict(ntt_cuda.launches_by_kernel)
+    assert all(v > 0 for v in launches.values()), f"BEHZ kernel launches {launches}"
+    assert all(v > 0 for v in ntt_launches.values()), f"NTT launches {ntt_launches}"
+    log(f"[multiply] launches {launches}, NTT {ntt_launches}")
+
+    # Against the plain version with the plain NTTs (not counted).
+    plain3 = mul.multiply(ct1, ct2)
+    errs = {
+        "multiply": _max_err(out3, plain3),
+        "multiply_relinearize w2": _max_err(
+            out2, behz.relinearize(ctx, plain3, rlk2)),
+        "multiply_relinearize w1": _max_err(
+            out1, behz.relinearize(ctx, plain3, rlk1)),
+    }
+    errs["relinearize w2"] = _max_err(
+        rel2, behz.relinearize(ctx, plain3, rlk2))
+    log(f"[multiply] max |kernel - plain| at batch {MUL_BATCH}: {errs}")
+    assert all(e == 0 for e in errs.values()), f"kernel differs from plain: {errs}"
+    got = bfv.Decryptor(ctx, sk).decrypt(real).coeffs[: ctx.n]
+    want = _negacyclic_mod(ma, mb, 1 << MUL_T_BITS)
+    assert got == want, "decrypted product differs from the host negacyclic product"
+    log(f"[multiply] real product: decrypt(multiply_relinearize(enc a, enc b)) == "
+        f"a * b mod (x^{ctx.n} + 1, 2^{MUL_T_BITS}); first coefficients {got[:4]}")
+
+    fused = FusedMultiplier(ctx, rlk2)
+    fused1 = FusedMultiplier(ctx, rlk1)
+    t = {
+        "mr_w2": cuda_ms(lambda: fused.multiply_relinearize(ct1, ct2)),
+        "mr_w1": cuda_ms(lambda: fused1.multiply_relinearize(ct1, ct2)),
+        "multiply": cuda_ms(lambda: fused.multiply(ct1, ct2)),
+        "plain_mr_w2": cuda_ms(lambda: behz.relinearize(
+            ctx, mul.multiply(ct1, ct2), rlk2),
+            iters=3, warmup=1),
+    }
+    rate = MUL_BATCH / (t["mr_w2"] / 1e3)
+    log(f"[multiply] batch {MUL_BATCH}: multiply_relinearize w2 {t['mr_w2']:.4f} ms "
+        f"({rate:.1f} mult+relin/s), w1 {t['mr_w1']:.4f} ms, multiply alone "
+        f"{t['multiply']:.4f} ms; plain (plain NTTs) {t['plain_mr_w2']:.4f} ms [{card}]")
+    row = {"launches": sum(launches.values()), "max_abs_err": max(errs.values()),
+           "ms": t["mr_w2"], "plain_ms": t["plain_mr_w2"]}
+    return row, ntt_launches
+
+
+def phase_probe(dev):
+    """The mulmod-chain probe against its plain version."""
+    import torch
+
+    from pplp_tpu_torch.ops import mulmod_chain
+
+    card = torch.cuda.get_device_name(dev)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    x = torch.randint(0, mulmod_chain.Q, PROBE_SHAPE, generator=gen, device=dev,
+                      dtype=torch.int64)
+    torch.cuda.synchronize()
+    mulmod_chain.reset_launches()
+    y = mulmod_chain.chain(x)
+    torch.cuda.synchronize()
+    launches = mulmod_chain.launches
+    assert launches > 0, "the mulmod chain kernel was not launched"
+    err = int((y - mulmod_chain.chain_plain(x)).abs().max())
+    assert err == 0, f"mulmod chain differs from plain: {err}"
+    ms = cuda_ms(lambda: mulmod_chain.chain(x))
+    plain_ms = cuda_ms(lambda: mulmod_chain.chain_plain(x), iters=5)
+    rate = x.numel() * mulmod_chain.STEPS / (ms / 1e3)
+    log(f"[probe] mulmod chain x{mulmod_chain.STEPS} on {PROBE_SHAPE}: bit-exact, "
+        f"{ms:.4f} ms ({rate:.4e} mulmods/s), plain {plain_ms:.4f} ms [{card}]")
+    return {"launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
 def main() -> int:
     import torch
+
+    from pplp_tpu_torch.device import smi_line
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a GPU",
@@ -213,16 +356,18 @@ def main() -> int:
     demo_shapes = [(), (3,), (6,)]
     err, times = phase_kernels(dev, demo_shapes)
     launches = phase_slice(dev)
+    rows = {}
+    rows["behz_multiply_relin"], mult_ntt = phase_multiply(dev)
+    rows["mulmod_chain"] = phase_probe(dev)
     main_shape = (6, len(tpu_default(1 << DEMO_N_BITS)), 1 << DEMO_N_BITS)
-    kernels = []
     for name in ("ntt_forward", "ntt_inverse"):
         ms, plain_ms = times[main_shape][name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES, "launches": launches[name],
-            "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
-        })
-    log(f"[kernels] ms and plain_ms below are at shape {main_shape}")
+        rows[name] = {"launches": launches[name] + mult_ntt[name],
+                      "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms}
+    kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep, **rows[name]}
+               for name, (src, rep) in KERNELS.items()]
+    log(f"[kernels] NTT ms and plain_ms below are at shape {main_shape}; "
+        f"behz_multiply_relin at batch {MUL_BATCH} (width 2); mulmod_chain at {PROBE_SHAPE}")
     log(json.dumps({"kernels": kernels}))
     log(smi_line())
     print(json.dumps({"ok": True, "device": {

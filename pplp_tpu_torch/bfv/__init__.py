@@ -1,6 +1,7 @@
 """BFV on PyTorch: parameters, context, keys, encrypt, evaluate, decrypt.
 
-Counterpart of ``pplp_tpu.bfv`` for what the proximity protocol uses, on the
+Counterpart of ``pplp_tpu.bfv`` for what the proximity protocol uses and
+the ct x ct multiply with relinearization (``behz``, ``behz_fused``), on the
 ``m31`` arithmetic (primes below 2^30).
 """
 

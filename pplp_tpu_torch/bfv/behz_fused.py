@@ -1,0 +1,62 @@
+"""BEHZ multiply + relinearization through the hand-written kernels.
+
+Counterpart of ``pplp_tpu.bfv.behz_fused.FusedMultiplier``. On a CUDA
+context every call goes to ``ops.behz_cuda`` (``csrc/behz.cu`` plus the NTT
+kernel); on a CPU context to the plain version (``bfv.behz``). The results
+are the same bit for bit.
+
+Ciphertexts may carry a leading batch: polynomials [..., L, n]. Contexts are
+built the port's one way (stage spectrum order), so there is no engine
+requirement; relinearization reads the gadget width (1 or 2) from the keys.
+"""
+
+from __future__ import annotations
+
+from .behz import KSwitchKeys, _check_pair, multiplier, relinearize
+from .ciphertext import Ciphertext
+from .context import BFVContext
+
+__all__ = ["FusedMultiplier"]
+
+
+class FusedMultiplier:
+    def __init__(self, ctx: BFVContext, rlk: KSwitchKeys | None = None):
+        self.ctx = ctx
+        self.rlk = rlk
+        self.mul = multiplier(ctx)
+
+    @property
+    def on_card(self) -> bool:
+        return self.ctx.device.type == "cuda"
+
+    def _keys(self) -> KSwitchKeys:
+        if self.rlk is None:
+            raise ValueError("this FusedMultiplier was built without relinearization keys")
+        return self.rlk
+
+    def multiply(self, ct1: Ciphertext, ct2: Ciphertext) -> Ciphertext:
+        """Tensor product without relinearization: a size-3 ciphertext."""
+        _check_pair(ct1, ct2)
+        if not self.on_card:
+            return self.mul.multiply(ct1, ct2)
+        from ..ops import behz_cuda
+
+        out = behz_cuda.multiply(*ct1.polys, *ct2.polys, self.mul)
+        return Ciphertext(tuple(out.unbind(0)), "coeff")
+
+    def relinearize(self, ct: Ciphertext) -> Ciphertext:
+        """Size 3 -> size 2 with this multiplier's keys."""
+        rlk = self._keys()
+        if not self.on_card:
+            return relinearize(self.ctx, ct, rlk)
+        if ct.size != 3 or ct.domain != "coeff":
+            raise ValueError("relinearize takes a size-3 coefficient-domain ciphertext")
+        from ..ops import behz_cuda
+
+        out = behz_cuda.relinearize(*ct.polys, self.ctx, rlk)
+        return Ciphertext(tuple(out.unbind(0)), "coeff")
+
+    def multiply_relinearize(self, ct1: Ciphertext, ct2: Ciphertext) -> Ciphertext:
+        """The product, relinearized: a size-2 ciphertext."""
+        self._keys()
+        return self.relinearize(self.multiply(ct1, ct2))

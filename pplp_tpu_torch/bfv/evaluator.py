@@ -1,10 +1,15 @@
-"""Homomorphic evaluation: add/sub, plain add/multiply, NTT-domain chaining.
+"""Homomorphic evaluation: add/sub, plain add/multiply, ct x ct multiply and
+relinearization, NTT-domain chaining, modulus switching.
 
-Counterpart of ``pplp_tpu.bfv.evaluator`` for the operations the protocol
-uses. Every op is exact modular ring arithmetic and the NTT is a ring
-isomorphism, so a chained expression can transform each operand once,
-combine in the spectrum and transform back once, bit-identical to the
-op-by-op coefficient-domain chain.
+Counterpart of ``pplp_tpu.bfv.evaluator``. Every op is exact modular ring
+arithmetic and the NTT is a ring isomorphism, so a chained expression can
+transform each operand once, combine in the spectrum and transform back
+once, bit-identical to the op-by-op coefficient-domain chain.
+
+``multiply``, ``relinearize`` and ``multiply_relinearize`` run the BEHZ
+multiply with RNS-gadget keys (``bfv.behz``): on a CUDA context through the
+hand-written kernels (``bfv.behz_fused.FusedMultiplier``), on a CPU context
+through the plain version.
 """
 
 from __future__ import annotations
@@ -15,15 +20,17 @@ from ..ops import ntt
 from ..ops.modmath import m31
 from .ciphertext import Ciphertext
 from .context import BFVContext
-from .keys import shoup
+from .keys import SecretKey, shoup
 from .plaintext import Plaintext
+from .rescale import make_divide_round_last
 
-__all__ = ["Evaluator"]
+__all__ = ["Evaluator", "mod_switch_to_next", "restrict_secret_key"]
 
 
 class Evaluator:
     def __init__(self, ctx: BFVContext):
         self.ctx = ctx
+        self._fused = None  # FusedMultiplier of the last keys used
 
     # -- ct (+|-) ct ----------------------------------------------------
 
@@ -45,6 +52,28 @@ class Evaluator:
 
     def sub(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         return self._zip(a, b, m31.sub)
+
+    # -- ct * ct ----------------------------------------------------------
+
+    def _multiplier(self, keys=None):
+        from .behz_fused import FusedMultiplier
+
+        if self._fused is None or self._fused.rlk is not keys:
+            self._fused = FusedMultiplier(self.ctx, keys)
+        return self._fused
+
+    def multiply(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        """BEHZ full-RNS multiply (size-3 result; relinearize to shrink)."""
+        fused = self._fused if self._fused is not None else self._multiplier()
+        return fused.multiply(a, b)
+
+    def relinearize(self, ct: Ciphertext, keys) -> Ciphertext:
+        """Size 3 -> size 2 with RNS-gadget keys (``behz.KSwitchKeys``)."""
+        return self._multiplier(keys).relinearize(ct)
+
+    def multiply_relinearize(self, a: Ciphertext, b: Ciphertext, keys) -> Ciphertext:
+        """``relinearize(multiply(a, b), keys)``."""
+        return self._multiplier(keys).multiply_relinearize(a, b)
 
     # -- ct (+) plain ---------------------------------------------------
 
@@ -91,3 +120,24 @@ class Evaluator:
         q2 = self.ctx.q2
         return Ciphertext(
             tuple(m31.mulmod_shoup(c, m_ntt, m_shoup, q2) for c in a.polys), "ntt")
+
+
+def mod_switch_to_next(ctx: BFVContext, ct: Ciphertext):
+    """Drop the last prime of the chain: x -> round(x / q_last) per component.
+
+    Returns (the smaller context, the switched ciphertext); decrypt with the
+    secret key restricted to the head limbs (``restrict_secret_key``)."""
+    if ctx.L < 2:
+        raise ValueError("nothing left to switch: the chain has one prime")
+    if ct.domain != "coeff":
+        raise ValueError("mod_switch_to_next takes a coefficient-domain ciphertext")
+    new_ctx = BFVContext.build(
+        ctx.parms.with_coeff_modulus(ctx.parms.coeff_modulus[:-1]), ctx.device)
+    one_poly = make_divide_round_last(new_ctx, ctx.moduli[-1].value, ctx.L)
+    return new_ctx, Ciphertext(tuple(one_poly(p) for p in ct.polys), "coeff")
+
+
+def restrict_secret_key(ctx_small: BFVContext, sk):
+    """Project a secret key onto a context with fewer (head) limbs."""
+    s = sk.s_ntt[..., : ctx_small.L, :]
+    return SecretKey(s_ntt=s, s_shoup=shoup(ctx_small, s))

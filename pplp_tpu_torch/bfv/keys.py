@@ -18,7 +18,7 @@ from . import sampling
 from .context import BFVContext
 
 __all__ = ["SecretKey", "PublicKey", "KeyGenerator", "shoup",
-           "make_keys", "keys_from_reference"]
+           "make_keys", "keys_from_reference", "from_reference_array"]
 
 
 def shoup(ctx: BFVContext, w: torch.Tensor) -> torch.Tensor:
@@ -81,24 +81,27 @@ class KeyGenerator:
         return self._make()[1]
 
 
-def keys_from_reference(ctx: BFVContext, s_ntt, s_shoup, pk0_ntt, pk1_ntt,
-                        pk0_shoup, pk1_shoup, perm=None):
-    """The reference's key arrays (numpy, [L, n]) as the port's keys.
+def from_reference_array(ctx: BFVContext, a, perm=None) -> torch.Tensor:
+    """A reference key array (numpy, [..., L, n]) on the port's device.
 
     Stage-engine spectra carry over as they are. For another engine's
     spectrum order pass ``perm`` from ``ntt.order_permutation`` (port order
     indexed by ``perm`` gives the other order); entries are moved back into
-    the port's order. Shoup companions move with their values.
+    the port's order."""
+    t = torch.as_tensor(np.asarray(a, dtype=np.int64), device=ctx.device)
+    if perm is None:
+        return t
+    out = torch.empty_like(t)
+    out[..., torch.as_tensor(perm, device=ctx.device)] = t
+    return out
+
+
+def keys_from_reference(ctx: BFVContext, s_ntt, s_shoup, pk0_ntt, pk1_ntt,
+                        pk0_shoup, pk1_shoup, perm=None):
+    """The reference's key arrays (numpy, [L, n]) as the port's keys; ``perm``
+    as in ``from_reference_array``. Shoup companions move with their values.
     """
-
-    def put(a):
-        t = torch.as_tensor(np.asarray(a, dtype=np.int64), device=ctx.device)
-        if perm is None:
-            return t
-        out = torch.empty_like(t)
-        out[..., torch.as_tensor(perm, device=ctx.device)] = t
-        return out
-
+    put = lambda a: from_reference_array(ctx, a, perm)  # noqa: E731
     return (
         SecretKey(s_ntt=put(s_ntt), s_shoup=put(s_shoup)),
         PublicKey(pk0_ntt=put(pk0_ntt), pk1_ntt=put(pk1_ntt),

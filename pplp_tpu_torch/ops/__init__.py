@@ -1,1 +1,2 @@
-"""Modular arithmetic, the NTT and its CUDA kernel wrapper."""
+"""Modular arithmetic, the NTT, and the loader and wrappers of the CUDA
+kernels (NTT, BEHZ multiply + relinearization, mulmod chain)."""

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["M32", "mul32", "mulhi32", "m31"]
+__all__ = ["M32", "mul32", "mulhi32", "shoup_ints", "m31"]
 
 M32 = 0xFFFFFFFF
 _U16 = 0xFFFF
@@ -35,6 +35,13 @@ def mul32(a, b):
 def mulhi32(a, b):
     """High 32 bits of the product of two values below 2^32."""
     return mul32(a, b)[1]
+
+
+def shoup_ints(vals, qs):
+    """Host constants: (w mod q, floor((w mod q) * 2^32 / q)) per modulus q,
+    as two lists of Python ints."""
+    w = [int(v) % q for v, q in zip(vals, qs)]
+    return w, [(v << 32) // q for v, q in zip(w, qs)]
 
 
 class m31:

@@ -1,4 +1,5 @@
-"""The port on a CUDA card: the NTT kernel against its plain version.
+"""The port on a CUDA card: the hand-written kernels against their plain
+versions (the NTT, the BEHZ multiply + relinearization, the mulmod chain).
 
 Every test here is marked ``cuda`` and skips without a card. This file
 imports neither jax nor the JAX package, so it also runs where jax is not
@@ -11,10 +12,14 @@ Comparisons are bit-exact (tolerance 0): all arithmetic is exact integer
 arithmetic.
 """
 
+import numpy as np
 import pytest
 import torch
 
-from pplp_tpu_torch.ops import ntt, ntt_cuda
+from pplp_tpu_torch import bfv
+from pplp_tpu_torch.bfv import behz, behz_fused
+from pplp_tpu_torch.bfv.behz_fused import FusedMultiplier
+from pplp_tpu_torch.ops import behz_cuda, mulmod_chain, ntt, ntt_cuda
 from pplp_tpu_torch.ops.primes import Modulus, get_primes, tpu_default
 
 pytestmark = pytest.mark.cuda
@@ -91,3 +96,150 @@ def test_demo_on_card(dev):
     bl = Blinding.for_protocol(cfg.plain_modulus_bits, cfg.sq_radius, cfg.seed)
     assert res.blind_distance == bl.s * (99_700 + bl.r) % cfg.plain_modulus
     assert res.bf_device.type == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# The BEHZ multiply + relinearization (csrc/behz.cu)
+# ---------------------------------------------------------------------------
+
+KAT_CHAIN = (268432897, 268428161, 134217089)  # tests/fixtures/bfv_kat_n64_m31.json.gz
+
+
+def _bfv_ctx(n, dev):
+    chain = KAT_CHAIN if n == 64 else tpu_default(n)
+    parms = bfv.EncryptionParameters.bfv(n, 1 << 16, coeff_modulus=chain)
+    return bfv.BFVContext.build(parms, dev)
+
+
+def _cts(ctx, batch, seed):
+    tb = ctx.tables
+    polys = [_residues(tb, batch, seed + i) for i in range(4)]
+    polys[0][..., :2] = tb.q_b(1) - 1
+    return bfv.Ciphertext(tuple(polys[:2])), bfv.Ciphertext(tuple(polys[2:]))
+
+
+def _same(a, b):
+    return a.size == b.size and all(torch.equal(x, y) for x, y in zip(a.polys, b.polys))
+
+
+@pytest.mark.parametrize("n", [64, 4096])
+def test_behz_kernel_matches_plain(dev, n):
+    ctx = _bfv_ctx(n, dev)
+    g = torch.Generator(device=dev).manual_seed(n)
+    sk, _ = behz.make_keys(ctx, g)
+    rlk1, rlk2 = (behz.create_relin_keys(ctx, sk, g, width=w) for w in (1, 2))
+    assert rlk1.groups != rlk2.groups
+    ct1, ct2 = _cts(ctx, (3,), n)
+    mul = behz.multiplier(ctx)
+    plain3 = mul.multiply(ct1, ct2)
+    behz_cuda.reset_launches()
+    got3 = FusedMultiplier(ctx).multiply(ct1, ct2)
+    torch.cuda.synchronize()
+    assert _same(got3, plain3)
+    assert behz_cuda.launches == 4  # to_bsk, tensor x 2, floor_sk
+    for rlk in (rlk1, rlk2):
+        want = behz.relinearize(ctx, plain3, rlk)
+        fused = FusedMultiplier(ctx, rlk)
+        assert _same(fused.multiply_relinearize(ct1, ct2), want)
+        behz_cuda.reset_launches()
+        assert _same(fused.relinearize(plain3), want)  # the relinearization alone
+        assert behz_cuda.launches == 3  # lift, keyprod, add
+
+
+def test_evaluator_on_card_runs_the_kernels_only(dev, monkeypatch):
+    ctx = _bfv_ctx(4096, dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    _, rlk = behz.make_keys(ctx, g)
+    ct1, ct2 = _cts(ctx, (2,), 5)
+    mul = behz.multiplier(ctx)
+    want3 = mul.multiply(ct1, ct2)
+    want = behz.relinearize(ctx, want3, rlk)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    for owner, name in ((behz.RnsMultiplier, "multiply"), (behz, "relinearize"),
+                        (behz_fused, "relinearize"), (ntt, "forward_plain"),
+                        (ntt, "inverse_plain")):
+        monkeypatch.setattr(owner, name, refuse)
+    behz_cuda.reset_launches()
+    ntt_cuda.reset_launches()
+    ev = bfv.Evaluator(ctx)
+    assert _same(ev.multiply(ct1, ct2), want3)
+    assert _same(ev.relinearize(want3, rlk), want)
+    assert _same(ev.multiply_relinearize(ct1, ct2, rlk), want)
+    assert behz_cuda.launches_by_kernel == {
+        "behz_to_bsk": 2, "behz_tensor": 4, "behz_floor_sk": 2,
+        "behz_lift": 2, "behz_keyprod": 2, "behz_add": 2}
+    assert ntt_cuda.launches > 0
+
+
+def test_real_product_decrypts_on_card(dev):
+    ctx = _bfv_ctx(4096, dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    kg = bfv.KeyGenerator(ctx, g)
+    sk, pk = kg.secret_key(), kg.create_public_key()
+    rlk = behz.create_relin_keys(ctx, sk, g)
+    rng = np.random.default_rng(0)
+    a, b = (rng.integers(0, 1 << 16, size=ctx.n) for _ in range(2))
+    enc, ev, dec = bfv.Encryptor(ctx, pk), bfv.Evaluator(ctx), bfv.Decryptor(ctx, sk)
+    ca, cb = enc.encrypt(bfv.Plaintext(a.tolist()), g), enc.encrypt(bfv.Plaintext(b.tolist()), g)
+    full = np.concatenate([np.convolve(a, b), [0]])
+    want = [int(v) % (1 << 16) for v in full[: ctx.n] - full[ctx.n:]]
+    assert dec.decrypt(ev.multiply_relinearize(ca, cb, rlk)).coeffs[: ctx.n] == want
+    assert dec.decrypt(ev.multiply(ca, cb)).coeffs[: ctx.n] == want  # size 3
+
+
+def test_behz_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    ctx = _bfv_ctx(4096, dev)
+    mul = behz.multiplier(ctx)
+    g = torch.Generator(device=dev).manual_seed(2)
+    _, rlk = behz.make_keys(ctx, g)
+    ct1, ct2 = _cts(ctx, (2,), 9)
+    c0, c1 = ct1.polys
+    d0, d1 = ct2.polys
+    before = behz_cuda.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        behz_cuda.multiply(c0.cpu(), c1, d0, d1, mul)
+    with pytest.raises(TypeError):
+        behz_cuda.multiply(c0.to(torch.int32), c1, d0, d1, mul)
+    with pytest.raises(ValueError, match="contiguous"):
+        wide = torch.stack([c0, c0], dim=-1)[..., 0]
+        behz_cuda.multiply(wide, c1, d0, d1, mul)
+    with pytest.raises(ValueError):
+        behz_cuda.multiply(c0[..., :2048].contiguous(), c1, d0, d1, mul)
+    with pytest.raises(ValueError):
+        behz_cuda.multiply(c0[:1], c1, d0, d1, mul)
+    with pytest.raises(ValueError, match="relin keys"):
+        bad = behz.KSwitchKeys(rlk.k0[:1], rlk.k0_shoup[:1], rlk.k1[:1], rlk.k1_shoup[:1],
+                               groups=rlk.groups)
+        behz_cuda.relinearize(c0, c1, d0, ctx, bad)
+    assert behz_cuda.launches == before
+
+
+# ---------------------------------------------------------------------------
+# The mulmod chain (csrc/mulmod_chain.cu)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("steps", [0, 1, 16, 37])
+def test_mulmod_chain_matches_plain(dev, steps):
+    g = torch.Generator(device=dev).manual_seed(steps)
+    x = torch.randint(0, mulmod_chain.Q, (256, 4, 4096), generator=g, device=dev,
+                      dtype=torch.int64)
+    x[0, 0, :3] = torch.tensor([0, mulmod_chain.Q - 1, (1 << 32) - 1])
+    before = mulmod_chain.launches
+    got = mulmod_chain.chain(x, steps=steps)
+    torch.cuda.synchronize()
+    assert torch.equal(got, mulmod_chain.chain_plain(x, steps=steps))
+    assert mulmod_chain.launches == before + 1
+
+
+def test_mulmod_chain_refuses_what_the_kernel_does_not_take(dev):
+    x = torch.zeros((4, 64), dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        mulmod_chain.chain_cuda(x.cpu())
+    with pytest.raises(TypeError):
+        mulmod_chain.chain_cuda(x.to(torch.int32))
+    with pytest.raises(ValueError, match="contiguous"):
+        mulmod_chain.chain_cuda(x.T)

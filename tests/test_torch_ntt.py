@@ -144,11 +144,12 @@ def test_cuda_wrapper_refuses_cpu_tensors():
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     from torch.utils import cpp_extension
 
-    monkeypatch.setattr(ntt_cuda, "BUILD_DIR", tmp_path / "build")
+    from pplp_tpu_torch.ops import cuda_build
+
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.delenv("CUDA_PATH", raising=False)
     monkeypatch.setattr(cpp_extension, "CUDA_HOME", None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        ntt_cuda.build()
+        cuda_build.build([ntt_cuda.SOURCE], tmp_path / "build")
     assert not (tmp_path / "build").exists()

@@ -140,7 +140,9 @@ def test_wire_messages_byte_identical_with_injected_randomness():
 def test_import_loads_no_jax():
     code = (
         "import sys, pplp_tpu_torch, pplp_tpu_torch.cli, pplp_tpu_torch.protocol, "
-        "pplp_tpu_torch.ops.ntt_cuda\n"
+        "pplp_tpu_torch.ops.ntt_cuda, pplp_tpu_torch.ops.behz_cuda, "
+        "pplp_tpu_torch.ops.mulmod_chain, pplp_tpu_torch.bfv.behz_fused, "
+        "pplp_tpu_torch.bfv.rescale, pplp_tpu_torch.measure_multiply\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'pplp_tpu' or m.startswith('pplp_tpu.')]\n"
         "assert not bad, bad\n"
