@@ -9,16 +9,19 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
                limit), the CUDA version and the nvcc version;
 2. build    -- compile every ``pplp_tpu_torch/csrc/*.cu`` for sm_90a, one
                nvcc per source, all at once;
-3. kernels  -- the NTT kernel against its plain PyTorch version on the card,
-               bit-exact (tolerance 0: all arithmetic is exact integer
-               arithmetic), at n = 4096/L = 4, n = 8192/L = 8 and
-               n = 32768/L = 31 with 64 rows per limb, and at the shapes the
-               demo gives it; round trips; CUDA-event times of both;
-4. slice    -- the local proximity demo (``run_local_demo``) at -d 13 -b 56
-               on the tpu profile: r = 4096 with a near pair and r = 128 with
-               a far pair. Each verdict must equal the clear oracle, the blind
-               distance must equal s(d^2 + r) mod t, the NTT kernel must have
-               been launched and the Bloom filter must live on the card;
+3. kernels  -- the NTT kernels against their plain PyTorch versions on the
+               card, bit-exact (tolerance 0: all arithmetic is exact integer
+               arithmetic): the u32 kernel on the tpu chains n = 4096/L = 4,
+               8192/L = 8 and 32768/L = 31, the u64 kernel on the seal chains
+               n = 4096/L = 3, 8192/L = 5, 16384/L = 9 and 32768/L = 16 (the
+               split path), with 64 rows per limb, and both at the shapes the
+               demo gives them; round trips; CUDA-event times of both;
+4. slice    -- the local proximity demo (``run_local_demo``) at -d 13 -b 56,
+               on the seal profile (the CLI's default) and on the tpu profile:
+               r = 4096 with a near pair and r = 128 with a far pair. Each
+               verdict must equal the clear oracle, the blind distance must
+               equal s(d^2 + r) mod t, the profile's NTT kernel must have been
+               launched and the Bloom filter must live on the card;
 5. multiply -- the BFV ct x ct multiply at n = 4096 on the tpu chain
                (4 primes, |B_sk| = 6), t = 2^16, batch 256, through
                ``Evaluator``: multiply + relinearize with width-2 (default)
@@ -29,7 +32,18 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
                the BEHZ kernels must have been launched; CUDA-event times of
                kernel and plain at batch 256, and mult+relin/s;
 6. probe    -- the mulmod chain (16 Shoup products) on [256, 4, 4096],
-               bit-exact against its plain version, with times and mulmods/s.
+               bit-exact against its plain version, with times and mulmods/s;
+7. pipeline -- BASELINE config[3], ``build_packed_pipeline_bf``: 102,400
+               coefficient-packed checks (25 rows at n = 4096, tpu chain,
+               t = 2^20, s = 501, r = 99, w = 0xA5A5, a filter of r^2 keys at
+               fpp 1e-4, half the points near). Every result must equal the
+               host oracle (clear blind distance -> key -> probe) with no false
+               negatives, the device decode must equal the host CRT decode on
+               two rows, and the NTT kernel must have been launched; the
+               step's CUDA-event time (median of windows), its split
+               (homomorphic evaluation / decode / probe), checks/s, peak
+               memory, and the device's busy share and largest kernels
+               under ``torch.profiler``.
 
 The last lines are a JSON object with one entry per kernel, the card's name
 and power limit, and the result line
@@ -44,7 +58,9 @@ import subprocess
 import sys
 import time
 
-KERNEL_SHAPES = ((4096, 4), (8192, 8), (32768, 31))
+KERNEL_SHAPES = (("tpu", 4096, 4), ("tpu", 8192, 8), ("tpu", 32768, 31),
+                 ("seal", 4096, 3), ("seal", 8192, 5), ("seal", 16384, 9),
+                 ("seal", 32768, 16))
 ROWS_PER_LIMB = 64
 DEMO_N_BITS = 13
 DEMO_T_BITS = 56
@@ -54,9 +70,17 @@ MUL_N = 4096
 MUL_T_BITS = 16
 MUL_BATCH = 256
 PROBE_SHAPE = (256, 4, 4096)
+PIPE_N, PIPE_T_BITS, PIPE_ROWS = 4096, 20, 25
+PIPE_XB, PIPE_YB, PIPE_S, PIPE_R, PIPE_W = 1000, 900, 501, 99, 0xA5A5
+PIPE_PROFILE_STEPS = 10
+PROFILE_NTT = {"tpu": ("ntt_forward", "ntt_inverse"),
+               "seal": ("ntt_forward_u64", "ntt_inverse_u64")}
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "ntt_forward": ("pplp_tpu_torch/csrc/ntt.cu", "pplp_tpu/ops/ntt_vmem.py:272"),
     "ntt_inverse": ("pplp_tpu_torch/csrc/ntt.cu", "pplp_tpu/ops/ntt_vmem.py:272"),
+    # No TPU kernel: the reference runs m62 through its XLA stage engine.
+    "ntt_forward_u64": ("pplp_tpu_torch/csrc/ntt.cu", "pplp_tpu/ops/ntt.py:205"),
+    "ntt_inverse_u64": ("pplp_tpu_torch/csrc/ntt.cu", "pplp_tpu/ops/ntt.py:205"),
     "behz_multiply_relin": ("pplp_tpu_torch/csrc/behz.cu",
                             "pplp_tpu/bfv/behz_fused.py:257"),
     "mulmod_chain": ("pplp_tpu_torch/csrc/mulmod_chain.cu",
@@ -117,54 +141,65 @@ def _random_residues(tb, batch, gen):
     return x % tb.q_b(1)
 
 
+def _chain(profile, n):
+    from pplp_tpu_torch.ops.primes import bfv_default, tpu_default
+
+    return (tpu_default if profile == "tpu" else bfv_default)(n)
+
+
 def phase_kernels(dev, demo_shapes):
-    """Kernel vs plain version; returns per-kernel max error and times."""
+    """Kernels vs plain versions; returns per-kernel max error and times
+    keyed by (profile, shape)."""
     import torch
 
     from pplp_tpu_torch.ops import ntt, ntt_cuda
-    from pplp_tpu_torch.ops.primes import Modulus, tpu_default
+    from pplp_tpu_torch.ops.primes import Modulus
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(2024)
     card = torch.cuda.get_device_name(dev)
-    err = {"ntt_forward": 0, "ntt_inverse": 0}
+    err = {name: 0 for names in PROFILE_NTT.values() for name in names}
     times = {}
-    cases = [(n, L, (ROWS_PER_LIMB,)) for n, L in KERNEL_SHAPES]
-    cases += [(1 << DEMO_N_BITS, None, b) for b in demo_shapes]
+    cases = [(prof, n, (ROWS_PER_LIMB,)) for prof, n, _ in KERNEL_SHAPES]
+    cases += [(prof, 1 << DEMO_N_BITS, b) for prof in PROFILE_NTT for b in demo_shapes]
     tables = {}
-    for n, L, batch in cases:
-        if n not in tables:
-            tables[n] = ntt.build_tables(
-                [Modulus(q) for q in tpu_default(n)], n, dev)
-        tb = tables[n]
+    for prof, n, batch in cases:
+        if (prof, n) not in tables:
+            tables[prof, n] = ntt.build_tables(
+                [Modulus(q) for q in _chain(prof, n)], n, dev)
+        tb = tables[prof, n]
+        fwd, inv = PROFILE_NTT[prof]
         x = _random_residues(tb, batch, gen)
         fk = ntt_cuda.forward(x, tb)
         fp = ntt.forward_plain(x, tb)
         ik = ntt_cuda.inverse(fp, tb)
         ip = ntt.inverse_plain(fp, tb)
         torch.cuda.synchronize()
+        shape = tuple(x.shape)
         e_f = int((fk - fp).abs().max())
         e_i = int((ik - ip).abs().max())
-        assert e_f == 0, f"forward kernel differs from plain at {tuple(x.shape)}: {e_f}"
-        assert e_i == 0, f"inverse kernel differs from plain at {tuple(x.shape)}: {e_i}"
-        assert torch.equal(ik, x), f"round trip is not the identity at {tuple(x.shape)}"
-        err["ntt_forward"] = max(err["ntt_forward"], e_f)
-        err["ntt_inverse"] = max(err["ntt_inverse"], e_i)
+        assert e_f == 0, f"{fwd} differs from plain at {shape}: {e_f}"
+        assert e_i == 0, f"{inv} differs from plain at {shape}: {e_i}"
+        assert torch.equal(ik, x), f"{prof} round trip is not the identity at {shape}"
+        err[fwd] = max(err[fwd], e_f)
+        err[inv] = max(err[inv], e_i)
+        # The plain m62 transforms run ~100 int64 ops per stage: fewer calls.
+        iters, warm = (20, 3) if prof == "tpu" else (3, 1)
         t = {
-            "ntt_forward": (cuda_ms(lambda: ntt_cuda.forward(x, tb)),
-                            cuda_ms(lambda: ntt.forward_plain(x, tb))),
-            "ntt_inverse": (cuda_ms(lambda: ntt_cuda.inverse(fp, tb)),
-                            cuda_ms(lambda: ntt.inverse_plain(fp, tb))),
+            fwd: (cuda_ms(lambda: ntt_cuda.forward(x, tb)),
+                  cuda_ms(lambda: ntt.forward_plain(x, tb), iters, warm)),
+            inv: (cuda_ms(lambda: ntt_cuda.inverse(fp, tb)),
+                  cuda_ms(lambda: ntt.inverse_plain(fp, tb), iters, warm)),
         }
-        times[tuple(x.shape)] = t
-        log(f"[kernels] shape {tuple(x.shape)} bit-exact fwd+inv, round trip ok; "
-            f"forward {t['ntt_forward'][0]:.4f} ms (plain {t['ntt_forward'][1]:.4f}), "
-            f"inverse {t['ntt_inverse'][0]:.4f} ms (plain {t['ntt_inverse'][1]:.4f}) "
-            f"[{card}]")
+        times[prof, shape] = t
+        log(f"[kernels] {prof} shape {shape} bit-exact fwd+inv, round trip ok; "
+            f"{fwd} {t[fwd][0]:.4f} ms (plain {t[fwd][1]:.4f}), "
+            f"{inv} {t[inv][0]:.4f} ms (plain {t[inv][1]:.4f}) [{card}]")
     return err, times
 
 
 def phase_slice(dev):
+    """The demo on each profile; returns the NTT launches of these runs."""
     import torch
 
     from pplp_tpu_torch.ops import ntt_cuda
@@ -172,38 +207,40 @@ def phase_slice(dev):
     from pplp_tpu_torch.protocol import ProtocolConfig, run_local_demo
 
     launches = {k: 0 for k in ntt_cuda.launches_by_kernel}
-    for radius, xa, ya, xb, yb in DEMO_CASES:
-        cfg = ProtocolConfig(
-            xa=xa, ya=ya, xb=xb, yb=yb, radius=radius,
-            plain_modulus_bits=DEMO_T_BITS,
-            poly_modulus_degree_bits=DEMO_N_BITS, profile="tpu", seed=7,
-        )
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        ntt_cuda.reset_launches()
-        res = run_local_demo(cfg, verbose=False, device=dev)
-        torch.cuda.synchronize()
-        run_launches = dict(ntt_cuda.launches_by_kernel)
-        peak = torch.cuda.max_memory_allocated(dev)
-        d2 = (xa - xb) ** 2 + (ya - yb) ** 2
-        near = d2 < radius * radius
-        bl = Blinding.for_protocol(cfg.plain_modulus_bits, cfg.sq_radius, cfg.seed)
-        assert res.is_near == near, f"r={radius}: verdict {res.verdict}, oracle {near}"
-        assert res.blind_distance == bl.s * (d2 + bl.r) % cfg.plain_modulus, (
-            f"r={radius}: blind distance {res.blind_distance:#x} is not s(d^2+r) mod t")
-        assert all(v > 0 for v in run_launches.values()), (
-            f"r={radius}: NTT kernel launches {run_launches}")
-        assert res.bf_device.type == "cuda", "Bloom filter is not on the card"
-        for k, v in run_launches.items():
-            launches[k] += v
-        stages = ", ".join(f"{k} {v / 1e6:.3f} ms" for k, v in res.stage_ns.items())
-        log(f"[slice] r={radius} d^2={d2}: {res.verdict} (oracle "
-            f"{'near' if near else 'far'}), blind distance {res.blind_distance:#x}, "
-            f"launches {run_launches}")
-        log(f"[slice] r={radius} stages: {stages}; total {res.elapsed_s:.3f} s")
-        log(f"[slice] r={radius} BF {res.bf_table_bits} bits held as "
-            f"{res.bf_table_bits} bytes on {res.bf_device}, {res.bf_wire_bytes} "
-            f"wire bytes; peak device memory {peak} bytes")
+    for profile in ("seal", "tpu"):
+        for radius, xa, ya, xb, yb in DEMO_CASES:
+            cfg = ProtocolConfig(
+                xa=xa, ya=ya, xb=xb, yb=yb, radius=radius,
+                plain_modulus_bits=DEMO_T_BITS,
+                poly_modulus_degree_bits=DEMO_N_BITS, profile=profile, seed=7,
+            )
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            ntt_cuda.reset_launches()
+            res = run_local_demo(cfg, verbose=False, device=dev)
+            torch.cuda.synchronize()
+            run_launches = dict(ntt_cuda.launches_by_kernel)
+            peak = torch.cuda.max_memory_allocated(dev)
+            d2 = (xa - xb) ** 2 + (ya - yb) ** 2
+            near = d2 < radius * radius
+            bl = Blinding.for_protocol(cfg.plain_modulus_bits, cfg.sq_radius, cfg.seed)
+            tag = f"{profile} r={radius}"
+            assert res.is_near == near, f"{tag}: verdict {res.verdict}, oracle {near}"
+            assert res.blind_distance == bl.s * (d2 + bl.r) % cfg.plain_modulus, (
+                f"{tag}: blind distance {res.blind_distance:#x} is not s(d^2+r) mod t")
+            assert all(run_launches[k] > 0 for k in PROFILE_NTT[profile]), (
+                f"{tag}: NTT kernel launches {run_launches}")
+            assert res.bf_device.type == "cuda", "Bloom filter is not on the card"
+            for k, v in run_launches.items():
+                launches[k] += v
+            stages = ", ".join(f"{k} {v / 1e6:.3f} ms" for k, v in res.stage_ns.items())
+            log(f"[slice] {tag} d^2={d2}: {res.verdict} (oracle "
+                f"{'near' if near else 'far'}), blind distance {res.blind_distance:#x}, "
+                f"launches {run_launches}")
+            log(f"[slice] {tag} stages: {stages}; total {res.elapsed_s:.3f} s")
+            log(f"[slice] {tag} BF {res.bf_table_bits} bits held as "
+                f"{res.bf_table_bits} bytes on {res.bf_device}, {res.bf_wire_bytes} "
+                f"wire bytes; peak device memory {peak} bytes")
     return launches
 
 
@@ -271,7 +308,8 @@ def phase_multiply(dev):
     launches = dict(behz_cuda.launches_by_kernel)
     ntt_launches = dict(ntt_cuda.launches_by_kernel)
     assert all(v > 0 for v in launches.values()), f"BEHZ kernel launches {launches}"
-    assert all(v > 0 for v in ntt_launches.values()), f"NTT launches {ntt_launches}"
+    assert all(ntt_launches[k] > 0 for k in PROFILE_NTT["tpu"]), (
+        f"NTT launches {ntt_launches}")
     log(f"[multiply] launches {launches}, NTT {ntt_launches}")
 
     # Against the plain version with the plain NTTs (not counted).
@@ -338,6 +376,111 @@ def phase_probe(dev):
     return {"launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
+def _median_ms(fn, windows: int = 7, iters: int = 5) -> float:
+    """Median over ``windows`` CUDA-event windows of ``iters`` calls each."""
+    import statistics
+
+    from pplp_tpu_torch.device import window_ms
+
+    fn()
+    return statistics.median(window_ms(fn, iters) for _ in range(windows))
+
+
+def phase_pipeline(dev):
+    """BASELINE config[3]: 102,400 packed checks through the whole step."""
+    import numpy as np
+    import torch
+
+    from pplp_tpu_torch import bfv
+    from pplp_tpu_torch.bfv.rns_decrypt import get_decoder
+    from pplp_tpu_torch.measure_multiply import profile_phases
+    from pplp_tpu_torch.ops import ntt_cuda
+    from pplp_tpu_torch.parallel import pipeline
+
+    card = torch.cuda.get_device_name(dev)
+    t = 1 << PIPE_T_BITS
+    w_len = PIPE_W.bit_length()
+    ctx = bfv.BFVContext.build(bfv.EncryptionParameters.bfv(PIPE_N, t, profile="tpu"), dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    kg = bfv.KeyGenerator(ctx, gen)
+    sk, pk = kg.secret_key(), kg.create_public_key()
+    bf = pipeline.build_pipeline_filter(t, PIPE_S, PIPE_R, PIPE_W, dev)
+    bits, salts = bf.bits_device, bf._salts_device()
+
+    # Half the points near (inside r of (xb, yb)), half anywhere, as in
+    # tests/test_parallel.py's 100k-check test.
+    total = PIPE_ROWS * PIPE_N
+    rng = np.random.default_rng(7)
+    near = rng.random(total) < 0.5
+    dx = rng.integers(-PIPE_R + 1, PIPE_R, total)
+    dy_cap = np.sqrt(np.maximum(PIPE_R**2 - 1 - dx**2, 0)).astype(np.int64)
+    dy = (rng.integers(0, 2**31, total) % (2 * dy_cap + 1)) - dy_cap
+    xa = np.where(near, PIPE_XB + dx, rng.integers(0, 4000, total)).astype(np.uint64)
+    ya = np.where(near, PIPE_YB + dy, rng.integers(0, 4000, total)).astype(np.uint64)
+    cts = pipeline.make_packed_inputs(ctx, bfv.Encryptor(ctx, pk), xa, ya, gen)
+    fn = pipeline.build_packed_pipeline_bf(ctx, sk, PIPE_XB, PIPE_YB, PIPE_S, PIPE_R,
+                                           PIPE_W, w_len)
+    log(f"[pipeline] n={ctx.n} L={ctx.L} t=2^{PIPE_T_BITS} rows={PIPE_ROWS} "
+        f"checks={total}; BF {bf.table_size} bits, {bf.salt_count} hashes")
+
+    # The counted run.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ntt_cuda.reset_launches()
+    got = fn(*cts, bits, salts, bf.table_size)
+    torch.cuda.synchronize()
+    launches = dict(ntt_cuda.launches_by_kernel)
+    peak = torch.cuda.max_memory_allocated(dev)
+    assert all(launches[k] > 0 for k in PROFILE_NTT["tpu"]), f"NTT launches {launches}"
+
+    # Host oracle, all in numpy and Python ints: clear blind distance -> key
+    # -> the filter's host scalar probe (the byte-wise AP hash).
+    d2 = (xa.astype(np.int64) - PIPE_XB) ** 2 + (ya.astype(np.int64) - PIPE_YB) ** 2
+    bd_clear = (PIPE_S * (d2 + PIPE_R)) % t
+    keys = (bd_clear.astype(np.uint64) << np.uint64(w_len)) | np.uint64(PIPE_W)
+    want = np.array([bf.contains_u64(int(k)) for k in keys])
+    flat = got.reshape(-1).cpu().numpy()
+    assert flat.shape[0] == total
+    mismatches = int((flat != want).sum())
+    assert mismatches == 0, f"{mismatches} of {total} checks differ from the oracle"
+    truly_near = d2 < PIPE_R**2
+    assert bool(flat[truly_near].all()), "a near check came out far"
+
+    hom = pipeline.build_batched_pipeline(ctx, sk, PIPE_XB, PIPE_YB, PIPE_S, PIPE_R,
+                                          packed=True)
+    decode = get_decoder(ctx).decode_mod_t
+    x = hom(*cts)
+    bd = decode(x)
+    assert torch.equal(bd.reshape(-1), torch.as_tensor(bd_clear, device=dev))
+    for r in (0, PIPE_ROWS - 1):
+        assert ctx.decode_plain_from_ct_value(x[r].cpu().numpy()) == bd[r].tolist(), (
+            f"device decode differs from the host CRT decode on row {r}")
+    n_near = int(flat.sum())
+    log(f"[pipeline] all {total} checks equal the host oracle ({n_near} near, "
+        f"{int(truly_near.sum())} truly near, no false negatives); device decode == "
+        f"host CRT decode on rows 0 and {PIPE_ROWS - 1}; launches {launches}")
+
+    t_step = _median_ms(lambda: fn(*cts, bits, salts, bf.table_size))
+    t_hom = _median_ms(lambda: hom(*cts))
+    t_dec = _median_ms(lambda: decode(x))
+    t_probe = _median_ms(lambda: pipeline.bf_probe(bd, PIPE_W, w_len, bits, salts,
+                                                   bf.table_size))
+    log(f"[pipeline] step {t_step:.4f} ms ({total / (t_step / 1e3):.1f} checks/s): "
+        f"homomorphic evaluation {t_hom:.4f} ms, decode {t_dec:.4f} ms, probe "
+        f"{t_probe:.4f} ms (medians of 7 windows of 5); peak device memory {peak} "
+        f"bytes [{card}]")
+    prof = profile_phases(lambda: fn(*cts, bits, salts, bf.table_size), PIPE_PROFILE_STEPS)
+    kernels = prof["phases"]
+    per_step = sum(v["launches_per_call"] for v in kernels.values())
+    top = "; ".join(f"{name.removeprefix('other: ')[:48]} {v['ms_per_call']:.4f} ms"
+                    for name, v in list(kernels.items())[:3])
+    log(f"[pipeline] torch.profiler over {PIPE_PROFILE_STEPS} steps: device busy "
+        f"{prof['busy_ms'] / PIPE_PROFILE_STEPS:.4f} ms per step, "
+        f"{100 * prof['busy_share']:.1f}% of the window; {per_step:.0f} kernels per "
+        f"step; largest: {top}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -349,8 +492,6 @@ def main() -> int:
         return 1
     dev = phase_device()
     phase_build()
-    from pplp_tpu_torch.ops.primes import tpu_default
-
     # The demo's transform shapes: one polynomial (decrypt), three
     # (encrypt, plaintext spectra) and six (the blind distance's stack).
     demo_shapes = [(), (3,), (6,)]
@@ -359,15 +500,20 @@ def main() -> int:
     rows = {}
     rows["behz_multiply_relin"], mult_ntt = phase_multiply(dev)
     rows["mulmod_chain"] = phase_probe(dev)
-    main_shape = (6, len(tpu_default(1 << DEMO_N_BITS)), 1 << DEMO_N_BITS)
-    for name in ("ntt_forward", "ntt_inverse"):
-        ms, plain_ms = times[main_shape][name]
-        rows[name] = {"launches": launches[name] + mult_ntt[name],
-                      "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms}
+    pipe_ntt = phase_pipeline(dev)
+    n = 1 << DEMO_N_BITS
+    main_shapes = {prof: (6, len(_chain(prof, n)), n) for prof in PROFILE_NTT}
+    for prof, names in PROFILE_NTT.items():
+        for name in names:
+            ms, plain_ms = times[prof, main_shapes[prof]][name]
+            rows[name] = {"launches": launches[name] + mult_ntt[name] + pipe_ntt[name],
+                          "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep, **rows[name]}
                for name, (src, rep) in KERNELS.items()]
-    log(f"[kernels] NTT ms and plain_ms below are at shape {main_shape}; "
-        f"behz_multiply_relin at batch {MUL_BATCH} (width 2); mulmod_chain at {PROBE_SHAPE}")
+    log(f"[kernels] NTT ms and plain_ms below are at the demo's blind-distance shape "
+        f"(u32: tpu {main_shapes['tpu']}, u64: seal {main_shapes['seal']}); "
+        f"behz_multiply_relin at batch {MUL_BATCH} (width 2); mulmod_chain at "
+        f"{PROBE_SHAPE}")
     log(json.dumps({"kernels": kernels}))
     log(smi_line())
     print(json.dumps({"ok": True, "device": {

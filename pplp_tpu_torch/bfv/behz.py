@@ -76,6 +76,8 @@ class RnsMultiplier:
     kernel packs them, ``ops.behz_cuda``) and as [K, 1] device columns."""
 
     def __init__(self, ctx: BFVContext):
+        if ctx.tables.profile != "m31":
+            raise NotImplementedError("the BEHZ multiply is ported for the m31 profile only")
         self.ctx = ctx
         n, t, k = ctx.n, ctx.t, ctx.L
         q = ctx.q

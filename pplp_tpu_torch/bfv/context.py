@@ -8,6 +8,11 @@ coefficient m as round(q*m/t) mod each q_i:
 With t up to 2^56, (q mod t)*m reaches 2^112, so ``fix`` is computed exactly
 with host Python ints over the plaintext before it moves to the device;
 plaintexts are host data here. ``fix`` <= m, so it fits 64 bits.
+
+Both residue profiles: ``prof`` is the tables' arithmetic (``m31``, or
+``m62`` bound to the chain's ratio words); on m62 the Shoup companion of
+Delta is 64-bit (an int64 bit pattern) and 64-bit values reduce through
+``m62.reduce128``.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import numpy as np
 import torch
 
 from ..ops import ntt
-from ..ops.modmath import M32, m31
+from ..ops.modmath import M32, as_int64_bits
 from ..ops.primes import Modulus
 from .params import EncryptionParameters
 
@@ -61,6 +66,10 @@ class BFVContext:
         return self.tables.device
 
     @property
+    def prof(self):
+        return self.tables.prof
+
+    @property
     def moduli(self):
         return self.tables.moduli
 
@@ -91,6 +100,7 @@ class BFVContext:
             return torch.tensor(vals, dtype=torch.int64, device=tables.device)
 
         qhat = tuple(q // m.value for m in moduli)
+        shoup_bits = tables.prof.shoup_bits
         return BFVContext(
             parms=parms,
             tables=tables,
@@ -99,7 +109,8 @@ class BFVContext:
             delta=delta,
             q_mod_t=q % t,
             delta_mod_q=per_limb(lambda m: delta % m.value),
-            delta_shoup=per_limb(lambda m: m.shoup(delta % m.value, 32)),
+            delta_shoup=per_limb(
+                lambda m: as_int64_bits(m.shoup(delta % m.value, shoup_bits))),
             t_mod_q=per_limb(lambda m: t % m.value),
             qhat=qhat,
             qhat_inv=tuple(pow(h % m.value, -1, m.value) for h, m in zip(qhat, moduli)),
@@ -113,8 +124,8 @@ class BFVContext:
         """Host (lo, hi) u32 words of 64-bit values [..., n] -> residues
         [..., L, n] on the device."""
         lo, hi = (torch.as_tensor(np.asarray(a, dtype=np.int64), device=self.device)
-                  for a in (m_lo, m_hi))
-        return m31.reduce64(lo.unsqueeze(-2), hi.unsqueeze(-2), self.q2)
+                  .unsqueeze(-2) for a in (m_lo, m_hi))
+        return self.prof.reduce_words((lo, hi), self.q2)
 
     def scale_plain(self, m_lo, m_hi) -> torch.Tensor:
         """round(q*m/t) mod q_i for host plaintext coefficient pairs [..., n]."""
@@ -123,9 +134,9 @@ class BFVContext:
         fix = fix.astype(np.uint64)  # fix <= m < 2^64
         fix_rns = self.reduce_u64_to_rns(fix & np.uint64(M32), fix >> np.uint64(32))
         m_rns = self.reduce_u64_to_rns(m_lo, m_hi)
-        q2 = self.q2
-        dm = m31.mulmod_shoup(m_rns, self.delta_mod_q, self.delta_shoup, q2)
-        return m31.add(dm, fix_rns, q2)
+        p, q2 = self.prof, self.q2
+        dm = p.mulmod_shoup(m_rns, self.delta_mod_q, self.delta_shoup, q2)
+        return p.add(dm, fix_rns, q2)
 
     def lift_plain_centered(self, m_lo, m_hi) -> torch.Tensor:
         """Centered lift of plaintext coefficients into R_q (multiply_plain).
@@ -136,7 +147,7 @@ class BFVContext:
         m_rns = self.reduce_u64_to_rns(m_lo, m_hi)
         is_upper = torch.as_tensor(m >= np.uint64((self.t + 1) // 2),
                                    device=self.device).unsqueeze(-2)
-        shifted = m31.sub(m_rns, self.t_mod_q, self.q2)
+        shifted = self.prof.sub(m_rns, self.t_mod_q, self.q2)
         return torch.where(is_upper, shifted, m_rns)
 
     # ------------------------------------------------------------------

@@ -11,7 +11,6 @@ from __future__ import annotations
 import torch
 
 from ..ops import ntt
-from ..ops.modmath import m31
 from . import sampling
 from .ciphertext import Ciphertext
 from .context import BFVContext
@@ -36,6 +35,15 @@ class Encryptor:
         e1 = sampling.cbd_poly(generator, ctx, batch)
         return self.assemble(m_lo, m_hi, u, e0, e1)
 
+    def encrypt_pairs_from_bits(self, m_lo, m_hi, u_bits, e0_bits, e1_bits) -> Ciphertext:
+        """``encrypt_pairs`` with the samplers' words injected (ternary words
+        [..., n], CBD words [..., 2, n]): given the words the reference's
+        ``encrypt_pairs`` drew, the same ciphertext."""
+        ctx = self.ctx
+        return self.assemble(m_lo, m_hi, sampling.ternary_poly_from_bits(u_bits, ctx),
+                             sampling.cbd_poly_from_bits(e0_bits, ctx),
+                             sampling.cbd_poly_from_bits(e1_bits, ctx))
+
     def encrypt_with_randomness(self, plain: Plaintext, u, e0, e1) -> Ciphertext:
         """Encrypt with injected coefficient-domain residues u, e0, e1
         [L, n] (the known-answer hook)."""
@@ -45,16 +53,16 @@ class Encryptor:
 
     def assemble(self, m_lo, m_hi, u, e0, e1) -> Ciphertext:
         ctx, pk = self.ctx, self.pk
-        q2 = ctx.q2
+        p, q2 = ctx.prof, ctx.q2
         u_ntt = ntt.forward(u, ctx.tables)
         prods = torch.stack([
-            m31.mulmod_shoup(u_ntt, pk.pk0_ntt, pk.pk0_shoup, q2),
-            m31.mulmod_shoup(u_ntt, pk.pk1_ntt, pk.pk1_shoup, q2),
+            p.mulmod_shoup(u_ntt, pk.pk0_ntt, pk.pk0_shoup, q2),
+            p.mulmod_shoup(u_ntt, pk.pk1_ntt, pk.pk1_shoup, q2),
         ])
         c0, c1 = ntt.inverse(prods, ctx.tables)
         scaled_m = ctx.scale_plain(m_lo, m_hi)
-        c0 = m31.add(m31.add(c0, e0, q2), scaled_m, q2)
-        c1 = m31.add(c1, e1, q2)
+        c0 = p.add(p.add(c0, e0, q2), scaled_m, q2)
+        c1 = p.add(c1, e1, q2)
         return Ciphertext(polys=(c0, c1), domain="coeff")
 
     def encrypt(self, plain: Plaintext, generator: torch.Generator) -> Ciphertext:

@@ -6,10 +6,12 @@ arithmetic and the NTT is a ring isomorphism, so a chained expression can
 transform each operand once, combine in the spectrum and transform back
 once, bit-identical to the op-by-op coefficient-domain chain.
 
-``multiply``, ``relinearize`` and ``multiply_relinearize`` run the BEHZ
-multiply with RNS-gadget keys (``bfv.behz``): on a CUDA context through the
-hand-written kernels (``bfv.behz_fused.FusedMultiplier``), on a CPU context
-through the plain version.
+Add, sub and the plain operations run on both residue profiles (through
+``ctx.prof``). ``multiply``, ``relinearize`` and ``multiply_relinearize``
+run the BEHZ multiply with RNS-gadget keys (``bfv.behz``): on a CUDA
+context through the hand-written kernels (``bfv.behz_fused.FusedMultiplier``),
+on a CPU context through the plain version. They and ``mod_switch_to_next``
+are m31 only: on an m62 (seal) context they raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -17,7 +19,6 @@ from __future__ import annotations
 import torch
 
 from ..ops import ntt
-from ..ops.modmath import m31
 from .ciphertext import Ciphertext
 from .context import BFVContext
 from .keys import SecretKey, shoup
@@ -27,6 +28,14 @@ from .rescale import make_divide_round_last
 __all__ = ["Evaluator", "mod_switch_to_next", "restrict_secret_key"]
 
 
+def _require_m31(ctx: BFVContext, what: str):
+    if ctx.tables.profile != "m31":
+        raise NotImplementedError(
+            f"{what} on the m62 (seal) profile is not ported yet: it needs the "
+            "m62 branches of bfv/behz.py and bfv/rescale.py and a CUDA route for "
+            "the m62 multiply, the next slice of the port; use the tpu profile")
+
+
 class Evaluator:
     def __init__(self, ctx: BFVContext):
         self.ctx = ctx
@@ -34,13 +43,14 @@ class Evaluator:
 
     # -- ct (+|-) ct ----------------------------------------------------
 
-    def _zip(self, a: Ciphertext, b: Ciphertext, fn) -> Ciphertext:
+    def _zip(self, a: Ciphertext, b: Ciphertext, subtract: bool) -> Ciphertext:
         assert a.domain == b.domain
-        q2 = self.ctx.q2
+        p, q2 = self.ctx.prof, self.ctx.q2
+        fn = p.sub if subtract else p.add
         polys = []
         for i in range(max(a.size, b.size)):
             if i >= a.size:
-                polys.append(b.polys[i] if fn is m31.add else m31.neg(b.polys[i], q2))
+                polys.append(p.neg(b.polys[i], q2) if subtract else b.polys[i])
             elif i >= b.size:
                 polys.append(a.polys[i])
             else:
@@ -48,16 +58,17 @@ class Evaluator:
         return Ciphertext(tuple(polys), a.domain)
 
     def add(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
-        return self._zip(a, b, m31.add)
+        return self._zip(a, b, subtract=False)
 
     def sub(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
-        return self._zip(a, b, m31.sub)
+        return self._zip(a, b, subtract=True)
 
     # -- ct * ct ----------------------------------------------------------
 
     def _multiplier(self, keys=None):
         from .behz_fused import FusedMultiplier
 
+        _require_m31(self.ctx, "the ct x ct multiply")
         if self._fused is None or self._fused.rlk is not keys:
             self._fused = FusedMultiplier(self.ctx, keys)
         return self._fused
@@ -85,8 +96,8 @@ class Evaluator:
     def add_plain(self, a: Ciphertext, plain) -> Ciphertext:
         assert a.domain == "coeff"
         term = self.ctx.scale_plain(*self._plain_pairs(plain))
-        return Ciphertext((m31.add(a.polys[0], term, self.ctx.q2),) + a.polys[1:],
-                          a.domain)
+        return Ciphertext((self.ctx.prof.add(a.polys[0], term, self.ctx.q2),)
+                          + a.polys[1:], a.domain)
 
     # -- ct * plain -----------------------------------------------------
 
@@ -117,9 +128,9 @@ class Evaluator:
         """Pointwise ct * plain with both already in the NTT domain."""
         assert a.domain == "ntt"
         m_ntt, m_shoup = spectrum
-        q2 = self.ctx.q2
+        p, q2 = self.ctx.prof, self.ctx.q2
         return Ciphertext(
-            tuple(m31.mulmod_shoup(c, m_ntt, m_shoup, q2) for c in a.polys), "ntt")
+            tuple(p.mulmod_shoup(c, m_ntt, m_shoup, q2) for c in a.polys), "ntt")
 
 
 def mod_switch_to_next(ctx: BFVContext, ct: Ciphertext):
@@ -127,6 +138,7 @@ def mod_switch_to_next(ctx: BFVContext, ct: Ciphertext):
 
     Returns (the smaller context, the switched ciphertext); decrypt with the
     secret key restricted to the head limbs (``restrict_secret_key``)."""
+    _require_m31(ctx, "mod_switch_to_next")
     if ctx.L < 2:
         raise ValueError("nothing left to switch: the chain has one prime")
     if ct.domain != "coeff":

@@ -1,8 +1,9 @@
 """Key generation: ternary secret, RLWE public key, held in the NTT domain.
 
 Counterpart of ``pplp_tpu.bfv.keys``. Keys carry Shoup companions so every
-key product in encrypt/decrypt is the 3-multiply fast path. Spectra are in
-the port's (stage engine's) order.
+key product in encrypt/decrypt is the Shoup fast path (32-bit companions on
+m31, 64-bit ones as int64 bit patterns on m62). Spectra are in the port's
+(stage engine's) order.
 """
 
 from __future__ import annotations
@@ -13,7 +14,6 @@ import numpy as np
 import torch
 
 from ..ops import ntt
-from ..ops.modmath import m31
 from . import sampling
 from .context import BFVContext
 
@@ -22,8 +22,9 @@ __all__ = ["SecretKey", "PublicKey", "KeyGenerator", "shoup",
 
 
 def shoup(ctx: BFVContext, w: torch.Tensor) -> torch.Tensor:
-    """Shoup companions floor(w * 2^32 / q_i) of residues [..., L, n]."""
-    return m31.shoup_precompute(w, ctx.q2)
+    """Shoup companions floor(w * 2^b / q_i) of residues [..., L, n]
+    (b = 32 on m31, 64 on m62)."""
+    return ctx.prof.shoup_precompute(w, ctx.q2)
 
 
 @dataclass
@@ -45,11 +46,11 @@ def make_keys(ctx: BFVContext, s: torch.Tensor, a_ntt: torch.Tensor,
     """Keys from a coefficient-domain secret s, a uniform a (NTT domain, as
     the reference samples it) and coefficient-domain noise e:
     pk0 = -(a*s + e), pk1 = a."""
-    q2 = ctx.q2
+    p, q2 = ctx.prof, ctx.q2
     spec = ntt.forward(torch.stack([s, e]), ctx.tables)
     s_ntt, e_ntt = spec[0], spec[1]
     s_shoup = shoup(ctx, s_ntt)
-    pk0 = m31.neg(m31.add(m31.mulmod_shoup(a_ntt, s_ntt, s_shoup, q2), e_ntt, q2), q2)
+    pk0 = p.neg(p.add(p.mulmod_shoup(a_ntt, s_ntt, s_shoup, q2), e_ntt, q2), q2)
     return (
         SecretKey(s_ntt=s_ntt, s_shoup=s_shoup),
         PublicKey(pk0_ntt=pk0, pk1_ntt=a_ntt,
@@ -81,14 +82,24 @@ class KeyGenerator:
         return self._make()[1]
 
 
+def _int64_bits(a) -> np.ndarray:
+    """A reference array: u32 values (m31) or a (lo, hi) u32 pair (m62, one
+    64-bit value per entry) -> int64 holding the same bits."""
+    if isinstance(a, (tuple, list)):
+        lo, hi = (np.asarray(x).astype(np.uint64) for x in a)
+        return (lo | (hi << np.uint64(32))).view(np.int64)
+    return np.asarray(a).astype(np.int64)
+
+
 def from_reference_array(ctx: BFVContext, a, perm=None) -> torch.Tensor:
-    """A reference key array (numpy, [..., L, n]) on the port's device.
+    """A reference key array ([..., L, n]: numpy u32 on m31, a (lo, hi) pair
+    of them on m62) on the port's device, as int64 with the same bits.
 
     Stage-engine spectra carry over as they are. For another engine's
     spectrum order pass ``perm`` from ``ntt.order_permutation`` (port order
     indexed by ``perm`` gives the other order); entries are moved back into
     the port's order."""
-    t = torch.as_tensor(np.asarray(a, dtype=np.int64), device=ctx.device)
+    t = torch.as_tensor(_int64_bits(a), device=ctx.device)
     if perm is None:
         return t
     out = torch.empty_like(t)
@@ -98,8 +109,9 @@ def from_reference_array(ctx: BFVContext, a, perm=None) -> torch.Tensor:
 
 def keys_from_reference(ctx: BFVContext, s_ntt, s_shoup, pk0_ntt, pk1_ntt,
                         pk0_shoup, pk1_shoup, perm=None):
-    """The reference's key arrays (numpy, [L, n]) as the port's keys; ``perm``
-    as in ``from_reference_array``. Shoup companions move with their values.
+    """The reference's key arrays ([L, n], either profile's form) as the
+    port's keys; ``perm`` as in ``from_reference_array``. All six leaves
+    carry over, the Shoup companions moving with their values.
     """
     put = lambda a: from_reference_array(ctx, a, perm)  # noqa: E731
     return (

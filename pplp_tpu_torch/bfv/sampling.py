@@ -7,16 +7,15 @@ reference's exact mapping from words to samples: given the words that
 return what the reference sampler returns for that key. The port does not
 reproduce threefry itself; tests inject the same words into both.
 
-Shapes of the words: uniform ``[*batch, 2, L, n]``, ternary ``[*batch, n]``,
-CBD ``[*batch, 2, n]``.
+Shapes of the words: uniform ``[*batch, 2, L, n]`` on m31 and
+``[*batch, 4, L, n]`` on m62 (a 128-bit value reduced mod q_i, as the
+reference draws it), ternary ``[*batch, n]``, CBD ``[*batch, 2, n]``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-
-from ..ops.modmath import m31
 
 __all__ = ["uniform_rq", "ternary_poly", "cbd_poly", "uniform_rq_from_bits",
            "ternary_poly_from_bits", "cbd_poly_from_bits", "lift_small", "lift_signed"]
@@ -43,7 +42,7 @@ def _popcount32(x: torch.Tensor) -> torch.Tensor:
 def lift_small(mag: torch.Tensor, is_neg: torch.Tensor, ctx) -> torch.Tensor:
     """Lift |x| < 2^30 with sign into every RNS limb: [*batch, L, n]."""
     pos = mag.unsqueeze(-2).expand(mag.shape[:-1] + (ctx.L, ctx.n))
-    return torch.where(is_neg.unsqueeze(-2), m31.neg(pos, ctx.q2), pos)
+    return torch.where(is_neg.unsqueeze(-2), ctx.prof.neg(pos, ctx.q2), pos)
 
 
 def lift_signed(values, ctx) -> torch.Tensor:
@@ -53,9 +52,11 @@ def lift_signed(values, ctx) -> torch.Tensor:
 
 
 def uniform_rq_from_bits(bits, ctx) -> torch.Tensor:
-    """Uniform element of R_q from words [*batch, 2, L, n]: (hi:lo) mod q_i."""
+    """Uniform element of R_q from words [*batch, 2, L, n] (m31: (hi:lo)
+    mod q_i) or [*batch, 4, L, n] (m62: the 128-bit value mod q_i)."""
     b = bits if torch.is_tensor(bits) else _as_words(bits, ctx.device)
-    return m31.reduce64(b[..., 0, :, :], b[..., 1, :, :], ctx.q2)
+    p = ctx.prof
+    return p.reduce_words(tuple(b[..., i, :, :] for i in range(p.uniform_words)), ctx.q2)
 
 
 def ternary_poly_from_bits(bits, ctx) -> torch.Tensor:
@@ -76,7 +77,8 @@ def cbd_poly_from_bits(bits, ctx) -> torch.Tensor:
 def uniform_rq(generator: torch.Generator, ctx, batch=()) -> torch.Tensor:
     """Uniform element of R_q: independent residues [*batch, L, n]."""
     return uniform_rq_from_bits(
-        _words(generator, tuple(batch) + (2, ctx.L, ctx.n), ctx.device), ctx)
+        _words(generator, tuple(batch) + (ctx.prof.uniform_words, ctx.L, ctx.n),
+               ctx.device), ctx)
 
 
 def ternary_poly(generator: torch.Generator, ctx, batch=()) -> torch.Tensor:

@@ -1,12 +1,12 @@
 """Command line of the port: the local demo (the reference's ``./pplp``).
 
-    python -m pplp_tpu_torch.cli demo --profile tpu [--device cuda] [...]
+    python -m pplp_tpu_torch.cli demo [--profile seal|tpu] [--device cuda] [...]
 
 Flags keep the reference's names, defaults and range checks
 (``pplp_tpu.cli``), with one addition: ``--device``, the torch device the
 demo runs on (``cuda`` by default; ``cpu`` runs the plain PyTorch versions).
-Only the ``tpu`` profile runs: ``--profile seal`` raises NotImplementedError
-(its 36-44-bit primes need the m62 arithmetic, not ported yet). The client,
+The default profile is ``seal``, the SEAL-4.1-style chain (m62 arithmetic,
+the u64 NTT kernel on a card); ``tpu`` runs primes below 2^30. The client,
 server, tc, ts and 2pc subcommands are not ported yet.
 """
 
@@ -44,8 +44,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="bit length of plain modulus")
     d.add_argument("--poly_modulus_degree", "-d", type=_ranged(12, 15), default=13,
                    help="set degree of polynomial(2^d)")
-    d.add_argument("--profile", choices=["seal", "tpu"], default="tpu",
-                   help="coeff-modulus chain profile (only tpu is ported)")
+    d.add_argument("--profile", choices=["seal", "tpu"], default="seal",
+                   help="coeff-modulus chain profile")
     d.add_argument("--device", default="cuda", help="torch device, e.g. cuda or cpu")
     return ap
 

@@ -1,25 +1,33 @@
-"""Negacyclic NTT/INTT over RNS prime chains (m31 profile), on int64 tensors.
+"""Negacyclic NTT/INTT over RNS prime chains (m31 and m62), on int64 tensors.
 
 Counterpart of ``pplp_tpu.ops.ntt`` with one engine and one spectrum order:
 the stage engine's. ``forward`` consumes standard coefficient order and
 produces the spectrum in bit-reversed order (index i holds the evaluation
 at psi^(2 brv(i) + 1)); ``inverse`` consumes that order.
 
+The profile follows the chain, as in the reference: every prime below 2^30
+is ``m31``, every prime in [2^32, 2^62) is ``m62``; a mix is refused.
+``NttTables.prof`` is the arithmetic of the profile.
+
 ``forward`` and ``inverse`` dispatch on the tensor's device: a CUDA tensor
-goes to the hand-written kernel (``ntt_cuda``, ``csrc/ntt.cu``), a CPU
-tensor to ``forward_plain`` / ``inverse_plain``, which follow the stage
-engine's butterfly sweeps (``pplp_tpu/ops/ntt.py:215-267``) op for op.
+goes to the hand-written kernel of the profile (``ntt_cuda``,
+``csrc/ntt.cu``: u32 for m31, u64 for m62), a CPU tensor to
+``forward_plain`` / ``inverse_plain``. On m31 these follow the stage
+engine's butterfly sweeps (``pplp_tpu/ops/ntt.py:215-267``) op for op; on
+m62 they run the same sweeps with canonical butterflies, since a lazy value
+up to 4q does not fit int64. Canonical outputs agree bit for bit.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Sequence
 
 import numpy as np
 import torch
 
-from .modmath import m31
+from .modmath import as_int64_bits, m31, m62
 from .primes import Modulus
 
 __all__ = [
@@ -59,12 +67,15 @@ class NttTables:
     """Twiddle tables for one RNS chain at one degree, on one device.
 
     ``w``/``iw`` are bit-reversed psi / psi^-1 powers [L, n] and ``ws``/``iws``
-    their Shoup companions floor(w * 2^32 / q); ``n_inv``/``n_inv_s`` [L].
-    All int64. ``kernel_buffers`` caches the u32 copies the CUDA kernel reads.
+    their Shoup companions floor(w * 2^b / q), b = 32 (m31) or 64 (m62, kept
+    as int64 bit patterns); ``n_inv``/``n_inv_s`` [L]. All int64. ``mu`` is
+    floor(2^128 / q) as three 32-bit words [3, L] on m62 (None on m31).
+    ``kernel_buffers`` caches the u32 copies the m31 CUDA kernel reads.
     """
 
     n: int
     logn: int
+    profile: str  # "m31" | "m62"
     moduli: tuple[Modulus, ...]
     device: torch.device
     q: torch.Tensor
@@ -74,11 +85,22 @@ class NttTables:
     iws: torch.Tensor
     n_inv: torch.Tensor
     n_inv_s: torch.Tensor
+    mu: torch.Tensor | None = None
     kernel_buffers: dict = field(default_factory=dict, repr=False)
 
     @property
     def L(self) -> int:
         return len(self.moduli)
+
+    @functools.cached_property
+    def prof(self):
+        """The profile's arithmetic: ``m31``, or ``m62`` bound to this
+        chain's ratio words, so both take the same arguments."""
+        return m31 if self.profile == "m31" else m62(self.mu_b(1))
+
+    def mu_b(self, extra_dims: int) -> tuple:
+        """m62 ratio words (r0, r1, r2), each shaped like ``q_b(extra_dims)``."""
+        return tuple(r.reshape((self.L,) + (1,) * extra_dims) for r in self.mu)
 
     def q_b(self, extra_dims: int) -> torch.Tensor:
         """q shaped [L, 1, ...] to broadcast against [..., L, <extra_dims>]."""
@@ -90,11 +112,13 @@ def build_tables(moduli: Sequence[Modulus], n: int, device) -> NttTables:
     logn = n.bit_length() - 1
     if 1 << logn != n or not MIN_N <= n <= MAX_N:
         raise ValueError(f"n must be a power of two in [{MIN_N}, {MAX_N}], got {n}")
-    if not all(m.value < (1 << 30) for m in moduli):
-        raise NotImplementedError(
-            "primes of 30 bits or more need the m62 arithmetic and a 64-bit "
-            "NTT kernel, which are not ported yet; use the 'tpu' profile"
+    profile = "m31" if all(m.value < (1 << 30) for m in moduli) else "m62"
+    if profile == "m62" and not all(1 << 32 <= m.value < 1 << 62 for m in moduli):
+        raise ValueError(
+            "the m62 profile needs every prime in [2^32, 2^62); do not mix "
+            "primes below 2^30 into a wide chain"
         )
+    shoup_bits = (m31 if profile == "m31" else m62).shoup_bits
     brv = _bitrev_perm(logn)
     rows = {"w": [], "ws": [], "iw": [], "iws": []}
     n_inv, n_inv_s = [], []
@@ -106,21 +130,30 @@ def build_tables(moduli: Sequence[Modulus], n: int, device) -> NttTables:
         iw = _powers(pow(psi, -1, q), n, q)[brv]
         rows["w"].append(w)
         rows["iw"].append(iw)
-        # w < 2^30, so w << 32 < 2^62 fits int64 exactly.
-        rows["ws"].append((w << 32) // q)
-        rows["iws"].append((iw << 32) // q)
+        if profile == "m31":
+            # w < 2^30, so w << 32 < 2^62 fits int64 exactly.
+            rows["ws"].append((w << 32) // q)
+            rows["iws"].append((iw << 32) // q)
+        else:
+            for name, vals in (("ws", w), ("iws", iw)):
+                rows[name].append([as_int64_bits((int(v) << 64) // q) for v in vals])
         ninv = pow(n, -1, q)
         n_inv.append(ninv)
-        n_inv_s.append(mod.shoup(ninv, 32))
+        n_inv_s.append(as_int64_bits(mod.shoup(ninv, shoup_bits)))
 
     dev = torch.device(device)
 
     def put(a):
         return torch.as_tensor(np.asarray(a, dtype=np.int64), device=dev)
 
+    mu = None
+    if profile == "m62":
+        mu = put([[(m.const_ratio >> (32 * i)) & 0xFFFFFFFF for m in moduli]
+                  for i in range(3)])
     return NttTables(
         n=n,
         logn=logn,
+        profile=profile,
         moduli=tuple(moduli),
         device=dev,
         q=put([m.value for m in moduli]),
@@ -130,6 +163,7 @@ def build_tables(moduli: Sequence[Modulus], n: int, device) -> NttTables:
         iws=put(np.stack(rows["iws"])),
         n_inv=put(n_inv),
         n_inv_s=put(n_inv_s),
+        mu=mu,
     )
 
 
@@ -145,6 +179,8 @@ def _check(x: torch.Tensor, tb: NttTables):
 def forward_plain(x: torch.Tensor, tb: NttTables) -> torch.Tensor:
     """Plain-torch negacyclic NTT along the last axis of [..., L, n]."""
     _check(x, tb)
+    if tb.profile == "m62":
+        return _forward_plain_m62(x, tb)
     p = m31
     n = tb.n
     lead = x.shape[:-1]
@@ -170,6 +206,8 @@ def forward_plain(x: torch.Tensor, tb: NttTables) -> torch.Tensor:
 def inverse_plain(x: torch.Tensor, tb: NttTables) -> torch.Tensor:
     """Plain-torch inverse of ``forward_plain`` (bit-reversed input order)."""
     _check(x, tb)
+    if tb.profile == "m62":
+        return _inverse_plain_m62(x, tb)
     p = m31
     n = tb.n
     lead = x.shape[:-1]
@@ -189,6 +227,41 @@ def inverse_plain(x: torch.Tensor, tb: NttTables) -> torch.Tensor:
         t *= 2
     q2 = tb.q_b(1)
     return p.mulmod_shoup(x, tb.n_inv[:, None], tb.n_inv_s[:, None], q2)
+
+
+def _forward_plain_m62(x: torch.Tensor, tb: NttTables) -> torch.Tensor:
+    """The stage engine's CT sweeps with canonical butterflies (m62)."""
+    n = tb.n
+    lead = x.shape[:-1]
+    q3 = tb.q_b(2)
+    h, t = 1, n
+    for _ in range(tb.logn):
+        t //= 2
+        xv = x.reshape(lead + (h, 2, t))
+        u, v = xv[..., 0, :], xv[..., 1, :]
+        mv = m62.mulmod_shoup(v, tb.w[:, h : 2 * h, None], tb.ws[:, h : 2 * h, None], q3)
+        x = torch.stack([m62.add(u, mv, q3), m62.sub(u, mv, q3)], dim=-2)
+        x = x.reshape(lead + (n,))
+        h *= 2
+    return x
+
+
+def _inverse_plain_m62(x: torch.Tensor, tb: NttTables) -> torch.Tensor:
+    """The stage engine's GS sweeps with canonical butterflies (m62)."""
+    n = tb.n
+    lead = x.shape[:-1]
+    q3 = tb.q_b(2)
+    h, t = n // 2, 1
+    for _ in range(tb.logn):
+        xv = x.reshape(lead + (h, 2, t))
+        u, v = xv[..., 0, :], xv[..., 1, :]
+        d = m62.mulmod_shoup(m62.sub(u, v, q3), tb.iw[:, h : 2 * h, None],
+                             tb.iws[:, h : 2 * h, None], q3)
+        x = torch.stack([m62.add(u, v, q3), d], dim=-2).reshape(lead + (n,))
+        h //= 2
+        t *= 2
+    q2 = tb.q_b(1)
+    return m62.mulmod_shoup(x, tb.n_inv[:, None], tb.n_inv_s[:, None], q2)
 
 
 def forward(x: torch.Tensor, tb: NttTables) -> torch.Tensor:
@@ -215,7 +288,7 @@ def inverse(x: torch.Tensor, tb: NttTables) -> torch.Tensor:
 
 def pointwise_mul(a: torch.Tensor, b: torch.Tensor, tb: NttTables) -> torch.Tensor:
     """Residue-wise product, both operands variable."""
-    return m31.mulmod(a, b, tb.q_b(1))
+    return tb.prof.mulmod(a, b, tb.q_b(1))
 
 
 def negacyclic_polymul(a: torch.Tensor, b: torch.Tensor, tb: NttTables) -> torch.Tensor:

@@ -3,8 +3,9 @@
 Counterpart of ``pplp_tpu.primitives.bloom``. The parameter optimization,
 salt schedule, host AP hash, host probe and wire format are copied from it
 verbatim; the batch insert (AP hash of u64 keys against every salt, index,
-and the OR-scatter into the bit table) and the bit packing for the wire
-run as torch ops on the filter's device. The bit table is held unpacked, one
+and the OR-scatter into the bit table), the batch probe (the same hash,
+then a gather) and the bit packing for the wire run as torch ops on the
+filter's device. The bit table is held unpacked, one
 byte per bit, as the reference holds it: at r = 4096 and fpp 1e-12 that is
 about 965 MB on the device.
 
@@ -23,7 +24,7 @@ import torch
 
 from ..ops.modmath import mul32
 
-__all__ = ["BloomParameters", "BloomFilter", "pack_bits"]
+__all__ = ["BloomParameters", "BloomFilter", "pack_bits", "probe"]
 
 BITS_PER_CHAR = 8
 
@@ -198,6 +199,13 @@ def _indices(klo, khi, salts, table_size: int, mixed: bool) -> torch.Tensor:
     return h % table_size
 
 
+def probe(bits, klo, khi, salts, table_size: int, mixed: bool) -> torch.Tensor:
+    """Membership of u64 keys as (lo, hi) word tensors [K] in the unpacked
+    bit table ``bits``: the AP hash against every salt, then one gather ->
+    bool [K]."""
+    return (bits[_indices(klo, khi, salts, table_size, mixed)] != 0).all(dim=0)
+
+
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     """Little-endian packbits of a 0/1 uint8 tensor (np.packbits order),
     on the tensor's device."""
@@ -312,6 +320,14 @@ class BloomFilter:
             bits.index_fill_(0, idx.reshape(-1), 1)
         self.inserted_element_count += klo.shape[0] if count is None else int(count)
         self._host_dirty = True
+
+    def contains_u64_batch(self, klo, khi) -> torch.Tensor:
+        """Membership of u64 keys given as int64 (lo, hi) word tensors [K]:
+        one gather on the unpacked table over all salts -> bool [K]."""
+        klo = torch.as_tensor(klo, device=self.device).reshape(-1)
+        khi = torch.as_tensor(khi, device=self.device).reshape(-1)
+        return probe(self.bits_device, klo, khi, self._salts_device(), self.table_size,
+                     self.index_mode == "mixed")
 
     def _sync_host(self):
         if self._device_bits is not None and self._host_dirty:

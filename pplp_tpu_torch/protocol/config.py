@@ -1,6 +1,6 @@
 """Protocol configuration with the reference's parameter names and defaults.
 
-Copy of ``pplp_tpu.protocol.config``; only the default profile differs.
+Copy of ``pplp_tpu.protocol.config``, with the same fields and defaults.
 
 Flag surface mirrors ``pplp:src/demo.cc:23-47`` and
 ``src/client.cc:26-50`` / ``src/server.cc``: coordinates < 2^27 (which bounds
@@ -30,9 +30,7 @@ class ProtocolConfig:
     poly_modulus_degree_bits: int = 13
     false_positive_probability: float = 1e-12  # demo.cc:109 (C/S use 1e-4)
     bf_seed: int = 0xA5A5A5A5
-    # "tpu" (<2^30 primes) is the profile this port runs; "seal" (the
-    # SEAL-4.1-style 36-44-bit chain) needs the m62 arithmetic, not ported yet.
-    profile: str = "tpu"
+    profile: str = "seal"  # "seal" (SEAL-4.1-style chain) | "tpu" (<2^30 primes)
     seed: int | None = None  # None -> fresh crypto randomness
     # Bound blinding so s*(d^2+r) < t (sound near-detection). False reproduces
     # the reference's raw 32-bit draws including its overflow hazard.

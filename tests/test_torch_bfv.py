@@ -8,6 +8,11 @@
 * Samplers fed the words ``jax.random.bits`` drew equal the reference's.
 * scale_plain / lift_plain_centered, serialization, and keys carried over
   from the reference in either spectrum order.
+* The seal profile (m62): the SEAL-default KAT
+  (``tests/fixtures/bfv_kat_n4096_sealdefault.json.gz``, the fixture itself
+  is the oracle) for its encrypt, decrypt, add, sub and plain rows; the m62
+  samplers on the same words; keys carried over from (lo, hi) pairs; and
+  ``invariant_noise_budget`` equal to the reference's on both profiles.
 """
 
 import gzip
@@ -37,13 +42,20 @@ from pplp_tpu_torch.bfv.keys import keys_from_reference, make_keys
 from pplp_tpu_torch.ops import ntt
 from pplp_tpu_torch.ops import primes
 
-_FIX = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
-                    "bfv_kat_n64_m31.json.gz")
+_FIXDIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
+_FIX = os.path.join(_FIXDIR, "bfv_kat_n64_m31.json.gz")
+_FIX_SEAL = os.path.join(_FIXDIR, "bfv_kat_n4096_sealdefault.json.gz")
 
 
 @pytest.fixture(scope="module")
 def kat():
     with gzip.open(_FIX, "rt") as f:
+        return json.load(f)
+
+
+@pytest.fixture(scope="module")
+def seal_kat():
+    with gzip.open(_FIX_SEAL, "rt") as f:
         return json.load(f)
 
 
@@ -208,3 +220,147 @@ def test_keys_from_reference(engine):
     rct = rser.load_ciphertext(serialize.save_ciphertext(ct, ctx), jctx)
     x = jax.jit(lambda c: rbfv.Decryptor(jctx, rsk).ct_value_rns(c))(rct)
     assert jctx.decode_plain_from_ct_value(np.asarray(x).astype(object))[: len(values)] == values
+
+
+# ---------------------------------------------------------------------------
+# The seal profile (m62)
+# ---------------------------------------------------------------------------
+
+
+def _unpair(p):
+    lo, hi = (np.asarray(a).astype(np.uint64) for a in p)
+    return (lo | (hi << np.uint64(32))).view(np.int64)
+
+
+def test_kat_n4096_seal_default(seal_kat):
+    """SEAL 4.1 BFVDefault(4096) chain through the injected path; the
+    multiply, relinearize and mod-switch rows are the next slice's."""
+    kat = seal_kat
+    n, t, chain = kat["n"], kat["t"], kat["moduli"]
+    ctx = bfv.BFVContext.build(bfv.EncryptionParameters.bfv(n, t, coeff_modulus=chain), "cpu")
+    assert ctx.tables.profile == "m62"
+    tres = lambda c: torch.from_numpy(_residues(c, chain))  # noqa: E731
+    fwd = lambda c: ntt.forward(tres(c), ctx.tables)  # noqa: E731
+
+    # Keys from the fixture's (s, pk0, pk1), as tests/test_seal_vectors.py
+    # builds them; keygen from (s, a, e) gives the same public key.
+    s_ntt = fwd(kat["s"])
+    sk = bfv.SecretKey(s_ntt=s_ntt, s_shoup=bfv.keys.shoup(ctx, s_ntt))
+    pk0, pk1 = fwd(kat["pk0"]), fwd(kat["pk1"])
+    pk = bfv.PublicKey(pk0_ntt=pk0, pk1_ntt=pk1, pk0_shoup=bfv.keys.shoup(ctx, pk0),
+                       pk1_shoup=bfv.keys.shoup(ctx, pk1))
+    sk2, pk2 = make_keys(ctx, tres(kat["s"]), fwd(kat["a"]), tres(kat["e"]))
+    for name in ("pk0_ntt", "pk1_ntt", "pk0_shoup", "pk1_shoup"):
+        assert torch.equal(getattr(pk2, name), getattr(pk, name)), name
+    assert torch.equal(sk2.s_shoup, sk.s_shoup)
+
+    exp = kat["expected"]
+    want = lambda key: [[int(v) % ctx.q for v in p] for p in exp[key]]  # noqa: E731
+    enc = bfv.Encryptor(ctx, pk)
+    ct1 = enc.encrypt_with_randomness(bfv.Plaintext(kat["m1"]), tres(kat["u1"]),
+                                      tres(kat["e01"]), tres(kat["e11"]))
+    ct2 = enc.encrypt_with_randomness(bfv.Plaintext(kat["m2"]), tres(kat["u2"]),
+                                      tres(kat["e02"]), tres(kat["e12"]))
+    assert _ct_ints(ct1, ctx) == want("ct1")
+    assert _ct_ints(ct2, ctx) == want("ct2")
+    assert bfv.Decryptor(ctx, sk).decrypt(ct1).coeffs[:n] == exp["decrypt_ct1"]
+    ev = bfv.Evaluator(ctx)
+    assert _ct_ints(ev.add(ct1, ct2), ctx) == want("add")
+    assert _ct_ints(ev.sub(ct1, ct2), ctx) == want("sub")
+    assert _ct_ints(ev.add_plain(ct1, bfv.Plaintext(kat["m2"])), ctx) == want("add_plain_m2")
+    assert (_ct_ints(ev.multiply_plain(ct1, bfv.Plaintext(kat["m2"])), ctx)
+            == want("multiply_plain_m2"))
+    with pytest.raises(NotImplementedError, match="next slice"):
+        ev.multiply(ct1, ct2)
+
+
+def _seal_pair(n=256, t=65537):
+    chain = list(get_primes(36, 2, n)) + list(get_primes(37, 1, n))
+    return _ctx_pair(n, t, chain)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "ternary", "cbd"])
+def test_m62_samplers_match_reference_on_same_words(kind):
+    jctx, ctx = _seal_pair()
+    assert ctx.tables.profile == "m62"
+    key = jax.random.key(12)
+    batch = (2,)
+    L, n = ctx.L, ctx.n
+    if kind == "uniform":
+        want = _unpair(rsampling.uniform_rq(key, jctx, batch))
+        words = jax.random.bits(key, batch + (4, L, n), jnp.uint32)
+        got = sampling.uniform_rq_from_bits(_np(words), ctx)
+    elif kind == "ternary":
+        want = _unpair(rsampling.ternary_poly(key, jctx, batch))
+        words = jax.random.bits(key, batch + (n,), jnp.uint32)
+        got = sampling.ternary_poly_from_bits(_np(words), ctx)
+    else:
+        want = _unpair(rsampling.cbd_poly(key, jctx, batch))
+        words = jax.random.bits(key, batch + (2, n), jnp.uint32)
+        got = sampling.cbd_poly_from_bits(_np(words), ctx)
+    assert (got.numpy() == want).all()
+    g = torch.Generator().manual_seed(4)
+    fn = {"uniform": sampling.uniform_rq, "ternary": sampling.ternary_poly,
+          "cbd": sampling.cbd_poly}[kind]
+    drawn = fn(g, ctx, batch)
+    assert drawn.shape == got.shape and bool(((drawn >= 0) & (drawn < ctx.q2)).all())
+
+
+def test_m62_scale_and_lift_plain_match_reference():
+    jctx, ctx = _ctx_pair(4096, 1 << 56, list(rprimes.bfv_default(4096)))
+    t = ctx.t
+    rng = np.random.default_rng(56)
+    m = rng.integers(0, t, size=(2, ctx.n), dtype=np.uint64)
+    m[0, :4] = [0, 1, (t + 1) // 2, t - 1]
+    lo = (m & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    hi = (m >> np.uint64(32)).astype(np.uint32)
+    want = jax.jit(jctx.scale_plain)(jnp.asarray(lo), jnp.asarray(hi))
+    assert (ctx.scale_plain(lo, hi).numpy() == _unpair(want)).all()
+    want = jax.jit(jctx.lift_plain_centered)(jnp.asarray(lo), jnp.asarray(hi))
+    assert (ctx.lift_plain_centered(lo, hi).numpy() == _unpair(want)).all()
+
+
+def test_keys_from_reference_m62_pairs():
+    jctx, ctx = _seal_pair()
+    rsk, rpk = make_sk_pk_jit(jctx, 6)
+    leaves = {"s_ntt": rsk.s_ntt, "s_shoup": rsk.s_shoup, "pk0_ntt": rpk.pk0_ntt,
+              "pk1_ntt": rpk.pk1_ntt, "pk0_shoup": rpk.pk0_shoup, "pk1_shoup": rpk.pk1_shoup}
+    pairs = {k: tuple(np.asarray(a) for a in v) for k, v in leaves.items()}
+    sk, pk = keys_from_reference(ctx, **pairs)
+    for name, ref_pair in pairs.items():
+        obj = sk if name.startswith("s_") else pk
+        assert (getattr(obj, name).numpy() == _unpair(ref_pair)).all(), name
+    # Shoup companions reach 2^64 - 1: stored as bit patterns, recomputed equal.
+    assert bool((pk.pk0_shoup < 0).any())
+    assert torch.equal(pk.pk0_shoup, bfv.keys.shoup(ctx, pk.pk0_ntt))
+    values = list(range(1, 40))
+    got, ct = _roundtrip(ctx, sk, pk, values)
+    assert got == values + [0] * (ctx.n - len(values))
+    rct = rser.load_ciphertext(serialize.save_ciphertext(ct, ctx), jctx)
+    x = jax.jit(lambda c: rbfv.Decryptor(jctx, rsk).ct_value_rns(c))(rct)
+    assert jctx.decode_plain_from_ct_value(np.asarray(_unpair(x)).astype(object))[
+        : len(values)] == values
+
+
+@pytest.mark.parametrize("profile", ["tpu", "seal"])
+def test_invariant_noise_budget_matches_reference(profile):
+    n, t = 256, 65537
+    if profile == "tpu":
+        jctx, ctx = _ctx_pair(n, t, list(get_primes(28, 1, n)) + list(get_primes(27, 1, n)))
+    else:
+        jctx, ctx = _seal_pair(n, t)
+    rsk, rpk = make_sk_pk_jit(jctx, 7)
+    leaves = (rsk.s_ntt, rsk.s_shoup, rpk.pk0_ntt, rpk.pk1_ntt, rpk.pk0_shoup, rpk.pk1_shoup)
+    sk, pk = keys_from_reference(
+        ctx, *(tuple(np.asarray(a) for a in v) if isinstance(v, tuple) else _np(v)
+               for v in leaves))
+    _, ct = _roundtrip(ctx, sk, pk, list(range(1, 20)))
+    ev = bfv.Evaluator(ctx)
+    dec, rdec = bfv.Decryptor(ctx, sk), rbfv.Decryptor(jctx, rsk)
+    rdec.ct_value_rns = jax.jit(rdec.ct_value_rns)  # one compile, not eager stages
+    budgets = []
+    for c in (ct, ev.multiply_plain(ct, bfv.Plaintext([3, 0, 5]))):
+        rct = rser.load_ciphertext(serialize.save_ciphertext(c, ctx), jctx)
+        budgets.append(dec.invariant_noise_budget(c))
+        assert budgets[-1] == rdec.invariant_noise_budget(rct)
+    assert budgets[0] > budgets[1] > 0

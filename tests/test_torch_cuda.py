@@ -1,5 +1,6 @@
 """The port on a CUDA card: the hand-written kernels against their plain
-versions (the NTT, the BEHZ multiply + relinearization, the mulmod chain).
+versions (the u32 and u64 NTTs, the BEHZ multiply + relinearization, the
+mulmod chain), the demo on both profiles and the packed pipeline.
 
 Every test here is marked ``cuda`` and skips without a card. This file
 imports neither jax nor the JAX package, so it also runs where jax is not
@@ -20,7 +21,7 @@ from pplp_tpu_torch import bfv
 from pplp_tpu_torch.bfv import behz, behz_fused
 from pplp_tpu_torch.bfv.behz_fused import FusedMultiplier
 from pplp_tpu_torch.ops import behz_cuda, mulmod_chain, ntt, ntt_cuda
-from pplp_tpu_torch.ops.primes import Modulus, get_primes, tpu_default
+from pplp_tpu_torch.ops.primes import Modulus, bfv_default, get_primes, tpu_default
 
 pytestmark = pytest.mark.cuda
 
@@ -60,6 +61,32 @@ def test_kernel_matches_plain(dev, n, batch):
     assert ntt_cuda.launches_by_kernel["ntt_inverse"] == before["ntt_inverse"] + 1
 
 
+# The seal chains (n, L): 4096/3, 8192/5, 16384/9 and 32768/16; n = 32768 is
+# the kernel's split path. The last case puts primes just below 2^62 and
+# 2^61 on the split path, where the lazy forward values reach 4q ~ 2^64.
+U64_CASES = [(4096, None), (8192, None), (16384, None), (32768, None),
+             (32768, (62, 61))]
+
+
+@pytest.mark.parametrize("n,bits", U64_CASES)
+def test_u64_kernel_matches_plain(dev, n, bits):
+    chain = bfv_default(n) if bits is None else [get_primes(b, 1, n)[0] for b in bits]
+    tb = ntt.build_tables([Modulus(q) for q in chain], n, dev)
+    assert tb.profile == "m62"
+    x = _residues(tb, (2,), n)
+    x[0, :, :4] = tb.q_b(1) - 1
+    before = dict(ntt_cuda.launches_by_kernel)
+    spec = ntt.forward(x, tb)
+    back = ntt.inverse(spec, tb)
+    torch.cuda.synchronize()
+    assert torch.equal(spec, ntt.forward_plain(x, tb))
+    assert torch.equal(back, ntt.inverse_plain(spec, tb))
+    assert torch.equal(back, x)
+    after = ntt_cuda.launches_by_kernel
+    assert {k: after[k] - before[k] for k in after} == {
+        "ntt_forward": 0, "ntt_inverse": 0, "ntt_forward_u64": 1, "ntt_inverse_u64": 1}
+
+
 def test_largest_canonical_inputs(dev):
     """q - 1 in every slot drives the lazy butterflies to their bounds."""
     tb = _tables(4096, dev)
@@ -96,6 +123,69 @@ def test_demo_on_card(dev):
     bl = Blinding.for_protocol(cfg.plain_modulus_bits, cfg.sq_radius, cfg.seed)
     assert res.blind_distance == bl.s * (99_700 + bl.r) % cfg.plain_modulus
     assert res.bf_device.type == "cuda"
+
+
+def test_seal_demo_on_card(dev):
+    """The demo on its default profile (seal, m62) goes through the u64
+    kernel and only it."""
+    from pplp_tpu_torch.primitives import Blinding
+    from pplp_tpu_torch.protocol import ProtocolConfig, run_local_demo
+
+    cfg = ProtocolConfig(xa=1234, ya=1212, xb=1000, yb=1000, radius=320,
+                         poly_modulus_degree_bits=12, plain_modulus_bits=40,
+                         seed=1234, false_positive_probability=1e-6)
+    assert cfg.profile == "seal"
+    ntt_cuda.reset_launches()
+    res = run_local_demo(cfg, verbose=False, device=dev)
+    counts = dict(ntt_cuda.launches_by_kernel)
+    assert counts["ntt_forward_u64"] > 0 and counts["ntt_inverse_u64"] > 0
+    assert counts["ntt_forward"] == counts["ntt_inverse"] == 0
+    assert res.is_near is True
+    bl = Blinding.for_protocol(cfg.plain_modulus_bits, cfg.sq_radius, cfg.seed)
+    assert res.blind_distance == bl.s * (99_700 + bl.r) % cfg.plain_modulus
+    assert res.bf_device.type == "cuda"
+
+
+def test_packed_pipeline_on_card(dev):
+    """BASELINE config[3] at n = 4096 with a few rows: every check equals
+    the oracle (clear blind distance -> key -> probe) and the decode equals
+    the host CRT decode."""
+    from pplp_tpu_torch.bfv.rns_decrypt import get_decoder
+    from pplp_tpu_torch.parallel import pipeline
+
+    t, s_blind, r_blind, w, xb, yb, rows = 1 << 20, 501, 99, 0xA5A5, 1000, 900, 3
+    ctx = bfv.BFVContext.build(bfv.EncryptionParameters.bfv(4096, t, profile="tpu"), dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    kg = bfv.KeyGenerator(ctx, g)
+    sk, pk = kg.secret_key(), kg.create_public_key()
+    bf = pipeline.build_pipeline_filter(t, s_blind, r_blind, w, dev)
+    rng = np.random.default_rng(1)
+    total = rows * ctx.n
+    xa = np.where(rng.random(total) < 0.5, xb + rng.integers(-60, 60, total),
+                  rng.integers(0, 4000, total)).astype(np.uint64)
+    ya = np.where(rng.random(total) < 0.5, yb + rng.integers(-60, 60, total),
+                  rng.integers(0, 4000, total)).astype(np.uint64)
+    cts = pipeline.make_packed_inputs(ctx, bfv.Encryptor(ctx, pk), xa, ya, g)
+    fn = pipeline.build_packed_pipeline_bf(ctx, sk, xb, yb, s_blind, r_blind, w,
+                                           w.bit_length())
+    ntt_cuda.reset_launches()
+    got = fn(*cts, bf.bits_device, bf._salts_device(), bf.table_size)
+    torch.cuda.synchronize()
+    assert ntt_cuda.launches_by_kernel["ntt_forward"] == 1
+    assert ntt_cuda.launches_by_kernel["ntt_inverse"] == 1
+    d2 = (xa.astype(np.int64) - xb) ** 2 + (ya.astype(np.int64) - yb) ** 2
+    bd_clear = (s_blind * (d2 + r_blind)) % t
+    keys = (bd_clear.astype(np.uint64) << np.uint64(w.bit_length())) | np.uint64(w)
+    want = np.array([bf.contains_u64(int(k)) for k in keys])  # the host scalar probe
+    flat = got.reshape(-1).cpu().numpy()
+    assert (flat == want).all()
+    assert flat[d2 < r_blind**2].all()
+    bd = torch.as_tensor(bd_clear, device=dev)
+    x = pipeline.build_batched_pipeline(ctx, sk, xb, yb, s_blind, r_blind, packed=True)(*cts)
+    dec = get_decoder(ctx).decode_mod_t(x)
+    assert torch.equal(dec.reshape(-1), bd)
+    for r in range(2):
+        assert ctx.decode_plain_from_ct_value(x[r].cpu().numpy()) == dec[r].tolist()
 
 
 # ---------------------------------------------------------------------------

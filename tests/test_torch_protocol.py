@@ -4,11 +4,15 @@
   s(d^2 + r) mod t on the cases of ``tests/test_protocol.py``.
 * With injected randomness (s, a, e and each message's u, e0, e1 drawn with
   numpy) the port's roles and the reference's put byte-identical messages
-  on the wire: the three ciphertexts, w ‖ BF, and the blind distance.
+  on the wire: the three ciphertexts, w ‖ BF, and the blind distance; on
+  both profiles.
+* The CLI and ``ProtocolConfig`` defaults equal the reference's (the
+  default profile is ``seal``); the seal demo runs from the CLI on the CPU.
 * ``import pplp_tpu_torch`` loads neither jax nor the JAX package; without a
   card the device chooser and ``chip_smoke.py`` fail instead of falling back.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -19,6 +23,8 @@ import numpy as np
 import pytest
 import torch
 
+from pplp_tpu.bfv import BFVContext as RBFVContext
+from pplp_tpu.bfv import EncryptionParameters as REncryptionParameters
 from pplp_tpu.bfv import Encryptor as REncryptor
 from pplp_tpu.bfv import Plaintext as RPlaintext
 from pplp_tpu.bfv.ciphertext import Ciphertext as RCiphertext
@@ -27,12 +33,14 @@ from pplp_tpu.bfv.keys import SecretKey as RSecretKey
 from pplp_tpu.bfv.keys import _shoup as rshoup
 from pplp_tpu.bfv.serialize import save_ciphertext as rsave_ciphertext
 from pplp_tpu.ops import ntt as rntt
-from pplp_tpu.ops.modmath import m31 as rm31
+from pplp_tpu.bfv.serialize import save_parms as rsave_parms
+from pplp_tpu.cli import build_parser as rbuild_parser
 from pplp_tpu.protocol import ProtocolConfig as RProtocolConfig
 from pplp_tpu.protocol.roles import ProximityClient as RClient
 from pplp_tpu.protocol.roles import ProximityServer as RServer
 from pplp_tpu.utils.hexcodec import uint64_to_hex_string
-from pplp_tpu_torch import cli
+from pplp_tpu_torch import bfv, cli
+from pplp_tpu_torch.bfv import serialize
 from pplp_tpu_torch.device import cuda_device
 from pplp_tpu_torch.primitives import Blinding
 from pplp_tpu_torch.protocol import ProtocolConfig, run_local_demo
@@ -67,14 +75,14 @@ def test_demo_verdicts_match_clear_oracle(xa, ya, xb, yb, radius, expect_near):
 
 def _reference_keys(ctx, s_res, a_ntt, e_res):
     """The reference keygen (``protocol/jitted.py::keygen_fn``) on injected
-    randomness instead of threefry draws."""
+    randomness instead of threefry draws, on either profile."""
 
     def f(s, a, e):
-        q2 = ctx.tables.q_b(1)
+        p, q2 = ctx.prof, ctx.tables.q_b(1)
         s_ntt = rntt.forward(s, ctx.tables)
         s_shoup = rshoup(ctx, s_ntt)
         e_ntt = rntt.forward(e, ctx.tables)
-        pk0 = rm31.neg(rm31.add(rm31.mulmod_shoup(a, s_ntt, s_shoup, q2), e_ntt, q2), q2)
+        pk0 = p.neg(p.add(p.mulmod_shoup(a, s_ntt, s_shoup, q2), e_ntt, q2), q2)
         return s_ntt, s_shoup, pk0, rshoup(ctx, pk0), rshoup(ctx, a)
 
     s_ntt, s_shoup, pk0, pk0s, pk1s = jax.jit(f)(s_res, a_ntt, e_res)
@@ -82,8 +90,26 @@ def _reference_keys(ctx, s_res, a_ntt, e_res):
             RPublicKey(pk0_ntt=pk0, pk1_ntt=a_ntt, pk0_shoup=pk0s, pk1_shoup=pk1s))
 
 
+def _ref_residues(v, profile):
+    """Host residues (int64 < 2^62) -> the reference's u32 array (tpu) or
+    (lo, hi) u32 pair (seal)."""
+    v = np.asarray(v).astype(np.uint64)
+    if profile == "tpu":
+        return jnp.asarray(v.astype(np.uint32))
+    return (jnp.asarray((v & np.uint64(0xFFFFFFFF)).astype(np.uint32)),
+            jnp.asarray((v >> np.uint64(32)).astype(np.uint32)))
+
+
 def test_wire_messages_byte_identical_with_injected_randomness():
-    kw = dict(xa=1234, ya=1212, xb=1000, yb=1000, radius=320, **SMALL)
+    _wire_messages_byte_identical(SMALL)
+
+
+def test_seal_wire_messages_byte_identical_with_injected_randomness():
+    _wire_messages_byte_identical(dict(SMALL, profile="seal"))
+
+
+def _wire_messages_byte_identical(small):
+    kw = dict(xa=1234, ya=1212, xb=1000, yb=1000, radius=320, **small)
     cfg, rcfg = ProtocolConfig(**kw), RProtocolConfig(**kw)
     rng = np.random.default_rng(77)
     n = cfg.poly_modulus_degree
@@ -94,11 +120,11 @@ def test_wire_messages_byte_identical_with_injected_randomness():
     s, e = ternary(), noise()
     a_ntt = (rng.integers(0, 1 << 62, size=(len(chain), n)) % qs).astype(np.int64)
     msgs = [(ternary(), noise(), noise()) for _ in range(3)]
-    res = lambda v: jnp.asarray((np.asarray(v)[None, :] % qs).astype(np.uint32))  # noqa: E731
+    res = lambda v: _ref_residues(np.asarray(v)[None, :] % qs, cfg.profile)  # noqa: E731
 
     # Reference roles: keys and encryptions from the injected arrays.
     rclient = RClient(rcfg)
-    rsk, rpk = _reference_keys(rclient.ctx, res(s), jnp.asarray(a_ntt.astype(np.uint32)),
+    rsk, rpk = _reference_keys(rclient.ctx, res(s), _ref_residues(a_ntt, cfg.profile),
                                res(e))
     rclient.sk = rsk
     enc = REncryptor(rclient.ctx, rpk)
@@ -142,7 +168,8 @@ def test_import_loads_no_jax():
         "import sys, pplp_tpu_torch, pplp_tpu_torch.cli, pplp_tpu_torch.protocol, "
         "pplp_tpu_torch.ops.ntt_cuda, pplp_tpu_torch.ops.behz_cuda, "
         "pplp_tpu_torch.ops.mulmod_chain, pplp_tpu_torch.bfv.behz_fused, "
-        "pplp_tpu_torch.bfv.rescale, pplp_tpu_torch.measure_multiply\n"
+        "pplp_tpu_torch.bfv.rescale, pplp_tpu_torch.measure_multiply, "
+        "pplp_tpu_torch.parallel, pplp_tpu_torch.bfv.rns_decrypt\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'pplp_tpu' or m.startswith('pplp_tpu.')]\n"
         "assert not bad, bad\n"
@@ -179,10 +206,69 @@ def test_chip_smoke_fails_without_card(where, tmp_path):
 
 def test_cli_demo_runs_on_cpu(capsys):
     assert cli.main(["demo", "--device", "cpu", "-d", "12", "-b", "40", "-r", "16",
-                     "--seed", "3"]) == 0
+                     "--seed", "3", "--profile", "tpu"]) == 0
     assert capsys.readouterr().out.strip().splitlines()[-2] == "far"
 
 
 def test_cli_seal_profile_not_ported():
-    with pytest.raises(NotImplementedError, match="m62"):
-        cli.main(["demo", "--device", "cpu", "-d", "12", "--profile", "seal"])
+    """The seal demo runs now (the CLI's default profile, covered by
+    ``test_cli_seal_demo_matches_oracle``); what is not ported on seal yet,
+    the ct x ct multiply and mod switching, raises and names the next slice."""
+    ctx = bfv.BFVContext.build(bfv.EncryptionParameters.bfv(4096, 1 << 20), "cpu")
+    assert ctx.tables.profile == "m62"
+    zero = torch.zeros((ctx.L, ctx.n), dtype=torch.int64)
+    ct = bfv.Ciphertext((zero, zero))
+    with pytest.raises(NotImplementedError, match="next slice"):
+        bfv.Evaluator(ctx).multiply(ct, ct)
+    with pytest.raises(NotImplementedError, match="next slice"):
+        bfv.evaluator.mod_switch_to_next(ctx, ct)
+
+
+def test_defaults_match_reference():
+    """The repair: the port's demo flags and ProtocolConfig default to the
+    reference's, field for field (profile seal). ``--device`` is the one
+    flag the port adds."""
+    ref = vars(rbuild_parser().parse_args(["demo"]))
+    ours = vars(cli.build_parser().parse_args(["demo"]))
+    assert ours.pop("device") == "cuda"
+    assert ours == ref
+    assert ours["profile"] == "seal"
+    assert dataclasses.asdict(ProtocolConfig()) == dataclasses.asdict(RProtocolConfig())
+    assert ProtocolConfig().profile == "seal"
+
+
+def test_cli_seal_demo_matches_oracle(capsys):
+    """``demo --profile seal -d 12 -b 40`` on the CPU: the verdict is the
+    clear oracle's and the blind distance s(d^2 + r) mod t, with the
+    blinding ``Blinding.for_protocol`` draws for the seed."""
+    for radius, near in ((320, True), (128, False)):
+        assert cli.main(["demo", "--device", "cpu", "--profile", "seal", "-d", "12",
+                         "-b", "40", "-r", str(radius), "--seed", "1234"]) == 0
+        lines = capsys.readouterr().out.strip().splitlines()
+        bl = Blinding.for_protocol(40, radius * radius, 1234)
+        assert lines[-2] == ("near" if near else "far")
+        assert (99_700 < radius * radius) == near
+        assert lines[-3] == f"blind_distance: {bl.s * (99_700 + bl.r) % (1 << 40):x}"
+
+
+@pytest.mark.parametrize("n", [4096, 8192])
+def test_seal_serialize_byte_identical(n):
+    """Seal limbs pack to 5 (36-37-bit primes) or 6 (43-44-bit) bytes."""
+    parms = bfv.EncryptionParameters.bfv(n, 1 << 56)
+    ctx = bfv.BFVContext.build(parms, "cpu")
+    jctx = RBFVContext.build(REncryptionParameters.bfv(n, 1 << 56))
+    assert ctx.parms.coeff_modulus == jctx.parms.coeff_modulus
+    assert serialize.save_parms(ctx.parms) == rsave_parms(jctx.parms)
+    widths = {(m.bit_count + 7) // 8 for m in ctx.moduli}
+    assert widths == ({5} if n == 4096 else {6})
+    rng = np.random.default_rng(n)
+    qs = np.array([m.value for m in ctx.moduli], np.uint64)[:, None]
+    polys = [(rng.integers(0, 1 << 63, size=(ctx.L, n), dtype=np.uint64) % qs)
+             for _ in range(2)]
+    polys[0][:, :2] = qs - np.uint64(1)
+    rct = RCiphertext(tuple(_ref_residues(p, "seal") for p in polys), "coeff")
+    ct = bfv.Ciphertext(tuple(torch.from_numpy(p.astype(np.int64)) for p in polys))
+    blob = rsave_ciphertext(rct, jctx)
+    assert serialize.save_ciphertext(ct, ctx) == blob
+    back = serialize.load_ciphertext(blob, ctx)
+    assert all((a.numpy() == p.astype(np.int64)).all() for a, p in zip(back.polys, polys))
