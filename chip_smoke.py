@@ -11,11 +11,13 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
                nvcc per source, all at once;
 3. kernels  -- the NTT kernels against their plain PyTorch versions on the
                card, bit-exact (tolerance 0: all arithmetic is exact integer
-               arithmetic): the u32 kernel on the tpu chains n = 4096/L = 4,
-               8192/L = 8 and 32768/L = 31, the u64 kernel on the seal chains
-               n = 4096/L = 3, 8192/L = 5, 16384/L = 9 and 32768/L = 16 (the
-               split path), with 64 rows per limb, and both at the shapes the
-               demo gives them; round trips; CUDA-event times of both;
+               arithmetic): the u32 kernels on the tpu chains n = 4096/L = 4,
+               8192/L = 8 and 32768/L = 31 in both I/O widths (int64 in and
+               out; u32 out from int64 and from u32 rows), the u64 kernel on
+               the seal chains n = 4096/L = 3, 8192/L = 5, 16384/L = 9 and
+               32768/L = 16 (the split path), with 64 rows per limb, and both
+               at the shapes the demo gives them; round trips; CUDA-event
+               times of both;
 4. slice    -- the local proximity demo (``run_local_demo``) at -d 13 -b 56,
                on the seal profile (the CLI's default) and on the tpu profile:
                r = 4096 with a near pair and r = 128 with a far pair. Each
@@ -27,12 +29,14 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
                ``Evaluator``: multiply + relinearize with width-2 (default)
                and width-1 keys, multiply alone, relinearize alone, and one
                real product (encrypt, multiply + relinearize, decrypt) equal
-               to the host negacyclic product. Each kernel result is
-               bit-exact against the plain version run with the plain NTTs;
-               the BEHZ kernels must have been launched; CUDA-event times of
-               kernel and plain at batch 256, and mult+relin/s;
+               to the host negacyclic product; the fused kernels
+               (behz_to_bsk, behz_tensor_ntt, behz_floor_sk, behz_relin_ntt)
+               must have been launched. Each kernel's wrapper step is then
+               held bit-exact against its plain version (the plain version
+               runs the plain NTTs) and timed with CUDA events beside it;
 6. probe    -- the mulmod chain (16 Shoup products) on [256, 4, 4096],
-               bit-exact against its plain version, with times and mulmods/s;
+               bit-exact against its plain version, with times and mulmods/s,
+               and its rate at 256 steps, where it is bound by integer work;
 7. pipeline -- BASELINE config[3], ``build_packed_pipeline_bf``: 102,400
                coefficient-packed checks (25 rows at n = 4096, tpu chain,
                t = 2^20, s = 501, r = 99, w = 0xA5A5, a filter of r^2 keys at
@@ -43,10 +47,25 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
                step's CUDA-event time (median of windows), its split
                (homomorphic evaluation / decode / probe), checks/s, peak
                memory, and the device's busy share and largest kernels
-               under ``torch.profiler``.
+               under ``torch.profiler``;
+8. separate -- the multiply + relinearization at n = 32768 (31 primes,
+               |B_sk| = 33, batch 2, width 2) through ``Evaluator``, where the
+               fused kernels' rows do not fit in shared memory: the u32
+               transforms around behz_tensor, behz_lift, behz_keyprod and
+               behz_add, which must have been launched; the call bit-exact
+               against the plain version, then each of those kernels' steps
+               bit-exact against its plain step on the same inputs, and its
+               device time per call (torch.profiler) beside the plain step's.
+               It runs last, so that its context does not count in the
+               pipeline's peak memory.
 
-The last lines are a JSON object with one entry per kernel, the card's name
-and power limit, and the result line
+The last lines are a JSON object with one entry per kernel (launches on
+the main paths, max error, ms and plain ms as measured here, the bound:
+the larger of the bytes the kernel's interface moves over 3.35 TB/s and its
+Shoup products over the card's integer-multiply peak,
+``measure_multiply.MULMODS_PER_S``; ``library_ms`` null, since no PyTorch call computes
+a negacyclic modular NTT, the BEHZ multiply or a Shoup chain), the card's
+name and power limit, and the result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Imports nothing of JAX.
 """
@@ -75,17 +94,37 @@ PIPE_XB, PIPE_YB, PIPE_S, PIPE_R, PIPE_W = 1000, 900, 501, 99, 0xA5A5
 PIPE_PROFILE_STEPS = 10
 PROFILE_NTT = {"tpu": ("ntt_forward", "ntt_inverse"),
                "seal": ("ntt_forward_u64", "ntt_inverse_u64")}
+MUL_SEP_N = 32768  # the separate route: neither fused kernel fits
+MUL_SEP_BATCH = 2
+NTT_TPU = "pplp_tpu/ops/ntt_vmem.py:272"
+BEHZ_TPU = "pplp_tpu/bfv/behz_fused.py:257"
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
-    "ntt_forward": ("pplp_tpu_torch/csrc/ntt.cu", "pplp_tpu/ops/ntt_vmem.py:272"),
-    "ntt_inverse": ("pplp_tpu_torch/csrc/ntt.cu", "pplp_tpu/ops/ntt_vmem.py:272"),
+    "ntt_forward": ("pplp_tpu_torch/csrc/ntt.cu", NTT_TPU),
+    "ntt_inverse": ("pplp_tpu_torch/csrc/ntt.cu", NTT_TPU),
+    "ntt_forward_u32": ("pplp_tpu_torch/csrc/ntt.cu", NTT_TPU),
+    "ntt_inverse_u32": ("pplp_tpu_torch/csrc/ntt.cu", NTT_TPU),
     # No TPU kernel: the reference runs m62 through its XLA stage engine.
     "ntt_forward_u64": ("pplp_tpu_torch/csrc/ntt.cu", "pplp_tpu/ops/ntt.py:205"),
     "ntt_inverse_u64": ("pplp_tpu_torch/csrc/ntt.cu", "pplp_tpu/ops/ntt.py:205"),
-    "behz_multiply_relin": ("pplp_tpu_torch/csrc/behz.cu",
-                            "pplp_tpu/bfv/behz_fused.py:257"),
+    **{name: ("pplp_tpu_torch/csrc/behz.cu", BEHZ_TPU) for name in (
+        "behz_to_bsk", "behz_tensor_ntt", "behz_floor_sk", "behz_relin_ntt",
+        "behz_tensor", "behz_lift", "behz_keyprod", "behz_add")},
     "mulmod_chain": ("pplp_tpu_torch/csrc/mulmod_chain.cu",
                      "scripts/gated_profile.py:105"),
 }
+FUSED = ("behz_to_bsk", "behz_tensor_ntt", "behz_floor_sk", "behz_relin_ntt")
+SEPARATE = ("behz_tensor", "behz_lift", "behz_keyprod", "behz_add")
+
+
+def _ntt_bound(name, shape) -> dict:
+    """Bound of one transform of ``shape`` [rows, L, n] as timed here: 8 B
+    per residue in and out for int64, 4 B for u32 (the u64 kernel's 64-bit
+    products counted at the u32 rate: no u64 rate is stated)."""
+    from pplp_tpu_torch.measure_multiply import transform_counts
+
+    width = 4 if name.endswith("u32") else 8
+    c = transform_counts(shape[0] * shape[1], shape[-1], "inverse" in name, width, width)
+    return {"bound_ms": c["bound_ms"], "bound_by": c["bound_by"]}
 
 
 def log(*args):
@@ -158,7 +197,7 @@ def phase_kernels(dev, demo_shapes):
     gen = torch.Generator(device=dev)
     gen.manual_seed(2024)
     card = torch.cuda.get_device_name(dev)
-    err = {name: 0 for names in PROFILE_NTT.values() for name in names}
+    err = {name: 0 for name in ntt_cuda.launches_by_kernel}
     times = {}
     cases = [(prof, n, (ROWS_PER_LIMB,)) for prof, n, _ in KERNEL_SHAPES]
     cases += [(prof, 1 << DEMO_N_BITS, b) for prof in PROFILE_NTT for b in demo_shapes]
@@ -191,10 +230,28 @@ def phase_kernels(dev, demo_shapes):
             inv: (cuda_ms(lambda: ntt_cuda.inverse(fp, tb)),
                   cuda_ms(lambda: ntt.inverse_plain(fp, tb), iters, warm)),
         }
+        u32 = ""
+        if prof == "tpu" and batch == (ROWS_PER_LIMB,):  # the u32-out kernels
+            x32, fp32 = x.to(torch.int32), fp.to(torch.int32)
+            got = {"ntt_forward_u32": (ntt_cuda.forward_u32(x, tb), fp),
+                   "ntt_forward_u32 from u32": (ntt_cuda.forward_u32(x32, tb), fp),
+                   "ntt_inverse_u32": (ntt_cuda.inverse_u32(fp32, tb), ip)}
+            torch.cuda.synchronize()
+            for what, (k, p) in got.items():
+                e = int(((k.to(torch.int64) & 0xFFFFFFFF) - p).abs().max())
+                assert e == 0, f"{what} differs from plain at {shape}: {e}"
+                name = what.split()[0]
+                err[name] = max(err[name], e)
+            t["ntt_forward_u32"] = (cuda_ms(lambda: ntt_cuda.forward_u32(x32, tb)),
+                                    t[fwd][1])
+            t["ntt_inverse_u32"] = (cuda_ms(lambda: ntt_cuda.inverse_u32(fp32, tb)),
+                                    t[inv][1])
+            u32 = (f"; u32 in and out: forward {t['ntt_forward_u32'][0]:.4f} ms, "
+                   f"inverse {t['ntt_inverse_u32'][0]:.4f} ms, bit-exact (also from int64)")
         times[prof, shape] = t
         log(f"[kernels] {prof} shape {shape} bit-exact fwd+inv, round trip ok; "
             f"{fwd} {t[fwd][0]:.4f} ms (plain {t[fwd][1]:.4f}), "
-            f"{inv} {t[inv][0]:.4f} ms (plain {t[inv][1]:.4f}) [{card}]")
+            f"{inv} {t[inv][0]:.4f} ms (plain {t[inv][1]:.4f}){u32} [{card}]")
     return err, times
 
 
@@ -258,6 +315,22 @@ def _max_err(got, want) -> int:
     return max(int((x - y).abs().max()) for x, y in zip(got.polys, want.polys))
 
 
+def _u32_err(got, want) -> int:
+    """Max |got - want| with got's residues read as u32 (int32 bits) or int64."""
+    import torch
+
+    return int(((got.to(torch.int64) & 0xFFFFFFFF) - want.reshape(got.shape)).abs().max())
+
+
+def _synthetic(ctx, batch, gen):
+    """Random canonical residues [batch, L, n], as bench.py::_synthetic_cts."""
+    import torch
+
+    x = torch.randint(0, 1 << 62, (batch, ctx.L, ctx.n), generator=gen,
+                      device=ctx.device, dtype=torch.int64)
+    return x % ctx.q2
+
+
 def phase_multiply(dev):
     """BFV ct x ct multiply + relinearization through the BEHZ kernels."""
     import numpy as np
@@ -266,6 +339,7 @@ def phase_multiply(dev):
     from pplp_tpu_torch import bfv
     from pplp_tpu_torch.bfv import behz
     from pplp_tpu_torch.bfv.behz_fused import FusedMultiplier
+    from pplp_tpu_torch.measure_multiply import kernel_counts
     from pplp_tpu_torch.ops import behz_cuda, ntt_cuda
 
     card = torch.cuda.get_device_name(dev)
@@ -281,13 +355,8 @@ def phase_multiply(dev):
     log(f"[multiply] n={ctx.n} L={ctx.L} |B_sk|={mul.K} t=2^{MUL_T_BITS} "
         f"batch={MUL_BATCH}; key groups width 2 {rlk2.groups}, width 1 {rlk1.groups}")
 
-    def synthetic():  # random canonical residues, as bench.py::_synthetic_cts
-        x = torch.randint(0, 1 << 62, (MUL_BATCH, ctx.L, ctx.n), generator=gen,
-                          device=dev, dtype=torch.int64)
-        return x % ctx.q2
-
-    ct1 = bfv.Ciphertext((synthetic(), synthetic()))
-    ct2 = bfv.Ciphertext((synthetic(), synthetic()))
+    ct1 = bfv.Ciphertext((_synthetic(ctx, MUL_BATCH, gen), _synthetic(ctx, MUL_BATCH, gen)))
+    ct2 = bfv.Ciphertext((_synthetic(ctx, MUL_BATCH, gen), _synthetic(ctx, MUL_BATCH, gen)))
     rng = np.random.default_rng(7)
     ma, mb = (rng.integers(0, 1 << MUL_T_BITS, size=ctx.n) for _ in range(2))
     enc = bfv.Encryptor(ctx, pk)
@@ -307,10 +376,8 @@ def phase_multiply(dev):
     torch.cuda.synchronize()
     launches = dict(behz_cuda.launches_by_kernel)
     ntt_launches = dict(ntt_cuda.launches_by_kernel)
-    assert all(v > 0 for v in launches.values()), f"BEHZ kernel launches {launches}"
-    assert all(ntt_launches[k] > 0 for k in PROFILE_NTT["tpu"]), (
-        f"NTT launches {ntt_launches}")
-    log(f"[multiply] launches {launches}, NTT {ntt_launches}")
+    assert all(launches[k] > 0 for k in FUSED), f"BEHZ kernel launches {launches}"
+    log(f"[multiply] launches {launches}, standalone NTT {ntt_launches}")
 
     # Against the plain version with the plain NTTs (not counted).
     plain3 = mul.multiply(ct1, ct2)
@@ -331,6 +398,47 @@ def phase_multiply(dev):
     log(f"[multiply] real product: decrypt(multiply_relinearize(enc a, enc b)) == "
         f"a * b mod (x^{ctx.n} + 1, 2^{MUL_T_BITS}); first coefficients {got[:4]}")
 
+    # Each fused kernel's step against its plain version, and timed beside it.
+    c0, c1 = ct1.polys
+    d0, d1 = ct2.polys
+    x = torch.stack([c0, c1, d0, d1])
+    xb = behz_cuda.to_bsk(c0, c1, d0, d1, mul)
+    xb_p = mul._to_bsk(x)
+    eq, eb = behz_cuda.tensor_products(c0, c1, d0, d1, xb, mul)
+    eq_p, eb_p = mul.tensor_products(x, xb_p)
+    fl = behz_cuda.floor_sk(eq, eb, mul)
+    fl_p = mul._sk_to_q(mul._fast_floor(eq_p, eb_p))
+    rl = behz_cuda.relinearize(*plain3.polys, ctx, rlk2)
+    rl_p = torch.stack(behz.relinearize(ctx, plain3, rlk2).polys)
+    torch.cuda.synchronize()
+    assert xb.dtype == eq.dtype == eb.dtype == torch.int32, "intermediates are not u32"
+    step_err = {"behz_to_bsk": _u32_err(xb, xb_p),
+                "behz_tensor_ntt": max(_u32_err(eq, eq_p), _u32_err(eb, eb_p)),
+                "behz_floor_sk": int((fl - fl_p.reshape(fl.shape)).abs().max()),
+                "behz_relin_ntt": int((rl - rl_p).abs().max())}
+    assert all(e == 0 for e in step_err.values()), f"a step differs from plain: {step_err}"
+    plain = dict(iters=3, warmup=1)
+    step_ms = {
+        "behz_to_bsk": (cuda_ms(lambda: behz_cuda.to_bsk(c0, c1, d0, d1, mul)),
+                        cuda_ms(lambda: mul._to_bsk(x), **plain)),
+        "behz_tensor_ntt": (cuda_ms(lambda: behz_cuda.tensor_products(c0, c1, d0, d1, xb, mul)),
+                            cuda_ms(lambda: mul.tensor_products(x, xb_p), **plain)),
+        "behz_floor_sk": (cuda_ms(lambda: behz_cuda.floor_sk(eq, eb, mul)),
+                          cuda_ms(lambda: mul._sk_to_q(mul._fast_floor(eq_p, eb_p)), **plain)),
+        "behz_relin_ntt": (cuda_ms(lambda: behz_cuda.relinearize(*plain3.polys, ctx, rlk2)),
+                           cuda_ms(lambda: behz.relinearize(ctx, plain3, rlk2), **plain)),
+    }
+    counts = kernel_counts(ctx.n, ctx.L, mul.K, len(rlk2.groups), MUL_BATCH)
+    rows = {}
+    for name, (ms, plain_ms) in step_ms.items():
+        c = counts[name]
+        rows[name] = {"launches": launches[name], "max_abs_err": step_err[name], "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": c["bound_ms"], "bound_by": c["bound_by"]}
+        log(f"[multiply] {name}: bit-exact against its plain step; {ms:.4f} ms (plain "
+            f"{plain_ms:.4f} ms); {c['bytes'] / 1e6:.1f} MB, {c['mulmods'] / 1e6:.1f}M Shoup "
+            f"products, bound {c['bound_ms']:.4f} ms ({c['bound_by']}), "
+            f"{100 * c['bound_ms'] / ms:.1f}% of bound [{card}]")
+
     fused = FusedMultiplier(ctx, rlk2)
     fused1 = FusedMultiplier(ctx, rlk1)
     t = {
@@ -345,9 +453,87 @@ def phase_multiply(dev):
     log(f"[multiply] batch {MUL_BATCH}: multiply_relinearize w2 {t['mr_w2']:.4f} ms "
         f"({rate:.1f} mult+relin/s), w1 {t['mr_w1']:.4f} ms, multiply alone "
         f"{t['multiply']:.4f} ms; plain (plain NTTs) {t['plain_mr_w2']:.4f} ms [{card}]")
-    row = {"launches": sum(launches.values()), "max_abs_err": max(errs.values()),
-           "ms": t["mr_w2"], "plain_ms": t["plain_mr_w2"]}
-    return row, ntt_launches
+    return rows, ntt_launches
+
+
+def phase_separate(dev):
+    """The multiply + relinearization at n = 32768, where neither fused
+    kernel's rows fit in shared memory: a path of its own, counted alone.
+    Each separate kernel's step is then held against its plain step."""
+    import torch
+
+    from pplp_tpu_torch import bfv
+    from pplp_tpu_torch.bfv import behz
+    from pplp_tpu_torch.measure_multiply import kernel_counts, profile_phases
+    from pplp_tpu_torch.ops import behz_cuda, ntt, ntt_cuda
+    from pplp_tpu_torch.ops.modmath import m31
+
+    card = torch.cuda.get_device_name(dev)
+    parms = bfv.EncryptionParameters.bfv(MUL_SEP_N, 1 << MUL_T_BITS, profile="tpu")
+    ctx = bfv.BFVContext.build(parms, dev)
+    mul = behz.multiplier(ctx)
+    gen = torch.Generator(device=dev).manual_seed(MUL_SEP_N)
+    _, rlk = behz.make_keys(ctx, gen)
+    groups = rlk.digit_groups(ctx.L)
+    ct1 = bfv.Ciphertext(tuple(_synthetic(ctx, MUL_SEP_BATCH, gen) for _ in range(2)))
+    ct2 = bfv.Ciphertext(tuple(_synthetic(ctx, MUL_SEP_BATCH, gen) for _ in range(2)))
+    ev = bfv.Evaluator(ctx)
+    torch.cuda.synchronize()
+    behz_cuda.reset_launches()
+    ntt_cuda.reset_launches()
+    out = ev.multiply_relinearize(ct1, ct2, rlk)
+    torch.cuda.synchronize()
+    launches = dict(behz_cuda.launches_by_kernel)
+    ntt_launches = dict(ntt_cuda.launches_by_kernel)
+    assert all(launches[k] > 0 for k in SEPARATE + ("behz_to_bsk", "behz_floor_sk")), (
+        f"separate-route launches {launches}")
+    assert ntt_launches["ntt_forward_u32"] > 0 and ntt_launches["ntt_inverse_u32"] > 0
+    assert launches["behz_tensor_ntt"] == launches["behz_relin_ntt"] == 0
+    plain3 = mul.multiply(ct1, ct2)
+    err = _max_err(out, behz.relinearize(ctx, plain3, rlk))
+    assert err == 0, f"the separate route differs from plain: {err}"
+    log(f"[separate] n={ctx.n} L={ctx.L} |B_sk|={mul.K} batch {MUL_SEP_BATCH} width 2 "
+        f"({len(groups)} digits): multiply_relinearize bit-exact against plain; launches "
+        f"{launches}, NTT {ntt_launches}")
+
+    # Each kernel's step and its plain step on the same inputs (plain NTTs
+    # between them): (kernel, plain), each giving a tuple of results.
+    x = torch.stack([*ct1.polys, *ct2.polys])
+    tq, tb = ctx.tables, mul.bsk_tables
+    spec = [(ntt.forward_plain(src, tbx), tbx) for src, tbx in ((x, tq), (mul._to_bsk(x), tb))]
+    c0, c1, c2 = plain3.polys
+    lifted = torch.stack([behz.lift_digit_grouped(ctx, c2, g) for g in groups])
+    d_ntt = ntt.forward_plain(lifted, tq)
+    d = ntt.inverse_plain(behz.key_products(ctx, d_ntt, rlk), tq)
+    spec32 = [(s.to(torch.int32), tbx) for s, tbx in spec]
+    d_ntt32, d32 = d_ntt.to(torch.int32), d.to(torch.int32)
+    steps = {
+        "behz_tensor": (lambda: [behz_cuda.tensor_spectra(s, tbx) for s, tbx in spec32],
+                        lambda: [mul.tensor_spectra(s, tbx) for s, tbx in spec]),
+        "behz_lift": (lambda: [behz_cuda.lift_digits(c2, ctx, rlk)],
+                      lambda: [torch.stack([behz.lift_digit_grouped(ctx, c2, g)
+                                            for g in groups])]),
+        "behz_keyprod": (lambda: [behz_cuda.key_products(d_ntt32, ctx, rlk)],
+                         lambda: [behz.key_products(ctx, d_ntt, rlk)]),
+        "behz_add": (lambda: [behz_cuda.add_switched(c0, c1, d32, ctx)],
+                     lambda: [torch.stack([m31.add(c, dj, ctx.q2)
+                                           for c, dj in zip((c0, c1), d)])]),
+    }
+    prof = profile_phases(lambda: ev.multiply_relinearize(ct1, ct2, rlk), 3)["phases"]
+    counts = kernel_counts(ctx.n, ctx.L, mul.K, len(groups), MUL_SEP_BATCH)
+    rows = {}
+    for name, (kernel, plain) in steps.items():
+        step_err = max(_u32_err(k, p) for k, p in zip(kernel(), plain()))
+        assert step_err == 0, f"{name} differs from its plain step: {step_err}"
+        ms = prof[name]["ms_per_call"]
+        plain_ms = cuda_ms(plain, iters=3, warmup=1)
+        c = counts[name]
+        rows[name] = {"launches": launches[name], "max_abs_err": step_err, "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": c["bound_ms"], "bound_by": c["bound_by"]}
+        log(f"[separate] {name}: bit-exact against its plain step; {ms:.4f} ms of device "
+            f"time per call ({prof[name]['launches_per_call']:g} launches; plain step "
+            f"{plain_ms:.4f} ms); bound {c['bound_ms']:.4f} ms ({c['bound_by']}) [{card}]")
+    return rows, ntt_launches
 
 
 def phase_probe(dev):
@@ -368,12 +554,26 @@ def phase_probe(dev):
     assert launches > 0, "the mulmod chain kernel was not launched"
     err = int((y - mulmod_chain.chain_plain(x)).abs().max())
     assert err == 0, f"mulmod chain differs from plain: {err}"
-    ms = cuda_ms(lambda: mulmod_chain.chain(x))
+    from pplp_tpu_torch.measure_multiply import (CEILING_STEPS, MULMODS_PER_S, bound,
+                                                 profile_phases)
+
+    def device_ms(steps):  # shorter than its host launch path: the profiler reads it
+        return profile_phases(lambda: mulmod_chain.chain(x, steps=steps), 20)["phases"][
+            "mulmod_chain"]["ms_per_call"]
+
+    window = cuda_ms(lambda: mulmod_chain.chain(x))
+    ms, ceiling_ms = device_ms(mulmod_chain.STEPS), device_ms(CEILING_STEPS)
     plain_ms = cuda_ms(lambda: mulmod_chain.chain_plain(x), iters=5)
-    rate = x.numel() * mulmod_chain.STEPS / (ms / 1e3)
+    mulmods = x.numel() * mulmod_chain.STEPS
+    ceiling = x.numel() * CEILING_STEPS / (ceiling_ms / 1e3)
+    c = bound({"bytes": x.numel() * 16, "mulmods": mulmods})
     log(f"[probe] mulmod chain x{mulmod_chain.STEPS} on {PROBE_SHAPE}: bit-exact, "
-        f"{ms:.4f} ms ({rate:.4e} mulmods/s), plain {plain_ms:.4f} ms [{card}]")
-    return {"launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        f"{ms:.4f} ms of device time ({mulmods / (ms / 1e3):.4e} mulmods/s; CUDA-event "
+        f"window {window:.4f} ms), plain {plain_ms:.4f} ms; x{CEILING_STEPS}: "
+        f"{ceiling_ms:.4f} ms, {ceiling:.4e} mulmods/s = {100 * ceiling / MULMODS_PER_S:.1f}% "
+        f"of the integer-multiply peak {MULMODS_PER_S:.4e}/s [{card}]")
+    return {"launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"]}
 
 
 def _median_ms(fn, windows: int = 7, iters: int = 5) -> float:
@@ -497,23 +697,34 @@ def main() -> int:
     demo_shapes = [(), (3,), (6,)]
     err, times = phase_kernels(dev, demo_shapes)
     launches = phase_slice(dev)
-    rows = {}
-    rows["behz_multiply_relin"], mult_ntt = phase_multiply(dev)
+    rows, mult_ntt = phase_multiply(dev)
     rows["mulmod_chain"] = phase_probe(dev)
     pipe_ntt = phase_pipeline(dev)
+    sep_rows, sep_ntt = phase_separate(dev)
+    rows.update(sep_rows)
     n = 1 << DEMO_N_BITS
     main_shapes = {prof: (6, len(_chain(prof, n)), n) for prof in PROFILE_NTT}
-    for prof, names in PROFILE_NTT.items():
+    u32_shape = (ROWS_PER_LIMB, len(_chain("tpu", 32768)), 32768)
+    for prof, names in (*PROFILE_NTT.items(), ("tpu", ("ntt_forward_u32", "ntt_inverse_u32"))):
+        shape = u32_shape if names[0].endswith("u32") else main_shapes[prof]
         for name in names:
-            ms, plain_ms = times[prof, main_shapes[prof]][name]
-            rows[name] = {"launches": launches[name] + mult_ntt[name] + pipe_ntt[name],
-                          "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms}
-    kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep, **rows[name]}
+            ms, plain_ms = times[prof, shape][name]
+            rows[name] = {"launches": sum(c[name] for c in (launches, mult_ntt, pipe_ntt,
+                                                            sep_ntt)),
+                          "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
+                          **_ntt_bound(name, shape)}
+    kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep, **rows[name],
+                "library_ms": None}
                for name, (src, rep) in KERNELS.items()]
+    for k in kernels:
+        log(f"[kernels] {k['name']}: {k['launches']} launches on the main paths, "
+            f"{k['ms']:.4f} ms against a bound of {k['bound_ms']:.4f} ms ({k['bound_by']}), "
+            f"{100 * k['bound_ms'] / k['ms']:.1f}% of bound; plain {k['plain_ms']:.4f} ms")
     log(f"[kernels] NTT ms and plain_ms below are at the demo's blind-distance shape "
-        f"(u32: tpu {main_shapes['tpu']}, u64: seal {main_shapes['seal']}); "
-        f"behz_multiply_relin at batch {MUL_BATCH} (width 2); mulmod_chain at "
-        f"{PROBE_SHAPE}")
+        f"(int64 u32: tpu {main_shapes['tpu']}, u64: seal {main_shapes['seal']}; u32 out: "
+        f"{u32_shape}); the fused behz kernels at batch {MUL_BATCH} (width 2), the separate "
+        f"ones per call at n = {MUL_SEP_N}, batch {MUL_SEP_BATCH}; mulmod_chain at "
+        f"{PROBE_SHAPE}; library_ms null: no PyTorch call computes these functions")
     log(json.dumps({"kernels": kernels}))
     log(smi_line())
     print(json.dumps({"ok": True, "device": {

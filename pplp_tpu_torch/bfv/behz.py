@@ -51,6 +51,7 @@ __all__ = [
     "create_relin_keys",
     "make_keys",
     "lift_digit_grouped",
+    "key_products",
     "keyswitch_contributions",
     "keyswitch_contributions_grouped",
     "relinearize",
@@ -211,24 +212,30 @@ class RnsMultiplier:
 
     # ------------------------------------------------------------------
 
+    @staticmethod
+    def tensor_spectra(spec: torch.Tensor, tbx) -> torch.Tensor:
+        """Karatsuba tensor product of spectra [4, ..., Lx, n] (a0, a1, b0,
+        b1) over one base's tables -> [3, ..., Lx, n] (e0, e1, e2)."""
+        qc = tbx.q_b(1)
+        a0, a1, b0, b1 = spec
+        e0 = m31.mulmod(a0, b0, qc)
+        e2 = m31.mulmod(a1, b1, qc)
+        # Karatsuba: e1 = (a0 + a1)(b0 + b1) - e0 - e2, canonical sums.
+        cross = m31.mulmod(m31.add(a0, a1, qc), m31.add(b0, b1, qc), qc)
+        return torch.stack([e0, m31.sub(m31.sub(cross, e0, qc), e2, qc), e2])
+
+    def tensor_products(self, x: torch.Tensor, x_bsk: torch.Tensor):
+        """The coefficient-domain tensor products of the four inputs over Q
+        (x [4, ..., L, n]) and over B_sk (x_bsk [4, ..., K, n])."""
+        return tuple(ntt.inverse_plain(self.tensor_spectra(ntt.forward_plain(src, tbx), tbx), tbx)
+                     for src, tbx in ((x, self.ctx.tables), (x_bsk, self.bsk_tables)))
+
     def multiply(self, ct1: Ciphertext, ct2: Ciphertext) -> Ciphertext:
         """BFV multiply: (c0, c1) x (d0, d1) -> size-3 ciphertext over Q."""
         _check_pair(ct1, ct2)
-        tq, tb = self.ctx.tables, self.bsk_tables
         x = torch.stack([*ct1.polys, *ct2.polys])  # [4, ..., L, n]
-        fq = ntt.forward_plain(x, tq)
-        fb = ntt.forward_plain(self._to_bsk(x), tb)
-        es = []
-        for spec, tbx in ((fq, tq), (fb, tb)):
-            qc = tbx.q_b(1)
-            a0, a1, b0, b1 = spec
-            e0 = m31.mulmod(a0, b0, qc)
-            e2 = m31.mulmod(a1, b1, qc)
-            # Karatsuba: e1 = (a0 + a1)(b0 + b1) - e0 - e2, canonical sums.
-            cross = m31.mulmod(m31.add(a0, a1, qc), m31.add(b0, b1, qc), qc)
-            e1 = m31.sub(m31.sub(cross, e0, qc), e2, qc)
-            es.append(ntt.inverse_plain(torch.stack([e0, e1, e2]), tbx))
-        out = self._sk_to_q(self._fast_floor(es[0], es[1]))
+        e_q, e_bsk = self.tensor_products(x, self._to_bsk(x))
+        out = self._sk_to_q(self._fast_floor(e_q, e_bsk))
         return Ciphertext(tuple(out.unbind(0)), "coeff")
 
 
@@ -361,22 +368,26 @@ def lift_digit_grouped(ctx: BFVContext, poly: torch.Tensor, group) -> torch.Tens
     return m31.add(r0 % q2, m31.mulmod_shoup(t, col(w), col(ws), q2), q2)
 
 
-def keyswitch_contributions_grouped(ctx: BFVContext, poly: torch.Tensor,
-                                    keys: KSwitchKeys, groups):
-    """sum_j NTT(lift_j(poly)) * key[j] -> (d0, d1) in the coefficient domain;
-    one forward NTT per digit (all digits in one stacked transform)."""
+def key_products(ctx: BFVContext, d_ntt: torch.Tensor, keys: KSwitchKeys) -> torch.Tensor:
+    """sum_j d_ntt[j] * (k0[j], k1[j]) mod q of digit spectra [D, ..., L, n]
+    -> spectra [2, ..., L, n]."""
     q2 = ctx.q2
-    lifted = torch.stack([lift_digit_grouped(ctx, poly, g) for g in groups])
-    d_ntt = ntt.forward_plain(lifted, ctx.tables)  # [D, ..., L, n]
-    lead = (len(groups),) + (1,) * (poly.dim() - 2) + tuple(poly.shape[-2:])
+    lead = (d_ntt.shape[0],) + (1,) * (d_ntt.dim() - 3) + tuple(d_ntt.shape[-2:])
 
     def acc(key, key_s):
         t = m31.mulmod_shoup(d_ntt, key.reshape(lead), key_s.reshape(lead), q2)
         return t.sum(0) % q2  # D canonical terms: below 2^37
 
-    return tuple(ntt.inverse_plain(torch.stack([acc(keys.k0, keys.k0_shoup),
-                                                acc(keys.k1, keys.k1_shoup)]),
-                                   ctx.tables).unbind(0))
+    return torch.stack([acc(keys.k0, keys.k0_shoup), acc(keys.k1, keys.k1_shoup)])
+
+
+def keyswitch_contributions_grouped(ctx: BFVContext, poly: torch.Tensor,
+                                    keys: KSwitchKeys, groups):
+    """sum_j NTT(lift_j(poly)) * key[j] -> (d0, d1) in the coefficient domain;
+    one forward NTT per digit (all digits in one stacked transform)."""
+    lifted = torch.stack([lift_digit_grouped(ctx, poly, g) for g in groups])
+    d_ntt = ntt.forward_plain(lifted, ctx.tables)  # [D, ..., L, n]
+    return tuple(ntt.inverse_plain(key_products(ctx, d_ntt, keys), ctx.tables).unbind(0))
 
 
 def keyswitch_contributions(ctx: BFVContext, poly: torch.Tensor, keys: KSwitchKeys):

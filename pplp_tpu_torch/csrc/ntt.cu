@@ -1,39 +1,49 @@
 // Negacyclic NTT / inverse NTT over RNS limbs for Hopper (sm_90a).
 //
-// Replaces the Pallas kernel pplp_tpu/ops/ntt_vmem.py::_kernel (driven by
-// _run, public forward_vmem / inverse_vmem). It computes the same transform,
-// but emits the stage engine's bit-reversed spectrum order
-// (pplp_tpu/ops/ntt.py::forward / inverse), which is the port's only order.
+// The u32 kernels (m31 profile, every q < 2^30) replace the Pallas kernel
+// pplp_tpu/ops/ntt_vmem.py::_kernel (driven by _run, public forward_vmem /
+// inverse_vmem). They compute the same transform, but emit the stage
+// engine's bit-reversed spectrum order (pplp_tpu/ops/ntt.py::forward /
+// inverse), which is the port's only order.
 //
 // Layout: one thread block per polynomial row (one (batch, limb) pair of an
-// [..., L, n] tensor). The row is narrowed from int64 to u32 into shared
-// memory (n * 4 bytes: 32 KB at n = 8192, 128 KB at n = 32768, dynamic shared
-// memory above 48 KB), all log2(n) butterfly stages run there with a
-// __syncthreads() between stages, and the canonical result is widened back
-// to int64. Twiddles and their Shoup companions are read from global memory
-// (u32 tables [L, n], the same values as the stage engine's w/ws/iw/iws).
+// [..., L, n] tensor). The row comes into shared memory as u32 (4n bytes:
+// 16 KB at n = 4096, 128 KB at n = 32768, so no shape needs a split), the
+// in-block transform of csrc/ntt_block.cuh runs there (register-radix
+// rounds of 4 stages, one shared-memory exchange per round,
+// twiddles as interleaved (w, w_shoup) uint2 pairs), and the canonical row
+// goes back out. Loads and stores are 16-byte vectors, neighbouring threads
+// on neighbouring addresses. Each kernel comes in two I/O widths:
 //
-// Arithmetic is the m31 profile (q < 2^30): Harvey-lazy butterflies with
-// Shoup products, x * w mod q = w * x - umulhi(w_shoup, x) * q in wrapping
-// u32, valid for any x < 2^32. Forward: Cooley-Tukey stages, values in
-// [0, 4q); inverse: Gentleman-Sande stages in [0, 2q), then a full Shoup
-// product by n^-1. Outputs are canonical.
+//   ntt_forward_kernel / ntt_inverse_kernel: int64 in and out, narrowed on
+//     load and widened on store (ntt_cuda.forward / inverse, the protocol,
+//     the pipeline);
+//   ntt_forward_u32_kernel / ntt_inverse_u32_kernel: u32 out, from u32 rows
+//     (cp.async 16-byte copies into shared memory) or from int64 ciphertext
+//     rows; the multiply's intermediates on the shapes whose fused BEHZ
+//     kernels would not fit in shared memory (ops/behz_cuda.py).
 //
-// What bounds it: device-memory bytes at batch scale. Each element is read
-// and written once as int64 (16 bytes) plus the twiddle reads, against
-// ~log2(n) * 3 integer multiplies. Later work: keep residues as u32 end to
-// end, fuse pointwise twiddles into the epilogue, several rows per block.
+// What bounds it. Against the card's peaks, bytes: at n = 4096 a row's
+// forward is 24,576 Shoup products against 64 KB of int64 I/O (32 KB at
+// u32), 0.38 (0.75) products per byte, where the H100's integer-multiply
+// peak (3 multiplies per product) over its 3.35 TB/s is 1.66. In practice,
+// integer instruction issue: a butterfly adds a lazy compare-subtract, an
+// add and a subtract to its product's 3 multiplies, and even the bare
+// Shoup loop of csrc/mulmod_chain.cu reaches about half the multiply peak.
+// So the design keeps the butterflies in registers and the exchanges few;
+// tensor cores are not used (see ntt_block.cuh).
 //
 // The u64 kernels (pplp_ntt_forward_u64 / pplp_ntt_inverse_u64) run the m62
 // profile (2^32 <= q < 2^62). They replace no TPU kernel: the reference runs
 // m62 transforms through the XLA stage engine (pplp_tpu/ops/ntt.py:205-267,
-// (lo, hi) u32 pairs), and these emit that engine's order. Same design as the
-// u32 kernels: one block per row, the row in shared memory as u64, Shoup
-// products x * w mod q = w * x - __umul64hi(w_shoup, x) * q in wrapping u64
-// (w_shoup = floor(w * 2^64 / q), valid for any x < 2^64), Harvey-lazy CT
-// forward in [0, 4q) (4q < 2^64), GS inverse in [0, 2q) with the n^-1
-// product, canonical out. Tables are the int64 [L, n] tensors of the port's
-// NttTables, read as u64 (the Shoup companions are stored as bit patterns).
+// (lo, hi) u32 pairs), and these emit that engine's order. One block per
+// row, the row in shared memory as u64, one stage per __syncthreads(),
+// Shoup products x * w mod q = w * x - __umul64hi(w_shoup, x) * q in
+// wrapping u64 (w_shoup = floor(w * 2^64 / q), valid for any x < 2^64),
+// Harvey-lazy CT forward in [0, 4q) (4q < 2^64), GS inverse in [0, 2q) with
+// the n^-1 product, canonical out. Tables are the int64 [L, n] tensors of
+// the port's NttTables, read as u64 (the Shoup companions are stored as bit
+// patterns).
 //
 // A u64 row takes 8n bytes of shared memory: 128 KB at n = 16384, but 256 KB
 // at n = 32768, over the H100's 227 KB per block. So n = 32768 splits: the
@@ -45,111 +55,95 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "ntt_block.cuh"
+
 namespace {
 
-__device__ __forceinline__ uint32_t csub(uint32_t x, uint32_t m) {
-  return x >= m ? x - m : x;
-}
+using pplp::allow_smem;
 
-// x * w mod q in [0, 2q) for any x < 2^32 (w_shoup = floor(w * 2^32 / q)).
-__device__ __forceinline__ uint32_t mulmod_shoup_lazy(uint32_t x, uint32_t w,
-                                                      uint32_t w_shoup,
-                                                      uint32_t q) {
-  const uint32_t est = __umulhi(w_shoup, x);
-  return w * x - est * q;
-}
-
-__global__ void ntt_forward_kernel(const int64_t* __restrict__ x,
-                                   int64_t* __restrict__ y,
-                                   const uint32_t* __restrict__ q_limb,
-                                   const uint32_t* __restrict__ w,
-                                   const uint32_t* __restrict__ ws, int L,
-                                   int logn) {
-  extern __shared__ uint32_t a[];
+// One row per block: load (narrowing int64 or copying u32), transform,
+// store (widening to int64 or as u32).
+template <typename In, typename Out>
+__device__ __forceinline__ void forward_row(const In* x, Out* y, const uint32_t* q_limb,
+                                            const uint2* tw, int L, int logn) {
+  uint32_t* a = pplp::dyn_smem();
   const int n = 1 << logn;
-  const int half = n >> 1;
   const int64_t row = blockIdx.x;
   const int limb = static_cast<int>(row % L);
-  const int64_t* xr = x + row * n;
-  int64_t* yr = y + row * n;
-  const uint32_t* wl = w + static_cast<int64_t>(limb) * n;
-  const uint32_t* wsl = ws + static_cast<int64_t>(limb) * n;
-  const uint32_t q = q_limb[limb];
-  const uint32_t two_q = 2u * q;
-
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    a[i] = static_cast<uint32_t>(xr[i]);
-  }
+  pplp::load_row(x + row * n, a, n);
   __syncthreads();
-
-  // Stage s: h = 2^s twiddle blocks of 2t elements, t = n / 2h.
-  for (int s = 0; s < logn; ++s) {
-    const int h = 1 << s;
-    const int logt = logn - 1 - s;
-    const int t = 1 << logt;
-    for (int j = threadIdx.x; j < half; j += blockDim.x) {
-      const int blk = j >> logt;
-      const int iu = (blk << (logt + 1)) + (j & (t - 1));
-      const int iv = iu + t;
-      const uint32_t u = csub(a[iu], two_q);
-      const uint32_t mv = mulmod_shoup_lazy(a[iv], wl[h + blk], wsl[h + blk], q);
-      a[iu] = u + mv;
-      a[iv] = u + two_q - mv;
-    }
-    __syncthreads();
-  }
-
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    yr[i] = static_cast<int64_t>(csub(csub(a[i], two_q), q));
-  }
+  pplp::ntt_fwd_block(a, 1, logn, tw + static_cast<int64_t>(limb) * n, q_limb[limb]);
+  pplp::store_row(a, y + row * n, n);
 }
 
-__global__ void ntt_inverse_kernel(const int64_t* __restrict__ x,
-                                   int64_t* __restrict__ y,
-                                   const uint32_t* __restrict__ q_limb,
-                                   const uint32_t* __restrict__ iw,
-                                   const uint32_t* __restrict__ iws,
-                                   const uint32_t* __restrict__ n_inv,
-                                   const uint32_t* __restrict__ n_inv_shoup,
-                                   int L, int logn) {
-  extern __shared__ uint32_t a[];
+template <typename In, typename Out>
+__device__ __forceinline__ void inverse_row(const In* x, Out* y, const uint32_t* q_limb,
+                                            const uint2* itw, const uint32_t* n_inv,
+                                            const uint32_t* n_inv_shoup, int L, int logn) {
+  uint32_t* a = pplp::dyn_smem();
   const int n = 1 << logn;
-  const int half = n >> 1;
   const int64_t row = blockIdx.x;
   const int limb = static_cast<int>(row % L);
-  const int64_t* xr = x + row * n;
-  int64_t* yr = y + row * n;
-  const uint32_t* wl = iw + static_cast<int64_t>(limb) * n;
-  const uint32_t* wsl = iws + static_cast<int64_t>(limb) * n;
-  const uint32_t q = q_limb[limb];
-  const uint32_t two_q = 2u * q;
-
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    a[i] = static_cast<uint32_t>(xr[i]);
-  }
+  pplp::load_row(x + row * n, a, n);
   __syncthreads();
+  pplp::ntt_inv_block(a, 1, logn, itw + static_cast<int64_t>(limb) * n, q_limb[limb],
+                         n_inv[limb], n_inv_shoup[limb]);
+  pplp::store_row(a, y + row * n, n);
+}
 
-  // Stage s: t = 2^s, h = n / 2t twiddle blocks.
-  for (int s = 0; s < logn; ++s) {
-    const int h = half >> s;
-    const int t = 1 << s;
-    for (int j = threadIdx.x; j < half; j += blockDim.x) {
-      const int blk = j >> s;
-      const int iu = (blk << (s + 1)) + (j & (t - 1));
-      const int iv = iu + t;
-      const uint32_t u = a[iu];
-      const uint32_t v = a[iv];
-      a[iu] = csub(u + v, two_q);
-      a[iv] = mulmod_shoup_lazy(u + two_q - v, wl[h + blk], wsl[h + blk], q);
-    }
-    __syncthreads();
-  }
+__global__ void __launch_bounds__(pplp::kMaxRowThreads)
+ntt_forward_kernel(const void* x, void* y, const uint32_t* __restrict__ q,
+                   const uint2* __restrict__ tw, int L, int logn) {
+  forward_row<int64_t, int64_t>(static_cast<const int64_t*>(x), static_cast<int64_t*>(y), q,
+                                tw, L, logn);
+}
 
-  const uint32_t ni = n_inv[limb];
-  const uint32_t nis = n_inv_shoup[limb];
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    yr[i] = static_cast<int64_t>(csub(mulmod_shoup_lazy(a[i], ni, nis, q), q));
-  }
+template <typename In>
+__global__ void __launch_bounds__(pplp::kMaxRowThreads)
+ntt_forward_u32_kernel(const void* x, void* y, const uint32_t* __restrict__ q,
+                       const uint2* __restrict__ tw, int L, int logn) {
+  forward_row<In, uint32_t>(static_cast<const In*>(x), static_cast<uint32_t*>(y), q, tw, L,
+                            logn);
+}
+
+__global__ void __launch_bounds__(pplp::kMaxRowThreads)
+ntt_inverse_kernel(const void* x, void* y, const uint32_t* __restrict__ q,
+                   const uint2* __restrict__ itw, const uint32_t* __restrict__ n_inv,
+                   const uint32_t* __restrict__ n_inv_shoup, int L, int logn) {
+  inverse_row<int64_t, int64_t>(static_cast<const int64_t*>(x), static_cast<int64_t*>(y), q,
+                                itw, n_inv, n_inv_shoup, L, logn);
+}
+
+__global__ void __launch_bounds__(pplp::kMaxRowThreads)
+ntt_inverse_u32_kernel(const void* x, void* y, const uint32_t* __restrict__ q,
+                       const uint2* __restrict__ itw, const uint32_t* __restrict__ n_inv,
+                       const uint32_t* __restrict__ n_inv_shoup, int L, int logn) {
+  inverse_row<uint32_t, uint32_t>(static_cast<const uint32_t*>(x), static_cast<uint32_t*>(y),
+                                  q, itw, n_inv, n_inv_shoup, L, logn);
+}
+
+using FwdKernel = void (*)(const void*, void*, const uint32_t*, const uint2*, int, int);
+using InvKernel = void (*)(const void*, void*, const uint32_t*, const uint2*,
+                           const uint32_t*, const uint32_t*, int, int);
+
+// The forward kernel of an I/O width: (int64, int64), (int64, u32) or
+// (u32, u32); nullptr for (u32, int64), which no caller needs.
+FwdKernel forward_kernel(int in_u32, int out_u32) {
+  if (!out_u32) return in_u32 ? nullptr : ntt_forward_kernel;
+  return in_u32 ? ntt_forward_u32_kernel<uint32_t> : ntt_forward_u32_kernel<int64_t>;
+}
+
+// The inverse kernel: (int64, int64) or (u32, u32).
+InvKernel inverse_kernel(int in_u32, int out_u32) {
+  if (in_u32 != out_u32) return nullptr;
+  return in_u32 ? ntt_inverse_u32_kernel : ntt_inverse_kernel;
+}
+
+int u32_shape(int logn, int* threads, size_t* smem) {
+  if (logn < 6 || logn > 15) return static_cast<int>(cudaErrorInvalidValue);
+  *threads = pplp::block_threads(1 << logn, pplp::kMaxRowThreads);
+  *smem = static_cast<size_t>(4) << logn;
+  return 0;
 }
 
 // ---- u64 (m62) kernels --------------------------------------------------
@@ -329,6 +323,7 @@ __global__ void ntt_inverse_u64_last(int64_t* __restrict__ y,
   y[iv] = static_cast<int64_t>(csub64(mulmod_shoup_lazy64(d, ni, nis, q), q));
 }
 
+
 // Block shape of the u64 shared-memory kernels, and whether n splits.
 int launch_shape_u64(int logn, int* split, int* threads, size_t* smem) {
   if (logn < 6 || logn > 15) return static_cast<int>(cudaErrorInvalidValue);
@@ -339,74 +334,60 @@ int launch_shape_u64(int logn, int* split, int* threads, size_t* smem) {
   return 0;
 }
 
-template <typename Kernel>
-int allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
-}
-
 constexpr int kGlobalThreads = 256;
 
 int global_blocks(int64_t pairs) {
   return static_cast<int>((pairs + kGlobalThreads - 1) / kGlobalThreads);
 }
 
-int launch_shape(int logn, int* threads, size_t* smem) {
-  if (logn < 6 || logn > 15) return static_cast<int>(cudaErrorInvalidValue);
-  const int n = 1 << logn;
-  *threads = n / 2 < 512 ? n / 2 : 512;
-  *smem = static_cast<size_t>(n) * sizeof(uint32_t);
-  return 0;
-}
-
 }  // namespace
 
 extern "C" {
 
-// Each entry point returns cudaGetLastError() after the launch (0 = success).
-// x, y: int64 [rows, n] contiguous, rows = batch * L with the limb index
-// fastest; tables: u32 [L, n] (twiddles) and [L] (q, n^-1, its companion).
+// Each entry point returns the launch's error code (0 = success)
+// or cudaErrorInvalidValue for a shape or width it does not take.
+// x, y: [rows, n] contiguous, 16-byte aligned, rows = batch * L with the
+// limb index fastest; int64 or u32 as in_u32 / out_u32 say. Tables: u32
+// [L] (q, n^-1, its companion) and the interleaved (w, w_shoup) uint2
+// [L, n] tables.
 
-int pplp_ntt_forward(const void* x, void* y, const void* q, const void* w,
-                     const void* ws, int rows, int L, int logn, void* stream) {
+int pplp_ntt_forward(const void* x, void* y, const void* q, const void* tw, int rows, int L,
+                     int logn, int in_u32, int out_u32, void* stream) {
   int threads;
   size_t smem;
-  const int err = launch_shape(logn, &threads, &smem);
+  int err = u32_shape(logn, &threads, &smem);
   if (err) return err;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ntt_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  ntt_forward_kernel<<<rows, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(x), static_cast<int64_t*>(y),
-      static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(w),
-      static_cast<const uint32_t*>(ws), L, logn);
-  return static_cast<int>(cudaGetLastError());
+  const FwdKernel kernel = forward_kernel(in_u32, out_u32);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  err = allow_smem(kernel, smem);
+  if (err) return err;
+  const uint32_t* qq = static_cast<const uint32_t*>(q);
+  const uint2* ww = static_cast<const uint2*>(tw);
+  void* args[] = {&x, &y, &qq, &ww, &L, &logn};
+  return static_cast<int>(cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(rows),
+                                           dim3(threads), args, smem,
+                                           static_cast<cudaStream_t>(stream)));
 }
 
-int pplp_ntt_inverse(const void* x, void* y, const void* q, const void* iw,
-                     const void* iws, const void* n_inv,
-                     const void* n_inv_shoup, int rows, int L, int logn,
-                     void* stream) {
+int pplp_ntt_inverse(const void* x, void* y, const void* q, const void* itw,
+                     const void* n_inv, const void* n_inv_shoup, int rows, int L, int logn,
+                     int in_u32, int out_u32, void* stream) {
   int threads;
   size_t smem;
-  const int err = launch_shape(logn, &threads, &smem);
+  int err = u32_shape(logn, &threads, &smem);
   if (err) return err;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ntt_inverse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  ntt_inverse_kernel<<<rows, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(x), static_cast<int64_t*>(y),
-      static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(iw),
-      static_cast<const uint32_t*>(iws), static_cast<const uint32_t*>(n_inv),
-      static_cast<const uint32_t*>(n_inv_shoup), L, logn);
-  return static_cast<int>(cudaGetLastError());
+  const InvKernel kernel = inverse_kernel(in_u32, out_u32);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  err = allow_smem(kernel, smem);
+  if (err) return err;
+  const uint32_t* qq = static_cast<const uint32_t*>(q);
+  const uint2* ww = static_cast<const uint2*>(itw);
+  const uint32_t* ni = static_cast<const uint32_t*>(n_inv);
+  const uint32_t* nis = static_cast<const uint32_t*>(n_inv_shoup);
+  void* args[] = {&x, &y, &qq, &ww, &ni, &nis, &L, &logn};
+  return static_cast<int>(cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(rows),
+                                           dim3(threads), args, smem,
+                                           static_cast<cudaStream_t>(stream)));
 }
 
 // x, y: int64 [rows, n] as above; tables: the int64 [L, n] / [L] tensors of

@@ -2,8 +2,9 @@
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, at first use, under
-``pplp_tpu_torch/_build/``. The library name carries a hash of the source
-and the flags, so a changed source rebuilds. ``build`` starts one ``nvcc``
+``pplp_tpu_torch/_build/``. The library name carries a hash of the source,
+the shared headers beside it (``csrc/*.cuh``) and the flags, so a changed
+source or header rebuilds. ``build`` starts one ``nvcc``
 per source that is not built yet, all at once, and waits for all of them.
 Libraries are loaded with ``ctypes``; the wrappers (``ntt_cuda``,
 ``behz_cuda``, ``mulmod_chain``) declare their entry points' argtypes.
@@ -67,6 +68,8 @@ def _lib_path(source: Path, build_dir: Path) -> Path:
     h = hashlib.sha256()
     h.update(source.name.encode())
     h.update(source.read_bytes())
+    for header in sorted(Path(source).parent.glob("*.cuh")):  # the shared headers
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return Path(build_dir) / f"libpplp_{source.stem}_{h.hexdigest()[:16]}.so"
 

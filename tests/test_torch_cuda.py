@@ -1,6 +1,7 @@
 """The port on a CUDA card: the hand-written kernels against their plain
-versions (the u32 and u64 NTTs, the BEHZ multiply + relinearization, the
-mulmod chain), the demo on both profiles and the packed pipeline.
+versions (the u32 NTT in both I/O widths, the u64 NTT,
+the BEHZ multiply + relinearization on the fused and the separate routes,
+the mulmod chain), the demo on both profiles and the packed pipeline.
 
 Every test here is marked ``cuda`` and skips without a card. This file
 imports neither jax nor the JAX package, so it also runs where jax is not
@@ -21,6 +22,7 @@ from pplp_tpu_torch import bfv
 from pplp_tpu_torch.bfv import behz, behz_fused
 from pplp_tpu_torch.bfv.behz_fused import FusedMultiplier
 from pplp_tpu_torch.ops import behz_cuda, mulmod_chain, ntt, ntt_cuda
+from pplp_tpu_torch.ops.modmath import m31
 from pplp_tpu_torch.ops.primes import Modulus, bfv_default, get_primes, tpu_default
 
 pytestmark = pytest.mark.cuda
@@ -84,14 +86,52 @@ def test_u64_kernel_matches_plain(dev, n, bits):
     assert torch.equal(back, x)
     after = ntt_cuda.launches_by_kernel
     assert {k: after[k] - before[k] for k in after} == {
-        "ntt_forward": 0, "ntt_inverse": 0, "ntt_forward_u64": 1, "ntt_inverse_u64": 1}
+        "ntt_forward": 0, "ntt_inverse": 0, "ntt_forward_u32": 0, "ntt_inverse_u32": 0,
+        "ntt_forward_u64": 1, "ntt_inverse_u64": 1}
 
 
-def test_largest_canonical_inputs(dev):
+@pytest.mark.parametrize("n", [64, 4096, 8192, 32768])
+def test_largest_canonical_inputs(dev, n):
     """q - 1 in every slot drives the lazy butterflies to their bounds."""
-    tb = _tables(4096, dev)
+    tb = _tables(n, dev)
     x = (tb.q_b(1) - 1).expand(2, tb.L, tb.n).contiguous()
-    assert torch.equal(ntt.forward(x, tb), ntt.forward_plain(x, tb))
+    spec = ntt.forward_plain(x, tb)
+    assert torch.equal(ntt.forward(x, tb), spec)
+    assert torch.equal(ntt.inverse(spec, tb), ntt.inverse_plain(spec, tb))
+
+
+def _as_u32(x):
+    return x.to(torch.int32) if x.dtype == torch.int64 else x
+
+
+def _as_i64(x):
+    return x.to(torch.int64) & 0xFFFFFFFF
+
+
+@pytest.mark.parametrize("n", [64, 4096, 8192, 32768])
+def test_u32_io_kernels_match_plain(dev, n):
+    """forward_u32 from int64 and from u32 rows, inverse_u32, and the int64
+    kernels, with q - 1 in the first slots."""
+    tb = _tables(n, dev)
+    x = _residues(tb, (3,), n)
+    x[0, :, :5] = tb.q_b(1) - 1
+    spec = ntt.forward_plain(x, tb)
+    before = dict(ntt_cuda.launches_by_kernel)
+    f64 = ntt_cuda.forward_u32(x, tb)
+    f32 = ntt_cuda.forward_u32(_as_u32(x), tb)
+    back = ntt_cuda.inverse_u32(_as_u32(spec), tb)
+    torch.cuda.synchronize()
+    assert f64.dtype == f32.dtype == back.dtype == torch.int32
+    assert torch.equal(_as_i64(f64), spec)
+    assert torch.equal(_as_i64(f32), spec)
+    assert torch.equal(_as_i64(back), ntt.inverse_plain(spec, tb))
+    assert torch.equal(_as_i64(back), x)
+    assert torch.equal(ntt_cuda.forward(x, tb), spec)
+    assert torch.equal(ntt_cuda.inverse(spec, tb), x)
+    after = ntt_cuda.launches_by_kernel
+    assert {k: after[k] - before[k] for k in after} == {
+        "ntt_forward": 1, "ntt_inverse": 1, "ntt_forward_u32": 2, "ntt_inverse_u32": 1,
+        "ntt_forward_u64": 0, "ntt_inverse_u64": 0}
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
@@ -103,6 +143,10 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
         ntt_cuda.forward(x[::2], tb)
     with pytest.raises(ValueError):
         ntt_cuda.forward(x[..., :2048].contiguous(), tb)
+    with pytest.raises(ValueError, match="16-byte"):
+        ntt_cuda.forward(x.reshape(-1)[1:1 + tb.L * tb.n].view(1, tb.L, tb.n), tb)
+    with pytest.raises(TypeError):
+        ntt_cuda.inverse_u32(x, tb)
     empty = torch.empty((0, tb.L, tb.n), dtype=torch.int64, device=dev)
     before = ntt_cuda.launches
     assert ntt_cuda.forward(empty, tb).shape == empty.shape
@@ -212,28 +256,96 @@ def _same(a, b):
     return a.size == b.size and all(torch.equal(x, y) for x, y in zip(a.polys, b.polys))
 
 
-@pytest.mark.parametrize("n", [64, 4096])
-def test_behz_kernel_matches_plain(dev, n):
+def _behz_launches(n, relin_only=False):
+    """The BEHZ launches of one multiply (or one relinearization) at n."""
+    want = dict.fromkeys(behz_cuda.launches_by_kernel, 0)
+    if not relin_only:
+        want["behz_to_bsk"] = want["behz_floor_sk"] = 1
+        if n <= behz_cuda.FUSED_TENSOR_MAX_N:
+            want["behz_tensor_ntt"] = 1
+        else:
+            want["behz_tensor"] = 2
+        return want
+    if n <= behz_cuda.FUSED_RELIN_MAX_N:
+        want["behz_relin_ntt"] = 1
+    else:
+        want["behz_lift"] = want["behz_keyprod"] = want["behz_add"] = 1
+    return want
+
+
+@pytest.mark.parametrize("batch", [(1,), (3,)])
+@pytest.mark.parametrize("n", [64, 4096, 8192, 16384, 32768])
+def test_behz_kernel_matches_plain(dev, n, batch):
+    """n <= 8192: both fused kernels; 16384: the separate tensor route and
+    the fused relinearization; 32768: both separate."""
     ctx = _bfv_ctx(n, dev)
     g = torch.Generator(device=dev).manual_seed(n)
     sk, _ = behz.make_keys(ctx, g)
     rlk1, rlk2 = (behz.create_relin_keys(ctx, sk, g, width=w) for w in (1, 2))
     assert rlk1.groups != rlk2.groups
-    ct1, ct2 = _cts(ctx, (3,), n)
+    ct1, ct2 = _cts(ctx, batch, n)
     mul = behz.multiplier(ctx)
     plain3 = mul.multiply(ct1, ct2)
     behz_cuda.reset_launches()
+    ntt_cuda.reset_launches()
     got3 = FusedMultiplier(ctx).multiply(ct1, ct2)
     torch.cuda.synchronize()
     assert _same(got3, plain3)
-    assert behz_cuda.launches == 4  # to_bsk, tensor x 2, floor_sk
+    assert behz_cuda.launches_by_kernel == _behz_launches(n)
+    fused_t = n <= behz_cuda.FUSED_TENSOR_MAX_N
+    assert ntt_cuda.launches_by_kernel["ntt_forward_u32"] == (0 if fused_t else 5)
+    xb = behz_cuda.to_bsk(*ct1.polys, *ct2.polys, mul)
+    eq, eb = behz_cuda.tensor_products(*ct1.polys, *ct2.polys, xb, mul)
+    assert xb.dtype == eq.dtype == eb.dtype == torch.int32  # u32 intermediates
     for rlk in (rlk1, rlk2):
         want = behz.relinearize(ctx, plain3, rlk)
         fused = FusedMultiplier(ctx, rlk)
         assert _same(fused.multiply_relinearize(ct1, ct2), want)
         behz_cuda.reset_launches()
         assert _same(fused.relinearize(plain3), want)  # the relinearization alone
-        assert behz_cuda.launches == 3  # lift, keyprod, add
+        assert behz_cuda.launches_by_kernel == _behz_launches(n, relin_only=True)
+
+
+def test_separate_steps_match_plain(dev):
+    """The steps of the separate route, each on the same inputs as its plain
+    step: tensor_spectra (Q and B_sk), lift_digits, key_products and
+    add_switched, at n = 64, width 2, batch 3."""
+    ctx = _bfv_ctx(64, dev)
+    mul = behz.multiplier(ctx)
+    g = torch.Generator(device=dev).manual_seed(6)
+    sk, _ = behz.make_keys(ctx, g)
+    rlk = behz.create_relin_keys(ctx, sk, g, width=2)
+    ct1, ct2 = _cts(ctx, (3,), 6)
+    x = torch.stack([*ct1.polys, *ct2.polys])
+    for src, tbx in ((x, ctx.tables), (mul._to_bsk(x), mul.bsk_tables)):
+        spec = ntt.forward_plain(src, tbx)
+        got = behz_cuda.tensor_spectra(_as_u32(spec), tbx)
+        assert torch.equal(_as_i64(got), mul.tensor_spectra(spec, tbx))
+    c0, c1, c2 = mul.multiply(ct1, ct2).polys
+    groups = rlk.digit_groups(ctx.L)
+    lifted = torch.stack([behz.lift_digit_grouped(ctx, c2, gr) for gr in groups])
+    assert torch.equal(_as_i64(behz_cuda.lift_digits(c2, ctx, rlk)), lifted)
+    d_ntt = ntt.forward_plain(lifted, ctx.tables)
+    acc = behz.key_products(ctx, d_ntt, rlk)
+    assert torch.equal(_as_i64(behz_cuda.key_products(_as_u32(d_ntt), ctx, rlk)), acc)
+    d = ntt.inverse_plain(acc, ctx.tables)
+    want = torch.stack([m31.add(c, dj, ctx.q2) for c, dj in zip((c0, c1), d)])
+    assert torch.equal(behz_cuda.add_switched(c0, c1, _as_u32(d), ctx), want)
+
+
+def test_behz_at_the_limb_bound(dev):
+    """L = 40 (the kernels' bound) at n = 64, width 1: the relinearization
+    loops over 40 digits."""
+    chain = get_primes(28, behz_cuda.MAX_L, 64)
+    ctx = bfv.BFVContext.build(bfv.EncryptionParameters.bfv(64, 1 << 16, coeff_modulus=chain),
+                               dev)
+    g = torch.Generator(device=dev).manual_seed(40)
+    sk, _ = behz.make_keys(ctx, g)
+    rlk = behz.create_relin_keys(ctx, sk, g, width=1)
+    assert len(rlk.digit_groups(ctx.L)) == 40
+    ct1, ct2 = _cts(ctx, (2,), 40)
+    want = behz.relinearize(ctx, behz.multiplier(ctx).multiply(ct1, ct2), rlk)
+    assert _same(FusedMultiplier(ctx, rlk).multiply_relinearize(ct1, ct2), want)
 
 
 def test_evaluator_on_card_runs_the_kernels_only(dev, monkeypatch):
@@ -259,9 +371,15 @@ def test_evaluator_on_card_runs_the_kernels_only(dev, monkeypatch):
     assert _same(ev.relinearize(want3, rlk), want)
     assert _same(ev.multiply_relinearize(ct1, ct2, rlk), want)
     assert behz_cuda.launches_by_kernel == {
-        "behz_to_bsk": 2, "behz_tensor": 4, "behz_floor_sk": 2,
-        "behz_lift": 2, "behz_keyprod": 2, "behz_add": 2}
-    assert ntt_cuda.launches > 0
+        "behz_to_bsk": 2, "behz_tensor_ntt": 2, "behz_floor_sk": 2, "behz_relin_ntt": 2,
+        "behz_tensor": 0, "behz_lift": 0, "behz_keyprod": 0, "behz_add": 0}
+    assert ntt_cuda.launches == 0  # the transforms run inside the fused kernels
+    # One multiply_relinearize: 4 launches, none of them a plain version.
+    behz_cuda.reset_launches()
+    assert _same(ev.multiply_relinearize(ct1, ct2, rlk), want)
+    assert {k: v for k, v in behz_cuda.launches_by_kernel.items() if v} == {
+        "behz_to_bsk": 1, "behz_tensor_ntt": 1, "behz_floor_sk": 1, "behz_relin_ntt": 1}
+    assert ntt_cuda.launches == 0
 
 
 def test_real_product_decrypts_on_card(dev):
