@@ -13,11 +13,16 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
                card, bit-exact (tolerance 0: all arithmetic is exact integer
                arithmetic): the u32 kernels on the tpu chains n = 4096/L = 4,
                8192/L = 8 and 32768/L = 31 in both I/O widths (int64 in and
-               out; u32 out from int64 and from u32 rows), the u64 kernel on
+               out; u32 out from int64 and from u32 rows), the u64 kernels on
                the seal chains n = 4096/L = 3, 8192/L = 5, 16384/L = 9 and
-               32768/L = 16 (the split path), with 64 rows per limb, and both
-               at the shapes the demo gives them; round trips; CUDA-event
-               times of both;
+               32768/L = 16 (a row over a cluster of 2, 2, 2 and 4 blocks),
+               with 64 rows per limb, and both at the shapes the demo gives
+               them; the u64 kernels also at n = 64 and 1024 on 36-, 44- and
+               61-bit primes, where a block holds several rows of a limb
+               (35 and 3 rows per limb: a tail block); round trips; the
+               kernels' device times (torch.profiler: at the demo's shapes a
+               transform is shorter than its host launch path) and the plain
+               versions' CUDA-event times;
 4. slice    -- the local proximity demo (``run_local_demo``) at -d 13 -b 56,
                on the seal profile (the CLI's default) and on the tpu profile:
                r = 4096 with a near pair and r = 128 with a far pair. Each
@@ -73,6 +78,7 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -81,6 +87,8 @@ KERNEL_SHAPES = (("tpu", 4096, 4), ("tpu", 8192, 8), ("tpu", 32768, 31),
                  ("seal", 4096, 3), ("seal", 8192, 5), ("seal", 16384, 9),
                  ("seal", 32768, 16))
 ROWS_PER_LIMB = 64
+# The u64 row kernels below the seal chains: (n, rows per limb, prime bits).
+SMALL_U64 = ((64, 35, (36, 44, 61)), (1024, 3, (36, 44, 61)))
 DEMO_N_BITS = 13
 DEMO_T_BITS = 56
 # (radius, xa, ya, xb, yb): d^2 = 99,700 is below 4096^2 and above 128^2.
@@ -117,13 +125,14 @@ SEPARATE = ("behz_tensor", "behz_lift", "behz_keyprod", "behz_add")
 
 
 def _ntt_bound(name, shape) -> dict:
-    """Bound of one transform of ``shape`` [rows, L, n] as timed here: 8 B
-    per residue in and out for int64, 4 B for u32 (the u64 kernel's 64-bit
-    products counted at the u32 rate: no u64 rate is stated)."""
+    """Bound of one transform of ``shape`` [..., L, n] as timed here: 8 B
+    per residue in and out for int64, 4 B for u32; the u64 kernels' 64-bit
+    Shoup products at their own rate (``MULMODS64_PER_S``)."""
     from pplp_tpu_torch.measure_multiply import transform_counts
 
     width = 4 if name.endswith("u32") else 8
-    c = transform_counts(shape[0] * shape[1], shape[-1], "inverse" in name, width, width)
+    c = transform_counts(math.prod(shape[:-1]), shape[-1], "inverse" in name, width, width,
+                         u64=name.endswith("u64"))
     return {"bound_ms": c["bound_ms"], "bound_by": c["bound_by"]}
 
 
@@ -191,8 +200,9 @@ def phase_kernels(dev, demo_shapes):
     keyed by (profile, shape)."""
     import torch
 
+    from pplp_tpu_torch.measure_ntt import device_ms
     from pplp_tpu_torch.ops import ntt, ntt_cuda
-    from pplp_tpu_torch.ops.primes import Modulus
+    from pplp_tpu_torch.ops.primes import Modulus, get_primes
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(2024)
@@ -201,12 +211,15 @@ def phase_kernels(dev, demo_shapes):
     times = {}
     cases = [(prof, n, (ROWS_PER_LIMB,)) for prof, n, _ in KERNEL_SHAPES]
     cases += [(prof, 1 << DEMO_N_BITS, b) for prof in PROFILE_NTT for b in demo_shapes]
+    cases += [("seal", n, (rows,)) for n, rows, _ in SMALL_U64]
+    small = {n: [get_primes(b, 1, n)[0] for b in bits] for n, _, bits in SMALL_U64}
     tables = {}
     for prof, n, batch in cases:
         if (prof, n) not in tables:
             tables[prof, n] = ntt.build_tables(
-                [Modulus(q) for q in _chain(prof, n)], n, dev)
+                [Modulus(q) for q in small.get(n) or _chain(prof, n)], n, dev)
         tb = tables[prof, n]
+        assert tb.profile == ("m31" if prof == "tpu" else "m62")
         fwd, inv = PROFILE_NTT[prof]
         x = _random_residues(tb, batch, gen)
         fk = ntt_cuda.forward(x, tb)
@@ -225,9 +238,9 @@ def phase_kernels(dev, demo_shapes):
         # The plain m62 transforms run ~100 int64 ops per stage: fewer calls.
         iters, warm = (20, 3) if prof == "tpu" else (3, 1)
         t = {
-            fwd: (cuda_ms(lambda: ntt_cuda.forward(x, tb)),
+            fwd: (device_ms(lambda: ntt_cuda.forward(x, tb)),
                   cuda_ms(lambda: ntt.forward_plain(x, tb), iters, warm)),
-            inv: (cuda_ms(lambda: ntt_cuda.inverse(fp, tb)),
+            inv: (device_ms(lambda: ntt_cuda.inverse(fp, tb)),
                   cuda_ms(lambda: ntt.inverse_plain(fp, tb), iters, warm)),
         }
         u32 = ""
@@ -242,16 +255,18 @@ def phase_kernels(dev, demo_shapes):
                 assert e == 0, f"{what} differs from plain at {shape}: {e}"
                 name = what.split()[0]
                 err[name] = max(err[name], e)
-            t["ntt_forward_u32"] = (cuda_ms(lambda: ntt_cuda.forward_u32(x32, tb)),
+            t["ntt_forward_u32"] = (device_ms(lambda: ntt_cuda.forward_u32(x32, tb)),
                                     t[fwd][1])
-            t["ntt_inverse_u32"] = (cuda_ms(lambda: ntt_cuda.inverse_u32(fp32, tb)),
+            t["ntt_inverse_u32"] = (device_ms(lambda: ntt_cuda.inverse_u32(fp32, tb)),
                                     t[inv][1])
             u32 = (f"; u32 in and out: forward {t['ntt_forward_u32'][0]:.4f} ms, "
                    f"inverse {t['ntt_inverse_u32'][0]:.4f} ms, bit-exact (also from int64)")
         times[prof, shape] = t
-        log(f"[kernels] {prof} shape {shape} bit-exact fwd+inv, round trip ok; "
-            f"{fwd} {t[fwd][0]:.4f} ms (plain {t[fwd][1]:.4f}), "
-            f"{inv} {t[inv][0]:.4f} ms (plain {t[inv][1]:.4f}){u32} [{card}]")
+        bf, bi = _ntt_bound(fwd, shape), _ntt_bound(inv, shape)
+        log(f"[kernels] {prof} shape {shape} bit-exact fwd+inv, round trip ok; device time "
+            f"{fwd} {t[fwd][0]:.4f} ms (plain {t[fwd][1]:.4f}; bound {bf['bound_ms']:.4f} ms, "
+            f"{bf['bound_by']}), {inv} {t[inv][0]:.4f} ms (plain {t[inv][1]:.4f}; bound "
+            f"{bi['bound_ms']:.4f} ms, {bi['bound_by']}){u32} [{card}]")
     return err, times
 
 
@@ -557,12 +572,12 @@ def phase_probe(dev):
     from pplp_tpu_torch.measure_multiply import (CEILING_STEPS, MULMODS_PER_S, bound,
                                                  profile_phases)
 
-    def device_ms(steps):  # shorter than its host launch path: the profiler reads it
+    def chain_ms(steps):  # the chain kernel alone, by its name in the profile
         return profile_phases(lambda: mulmod_chain.chain(x, steps=steps), 20)["phases"][
             "mulmod_chain"]["ms_per_call"]
 
     window = cuda_ms(lambda: mulmod_chain.chain(x))
-    ms, ceiling_ms = device_ms(mulmod_chain.STEPS), device_ms(CEILING_STEPS)
+    ms, ceiling_ms = chain_ms(mulmod_chain.STEPS), chain_ms(CEILING_STEPS)
     plain_ms = cuda_ms(lambda: mulmod_chain.chain_plain(x), iters=5)
     mulmods = x.numel() * mulmod_chain.STEPS
     ceiling = x.numel() * CEILING_STEPS / (ceiling_ms / 1e3)

@@ -36,26 +36,42 @@
 // The u64 kernels (pplp_ntt_forward_u64 / pplp_ntt_inverse_u64) run the m62
 // profile (2^32 <= q < 2^62). They replace no TPU kernel: the reference runs
 // m62 transforms through the XLA stage engine (pplp_tpu/ops/ntt.py:205-267,
-// (lo, hi) u32 pairs), and these emit that engine's order. One block per
-// row, the row in shared memory as u64, one stage per __syncthreads(),
-// Shoup products x * w mod q = w * x - __umul64hi(w_shoup, x) * q in
-// wrapping u64 (w_shoup = floor(w * 2^64 / q), valid for any x < 2^64),
-// Harvey-lazy CT forward in [0, 4q) (4q < 2^64), GS inverse in [0, 2q) with
-// the n^-1 product, canonical out. Tables are the int64 [L, n] tensors of
-// the port's NttTables, read as u64 (the Shoup companions are stored as bit
-// patterns).
+// (lo, hi) u32 pairs), and these emit that engine's order, int64 residues in
+// and out (the u64's bits, so a row needs no narrowing). They run the
+// in-block transform of csrc/ntt_block64.cuh: register-radix rounds on u64
+// rows in swizzled shared memory, twiddles as interleaved (w, w_shoup)
+// ulonglong2 pairs, rows in by 16-byte cp.async and out as 16-byte vectors.
 //
-// A u64 row takes 8n bytes of shared memory: 128 KB at n = 16384, but 256 KB
-// at n = 32768, over the H100's 227 KB per block. So n = 32768 splits: the
-// forward runs CT stage 0 (pairs i, i + n/2) in one global-memory pass, then
-// each half as an independent 16384-point sub-transform in its own block
-// with the twiddle indices offset; the inverse mirrors it (the halves first,
-// then the last GS stage and the n^-1 product in a global pass).
+// What bounds them: bytes and integer work sit at the crossover. A residue
+// crosses device memory once each way (16 B), and a butterfly's u64 Shoup
+// product is about ten 32-bit multiplies (measure_multiply.U64_PRODUCT_MULS
+// has the count from the SASS); at [64, 16, 32768] the forward is bound by
+// bytes and the inverse, with its n^-1 products, by operations. So every
+// row crosses device memory once, and every stage runs in registers with one
+// shared-memory exchange per round.
+//
+// Block shapes. Blocks have at most 512 threads and 64 registers a thread, so
+// that two fit an SM and one computes while the other waits at a barrier.
+// For n <= 1024 a block holds several rows of one limb, so that it has at
+// least 256 groups of work; the tail block takes the rows that are left;
+// n = 2048 is one row per block. From n = 4096 on (the seal chains) a row is
+// spread over a thread block cluster: 2 blocks up to n = 16384 and 4 at
+// n = 32768, where a row is 256 KB, over the 227 KB one block may use. The
+// forward's first round (1 .. 3 stages, so that every later round has 3)
+// reads the row straight from device memory into registers and writes each
+// element into the shared memory of the block that holds its part (its own,
+// or a peer's through distributed shared memory); after a cluster barrier
+// the parts are independent transforms, and each block runs the other
+// stages on its 2048 .. 8192 points and stores them. The inverse mirrors
+// it: the local stages, a cluster barrier, and a last round that reads the
+// blocks' shared memory, multiplies by n^-1 and writes device memory. Every
+// transform is one launch and moves 16 B per residue.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "ntt_block.cuh"
+#include "ntt_block64.cuh"
 
 namespace {
 
@@ -148,196 +164,149 @@ int u32_shape(int logn, int* threads, size_t* smem) {
 
 // ---- u64 (m62) kernels --------------------------------------------------
 
-__device__ __forceinline__ uint64_t csub64(uint64_t x, uint64_t m) {
-  return x >= m ? x - m : x;
-}
-
-// x * w mod q in [0, 2q) for any x < 2^64 (w_shoup = floor(w * 2^64 / q)).
-__device__ __forceinline__ uint64_t mulmod_shoup_lazy64(uint64_t x, uint64_t w,
-                                                        uint64_t w_shoup,
-                                                        uint64_t q) {
-  const uint64_t est = __umul64hi(w_shoup, x);
-  return w * x - est * q;
-}
-
-constexpr int kMaxSmemLogn = 14;  // 8 * 2^14 = 128 KB of shared memory
-
-// Forward CT stages on one sub-transform of m = n >> split elements per block
-// (split = 0: the whole row; split = 1: half b of the row after stage 0).
-// Local stage s' is global stage s' + split; its twiddle block index is
-// (h' << split) + (b << s') + blk'. Input in [0, 4q) (canonical when
-// split = 0); output canonical. x may equal y.
-__global__ void ntt_forward_u64_kernel(const int64_t* x, int64_t* y,
-                                       const uint64_t* __restrict__ q_limb,
-                                       const uint64_t* __restrict__ w,
-                                       const uint64_t* __restrict__ ws, int L,
-                                       int logn, int split) {
-  extern __shared__ uint64_t a64[];
-  const int logm = logn - split;
-  const int m = 1 << logm;
-  const int half = m >> 1;
-  const int64_t row = blockIdx.x >> split;
-  const int b = blockIdx.x & ((1 << split) - 1);
-  const int limb = static_cast<int>(row % L);
-  const int64_t base = (row << logn) + (static_cast<int64_t>(b) << logm);
-  const uint64_t* wl = w + (static_cast<int64_t>(limb) << logn);
-  const uint64_t* wsl = ws + (static_cast<int64_t>(limb) << logn);
-  const uint64_t q = q_limb[limb];
-  const uint64_t two_q = 2 * q;
-
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    a64[i] = static_cast<uint64_t>(x[base + i]);
-  }
+// Rows of one limb per block: batch entries b0 .. b0 + rows - 1 of limb
+// blockIdx.x % L, which lie L rows apart.
+__global__ void __launch_bounds__(pplp::kMaxThreads64, 2)
+ntt_forward_u64_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y,
+                       const uint64_t* __restrict__ q_limb,
+                       const ulonglong2* __restrict__ tw, int batch, int L, int logn,
+                       int rows_per_block) {
+  uint64_t* a = pplp::dyn_smem64();
+  const int limb = blockIdx.x % L;
+  const int b0 = (blockIdx.x / L) * rows_per_block;
+  const int rows = min(rows_per_block, batch - b0);
+  const int64_t first = (static_cast<int64_t>(b0) * L + limb) << logn;
+  const int64_t stride = static_cast<int64_t>(L) << logn;
+  pplp::load_rows_async64(x + first, stride, a, rows, logn);
+  pplp::cp_async_wait_all();
   __syncthreads();
-
-  for (int s = 0; s < logm; ++s) {
-    const int logt = logm - 1 - s;
-    const int t = 1 << logt;
-    const int tw0 = ((1 << s) << split) + (b << s);
-    for (int j = threadIdx.x; j < half; j += blockDim.x) {
-      const int blk = j >> logt;
-      const int iu = (blk << (logt + 1)) + (j & (t - 1));
-      const int iv = iu + t;
-      const uint64_t u = csub64(a64[iu], two_q);
-      const uint64_t mv =
-          mulmod_shoup_lazy64(a64[iv], wl[tw0 + blk], wsl[tw0 + blk], q);
-      a64[iu] = u + mv;
-      a64[iv] = u + two_q - mv;
-    }
-    __syncthreads();
-  }
-
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    y[base + i] = static_cast<int64_t>(csub64(csub64(a64[i], two_q), q));
-  }
+  pplp::ntt_fwd_block64(a, rows, logn, tw + (static_cast<int64_t>(limb) << logn),
+                        q_limb[limb]);
+  pplp::store_rows64(a, y + first, stride, rows, logn);
 }
 
-// Forward CT stage 0 over whole rows in global memory (twiddle index 1):
-// canonical x -> lazy [0, 4q) y, as u64 bit patterns.
-__global__ void ntt_forward_u64_stage0(const int64_t* __restrict__ x,
-                                       int64_t* __restrict__ y,
-                                       const uint64_t* __restrict__ q_limb,
-                                       const uint64_t* __restrict__ w,
-                                       const uint64_t* __restrict__ ws, int L,
-                                       int logn, int64_t pairs) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= pairs) return;
-  const int64_t row = idx >> (logn - 1);
-  const int64_t j = idx & ((int64_t{1} << (logn - 1)) - 1);
-  const int limb = static_cast<int>(row % L);
-  const uint64_t q = q_limb[limb];
-  const uint64_t two_q = 2 * q;
-  const int64_t tw = (static_cast<int64_t>(limb) << logn) + 1;
-  const int64_t iu = (row << logn) + j;
-  const int64_t iv = iu + (int64_t{1} << (logn - 1));
-  const uint64_t u = csub64(static_cast<uint64_t>(x[iu]), two_q);
-  const uint64_t mv = mulmod_shoup_lazy64(static_cast<uint64_t>(x[iv]), w[tw], ws[tw], q);
-  y[iu] = static_cast<int64_t>(u + mv);
-  y[iv] = static_cast<int64_t>(u + two_q - mv);
-}
-
-// Inverse GS stages 0 .. logm - 1 on one sub-transform (split as above; the
-// twiddle block index is (h' << split) + (b << (logm - 1 - s)) + blk'). With
-// split = 0 the n^-1 product makes the output canonical; with split = 1 the
-// output stays lazy in [0, 2q) for ntt_inverse_u64_last. x may equal y.
-__global__ void ntt_inverse_u64_kernel(const int64_t* x, int64_t* y,
-                                       const uint64_t* __restrict__ q_limb,
-                                       const uint64_t* __restrict__ iw,
-                                       const uint64_t* __restrict__ iws,
-                                       const uint64_t* __restrict__ n_inv,
-                                       const uint64_t* __restrict__ n_inv_shoup,
-                                       int L, int logn, int split) {
-  extern __shared__ uint64_t a64[];
-  const int logm = logn - split;
-  const int m = 1 << logm;
-  const int half = m >> 1;
-  const int64_t row = blockIdx.x >> split;
-  const int b = blockIdx.x & ((1 << split) - 1);
-  const int limb = static_cast<int>(row % L);
-  const int64_t base = (row << logn) + (static_cast<int64_t>(b) << logm);
-  const uint64_t* wl = iw + (static_cast<int64_t>(limb) << logn);
-  const uint64_t* wsl = iws + (static_cast<int64_t>(limb) << logn);
-  const uint64_t q = q_limb[limb];
-  const uint64_t two_q = 2 * q;
-
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    a64[i] = static_cast<uint64_t>(x[base + i]);
-  }
+__global__ void __launch_bounds__(pplp::kMaxThreads64, 2)
+ntt_inverse_u64_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y,
+                       const uint64_t* __restrict__ q_limb,
+                       const ulonglong2* __restrict__ itw,
+                       const uint64_t* __restrict__ n_inv,
+                       const uint64_t* __restrict__ n_inv_shoup, int batch, int L, int logn,
+                       int rows_per_block) {
+  uint64_t* a = pplp::dyn_smem64();
+  const int limb = blockIdx.x % L;
+  const int b0 = (blockIdx.x / L) * rows_per_block;
+  const int rows = min(rows_per_block, batch - b0);
+  const int64_t first = (static_cast<int64_t>(b0) * L + limb) << logn;
+  const int64_t stride = static_cast<int64_t>(L) << logn;
+  pplp::load_rows_async64(x + first, stride, a, rows, logn);
+  pplp::cp_async_wait_all();
   __syncthreads();
-
-  for (int s = 0; s < logm; ++s) {
-    const int logh = logm - 1 - s;
-    const int t = 1 << s;
-    const int tw0 = ((1 << logh) << split) + (b << logh);
-    for (int j = threadIdx.x; j < half; j += blockDim.x) {
-      const int blk = j >> s;
-      const int iu = (blk << (s + 1)) + (j & (t - 1));
-      const int iv = iu + t;
-      const uint64_t u = a64[iu];
-      const uint64_t v = a64[iv];
-      a64[iu] = csub64(u + v, two_q);
-      a64[iv] = mulmod_shoup_lazy64(u + two_q - v, wl[tw0 + blk], wsl[tw0 + blk], q);
-    }
-    __syncthreads();
-  }
-
-  if (split) {
-    for (int i = threadIdx.x; i < m; i += blockDim.x) {
-      y[base + i] = static_cast<int64_t>(a64[i]);
-    }
-    return;
-  }
-  const uint64_t ni = n_inv[limb];
-  const uint64_t nis = n_inv_shoup[limb];
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    y[base + i] = static_cast<int64_t>(csub64(mulmod_shoup_lazy64(a64[i], ni, nis, q), q));
-  }
+  pplp::ntt_inv_block64(a, rows, logn, itw + (static_cast<int64_t>(limb) << logn),
+                        q_limb[limb], n_inv[limb], n_inv_shoup[limb]);
+  pplp::store_rows64(a, y + first, stride, rows, logn);
 }
 
-// Inverse GS last stage (pairs j, j + n/2, twiddle index 1) and the n^-1
-// product over whole rows, in place: lazy [0, 2q) in, canonical out.
-__global__ void ntt_inverse_u64_last(int64_t* __restrict__ y,
-                                     const uint64_t* __restrict__ q_limb,
-                                     const uint64_t* __restrict__ iw,
-                                     const uint64_t* __restrict__ iws,
-                                     const uint64_t* __restrict__ n_inv,
-                                     const uint64_t* __restrict__ n_inv_shoup,
-                                     int L, int logn, int64_t pairs) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= pairs) return;
-  const int64_t row = idx >> (logn - 1);
-  const int64_t j = idx & ((int64_t{1} << (logn - 1)) - 1);
+// One row per cluster of 2^CL blocks; block `rank` holds the part
+// 2^CL + rank of the transform (n >> CL contiguous points). KK is the round
+// that runs between device memory and the cluster's shared memory: the
+// first of the forward, the last of the inverse.
+template <int KK, int CL>
+__global__ void __launch_bounds__(pplp::kMaxThreads64, 2)
+ntt_forward_u64_cluster_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y,
+                               const uint64_t* __restrict__ q_limb,
+                               const ulonglong2* __restrict__ tw, int L, int logn) {
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  uint64_t* a = pplp::dyn_smem64();
+  const int rank = cluster.block_rank();
+  const int64_t row = blockIdx.x >> CL;
   const int limb = static_cast<int>(row % L);
+  const ulonglong2* twl = tw + (static_cast<int64_t>(limb) << logn);
   const uint64_t q = q_limb[limb];
-  const uint64_t two_q = 2 * q;
-  const int64_t tw = (static_cast<int64_t>(limb) << logn) + 1;
-  const int64_t iu = (row << logn) + j;
-  const int64_t iv = iu + (int64_t{1} << (logn - 1));
-  const uint64_t u = static_cast<uint64_t>(y[iu]);
-  const uint64_t v = static_cast<uint64_t>(y[iv]);
-  const uint64_t s = csub64(u + v, two_q);
-  const uint64_t d = mulmod_shoup_lazy64(u + two_q - v, iw[tw], iws[tw], q);
-  const uint64_t ni = n_inv[limb];
-  const uint64_t nis = n_inv_shoup[limb];
-  y[iu] = static_cast<int64_t>(csub64(mulmod_shoup_lazy64(s, ni, nis, q), q));
-  y[iv] = static_cast<int64_t>(csub64(mulmod_shoup_lazy64(d, ni, nis, q), q));
+  const int logm = logn - CL;
+  pplp::fwd_first_round_cluster64<KK, CL>(x + (row << logn), a, logn, twl, q, cluster);
+  pplp::ntt_fwd_block64(a, 1, logm, twl, q, (1 << CL) + rank, KK - CL);
+  pplp::store_rows64(a, y + (row << logn) + (static_cast<int64_t>(rank) << logm), 0, 1, logm);
 }
 
+template <int KK, int CL>
+__global__ void __launch_bounds__(pplp::kMaxThreads64, 2)
+ntt_inverse_u64_cluster_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y,
+                               const uint64_t* __restrict__ q_limb,
+                               const ulonglong2* __restrict__ itw,
+                               const uint64_t* __restrict__ n_inv,
+                               const uint64_t* __restrict__ n_inv_shoup, int L, int logn) {
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  uint64_t* a = pplp::dyn_smem64();
+  const int rank = cluster.block_rank();
+  const int64_t row = blockIdx.x >> CL;
+  const int limb = static_cast<int>(row % L);
+  const ulonglong2* twl = itw + (static_cast<int64_t>(limb) << logn);
+  const uint64_t q = q_limb[limb];
+  const int logm = logn - CL;
+  pplp::load_rows_async64(x + (row << logn) + (static_cast<int64_t>(rank) << logm), 0, a, 1,
+                          logm);
+  pplp::cp_async_wait_all();
+  __syncthreads();
+  pplp::ntt_inv_block64(a, 1, logm, twl, q, 0, 0, (1 << CL) + rank, logn - KK);
+  pplp::inv_last_round_cluster64<KK, CL>(a, y + (row << logn), logn, twl, q, n_inv[limb],
+                                         n_inv_shoup[limb], cluster);
+}
 
-// Block shape of the u64 shared-memory kernels, and whether n splits.
-int launch_shape_u64(int logn, int* split, int* threads, size_t* smem) {
-  if (logn < 6 || logn > 15) return static_cast<int>(cudaErrorInvalidValue);
-  *split = logn > kMaxSmemLogn ? 1 : 0;
-  const int m = 1 << (logn - *split);
-  *threads = m / 2 < 512 ? m / 2 : 512;
-  *smem = static_cast<size_t>(m) * sizeof(uint64_t);
+// The launch of one u64 transform over batch * L rows: blocks, threads,
+// shared memory, rows per block, and log2 of the blocks a row is spread over
+// (0: the row kernels).
+struct Shape64 {
+  int blocks, threads, rows_per_block, cluster_log;
+  size_t smem;
+};
+
+// n = 4096 .. 32768 (logn = 12 .. 15), the seal chains: a row goes over a
+// cluster of 2, 2, 2 and 4 blocks, so that a block holds 16 .. 64 KB and an
+// SM at least two blocks that hide each other's barriers (measured: at
+// n = 32768 4 blocks beat 2 and 8, at n = 4096 and 16384 2 beat 1 and 4);
+// below, whole rows per block. log2 of the blocks of a row:
+constexpr int cluster_log(int logn) { return logn < 12 ? 0 : (logn < 15 ? 1 : 2); }
+// The cluster round's stages, so that every other round has k = 3.
+constexpr int cluster_stages(int logn) { return (logn - 1) % pplp::kRadixLog64 + 1; }
+
+int shape_u64(int batch, int L, int logn, Shape64* s) {
+  if (logn < 6 || logn > 15 || batch < 1 || L < 1) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int K = pplp::kRadixLog64;
+  constexpr int kMinGroups = 256;  // of a block, where the batch has them
+  s->cluster_log = cluster_log(logn);
+  const int logm = logn - s->cluster_log;
+  const int groups = 1 << (logm - K);
+  int rpb = s->cluster_log || groups >= kMinGroups ? 1 : kMinGroups / groups;
+  if (rpb > batch) rpb = batch;
+  s->rows_per_block = rpb;
+  const int64_t blocks = s->cluster_log ? (static_cast<int64_t>(batch) * L) << s->cluster_log
+                                        : static_cast<int64_t>((batch + rpb - 1) / rpb) * L;
+  if (blocks >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  s->blocks = static_cast<int>(blocks);
+  s->smem = (static_cast<size_t>(rpb) * sizeof(uint64_t)) << logm;
+  const int work = rpb * groups;
+  s->threads = work < 32 ? 32 : (work > pplp::kMaxThreads64 ? pplp::kMaxThreads64 : work);
   return 0;
 }
 
-constexpr int kGlobalThreads = 256;
-
-int global_blocks(int64_t pairs) {
-  return static_cast<int>((pairs + kGlobalThreads - 1) / kGlobalThreads);
+// Launch `kernel` over s.blocks blocks, in clusters of 2^s.cluster_log.
+template <typename... Params, typename... Args>
+int launch_u64(void (*kernel)(Params...), const Shape64& s, cudaStream_t stream, Args... args) {
+  const int err = allow_smem(kernel, s.smem);
+  if (err) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(s.blocks);
+  cfg.blockDim = dim3(s.threads);
+  cfg.dynamicSmemBytes = s.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1 << s.cluster_log;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...));
 }
 
 }  // namespace
@@ -390,61 +359,71 @@ int pplp_ntt_inverse(const void* x, void* y, const void* q, const void* itw,
                                            static_cast<cudaStream_t>(stream)));
 }
 
-// x, y: int64 [rows, n] as above; tables: the int64 [L, n] / [L] tensors of
-// an m62 NttTables (q, w, w_shoup; iw, iw_shoup, n^-1, its companion),
-// read as u64. For n = 32768 the entry point makes two launches.
+// x, y: int64 [batch * L, n] as above (x != y), read as u64; tables: the
+// int64 [L] tensors of an m62 NttTables (q; n^-1 and its companion) and the
+// interleaved (w, w_shoup) ulonglong2 [L, n] tables. One launch at every n.
 
-int pplp_ntt_forward_u64(const void* x, void* y, const void* q, const void* w,
-                         const void* ws, int rows, int L, int logn,
-                         void* stream) {
-  int split, threads;
-  size_t smem;
-  int err = launch_shape_u64(logn, &split, &threads, &smem);
-  if (err) return err;
-  err = allow_smem(ntt_forward_u64_kernel, smem);
+int pplp_ntt_forward_u64(const void* x, void* y, const void* q, const void* tw, int batch,
+                         int L, int logn, void* stream) {
+  Shape64 s;
+  const int err = shape_u64(batch, L, logn, &s);
   if (err) return err;
   auto st = static_cast<cudaStream_t>(stream);
+  auto in = static_cast<const uint64_t*>(x);
+  auto out = static_cast<uint64_t*>(y);
   auto qq = static_cast<const uint64_t*>(q);
-  auto ww = static_cast<const uint64_t*>(w);
-  auto wws = static_cast<const uint64_t*>(ws);
-  const int64_t* in = static_cast<const int64_t*>(x);
-  int64_t* out = static_cast<int64_t*>(y);
-  if (split) {
-    const int64_t pairs = static_cast<int64_t>(rows) << (logn - 1);
-    ntt_forward_u64_stage0<<<global_blocks(pairs), kGlobalThreads, 0, st>>>(
-        in, out, qq, ww, wws, L, logn, pairs);
-    in = out;
+  auto ww = static_cast<const ulonglong2*>(tw);
+  switch (logn) {
+    case 12:
+      return launch_u64(ntt_forward_u64_cluster_kernel<cluster_stages(12), cluster_log(12)>,
+                        s, st, in, out, qq, ww, L, logn);
+    case 13:
+      return launch_u64(ntt_forward_u64_cluster_kernel<cluster_stages(13), cluster_log(13)>,
+                        s, st, in, out, qq, ww, L, logn);
+    case 14:
+      return launch_u64(ntt_forward_u64_cluster_kernel<cluster_stages(14), cluster_log(14)>,
+                        s, st, in, out, qq, ww, L, logn);
+    case 15:
+      return launch_u64(ntt_forward_u64_cluster_kernel<cluster_stages(15), cluster_log(15)>,
+                        s, st, in, out, qq, ww, L, logn);
+    default:
+      break;
   }
-  ntt_forward_u64_kernel<<<rows << split, threads, smem, st>>>(
-      in, out, qq, ww, wws, L, logn, split);
-  return static_cast<int>(cudaGetLastError());
+  return launch_u64(ntt_forward_u64_kernel, s, st, in, out, qq, ww, batch, L, logn,
+                    s.rows_per_block);
 }
 
-int pplp_ntt_inverse_u64(const void* x, void* y, const void* q, const void* iw,
-                         const void* iws, const void* n_inv,
-                         const void* n_inv_shoup, int rows, int L, int logn,
-                         void* stream) {
-  int split, threads;
-  size_t smem;
-  int err = launch_shape_u64(logn, &split, &threads, &smem);
-  if (err) return err;
-  err = allow_smem(ntt_inverse_u64_kernel, smem);
+int pplp_ntt_inverse_u64(const void* x, void* y, const void* q, const void* itw,
+                         const void* n_inv, const void* n_inv_shoup, int batch, int L,
+                         int logn, void* stream) {
+  Shape64 s;
+  const int err = shape_u64(batch, L, logn, &s);
   if (err) return err;
   auto st = static_cast<cudaStream_t>(stream);
+  auto in = static_cast<const uint64_t*>(x);
+  auto out = static_cast<uint64_t*>(y);
   auto qq = static_cast<const uint64_t*>(q);
-  auto ww = static_cast<const uint64_t*>(iw);
-  auto wws = static_cast<const uint64_t*>(iws);
+  auto ww = static_cast<const ulonglong2*>(itw);
   auto ni = static_cast<const uint64_t*>(n_inv);
   auto nis = static_cast<const uint64_t*>(n_inv_shoup);
-  int64_t* out = static_cast<int64_t*>(y);
-  ntt_inverse_u64_kernel<<<rows << split, threads, smem, st>>>(
-      static_cast<const int64_t*>(x), out, qq, ww, wws, ni, nis, L, logn, split);
-  if (split) {
-    const int64_t pairs = static_cast<int64_t>(rows) << (logn - 1);
-    ntt_inverse_u64_last<<<global_blocks(pairs), kGlobalThreads, 0, st>>>(
-        out, qq, ww, wws, ni, nis, L, logn, pairs);
+  switch (logn) {
+    case 12:
+      return launch_u64(ntt_inverse_u64_cluster_kernel<cluster_stages(12), cluster_log(12)>,
+                        s, st, in, out, qq, ww, ni, nis, L, logn);
+    case 13:
+      return launch_u64(ntt_inverse_u64_cluster_kernel<cluster_stages(13), cluster_log(13)>,
+                        s, st, in, out, qq, ww, ni, nis, L, logn);
+    case 14:
+      return launch_u64(ntt_inverse_u64_cluster_kernel<cluster_stages(14), cluster_log(14)>,
+                        s, st, in, out, qq, ww, ni, nis, L, logn);
+    case 15:
+      return launch_u64(ntt_inverse_u64_cluster_kernel<cluster_stages(15), cluster_log(15)>,
+                        s, st, in, out, qq, ww, ni, nis, L, logn);
+    default:
+      break;
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch_u64(ntt_inverse_u64_kernel, s, st, in, out, qq, ww, ni, nis, batch, L, logn,
+                    s.rows_per_block);
 }
 
 const char* pplp_cuda_error_string(int code) {

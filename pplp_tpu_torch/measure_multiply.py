@@ -76,7 +76,12 @@ CEILING_STEPS = 256  # chain steps at which the chain is bound by integer work
 # instruction throughput, compute capability 9.0) x 1.98 GHz (the top SM
 # clock) / 3 multiplies per product (w x, umulhi(w', x), est q).
 BYTES_PER_S = 3.35e12
-MULMODS_PER_S = 132 * 64 * 1.98e9 / 3
+MULS_PER_S = 132 * 64 * 1.98e9
+MULMODS_PER_S = MULS_PER_S / 3
+# A u64 (m62) Shoup product w x - umul64hi(w', x) q: 32-bit multiplies per
+# product, from the kernels' SASS; ``measure_ntt --sass`` counts them.
+U64_PRODUCT_MULS = 10
+MULMODS64_PER_S = MULS_PER_S / U64_PRODUCT_MULS
 RESIDUE_BYTES = 4  # the least that holds an m31 residue
 
 
@@ -117,20 +122,24 @@ def work_counts(n: int, L: int, K: int, D: int, batch: int) -> dict:
     }
 
 
-def bound(c: dict) -> dict:
+def bound(c: dict, mulmods_per_s: float = MULMODS_PER_S) -> dict:
     """``c`` with its bound: the larger of its bytes over BYTES_PER_S and its
-    Shoup products over MULMODS_PER_S, in ms, and which side binds."""
+    Shoup products over ``mulmods_per_s`` (the u32 rate unless given), in ms,
+    and which side binds."""
     t_bytes = c["bytes"] / BYTES_PER_S * 1e3
-    t_ops = c["mulmods"] / MULMODS_PER_S * 1e3
+    t_ops = c["mulmods"] / mulmods_per_s * 1e3
     return {**c, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def transform_counts(rows: int, n: int, inverse: bool, in_bytes: int, out_bytes: int) -> dict:
+def transform_counts(rows: int, n: int, inverse: bool, in_bytes: int, out_bytes: int,
+                     u64: bool = False) -> dict:
     """One standalone transform launch over ``rows`` rows of n, its residues
-    read at ``in_bytes`` and written at ``out_bytes``, with its bound."""
+    read at ``in_bytes`` and written at ``out_bytes``, with its bound; ``u64``
+    counts its Shoup products at the u64 kernels' rate."""
     return bound(_phase(rows, rows * transform_mulmods(n, inverse),
-                        rows * n * (in_bytes + out_bytes)))
+                        rows * n * (in_bytes + out_bytes)),
+                 MULMODS64_PER_S if u64 else MULMODS_PER_S)
 
 
 def kernel_counts(n: int, L: int, K: int, D: int, batch: int) -> dict:

@@ -70,7 +70,7 @@ class NttTables:
     their Shoup companions floor(w * 2^b / q), b = 32 (m31) or 64 (m62, kept
     as int64 bit patterns); ``n_inv``/``n_inv_s`` [L]. All int64. ``mu`` is
     floor(2^128 / q) as three 32-bit words [3, L] on m62 (None on m31).
-    ``kernel_buffers`` caches the u32 copies the m31 CUDA kernel reads.
+    ``kernel_buffers`` caches the packed tables the CUDA kernels read.
     """
 
     n: int

@@ -1,8 +1,8 @@
 """Load and launch the Hopper NTT kernels (``csrc/ntt.cu``).
 
 On an m31 table the u32 kernels, which replace the Pallas kernel
-``pplp_tpu/ops/ntt_vmem.py::_kernel``; on an m62 table the u64 kernel, which
-replaces no TPU kernel (the reference runs m62 through the XLA stage engine,
+``pplp_tpu/ops/ntt_vmem.py::_kernel``; on an m62 table the u64 kernels, which
+replace no TPU kernel (the reference runs m62 through the XLA stage engine,
 ``pplp_tpu/ops/ntt.py:205-267``). The kernels are built by ``cuda_build``
 (nvcc for ``sm_90a``, a plain C interface, ctypes) at first use; pointers
 come from ``data_ptr()`` and the stream from PyTorch's current stream.
@@ -13,15 +13,18 @@ twiddles as interleaved (w, w_shoup) pairs (``table_buffers`` packs them),
 16-byte row I/O. ``forward``/``inverse`` take and give int64 residues
 (narrowed on load, widened on store); ``forward_u32``/``inverse_u32`` give
 u32 rows (int32 tensors holding the same 32 bits) for the multiply's
-intermediates (``behz_cuda``).
+intermediates (``behz_cuda``). The u64 kernels run the same schedule on
+8-byte words (``csrc/ntt_block64.cuh``): int64 residues in and out, several
+rows of a limb per block for n <= 1024, one row per block up to n = 16384,
+and at n = 32768 (a 256 KB row) one row per cluster of two blocks, which
+exchange the first round's (the inverse's last round's) elements through
+distributed shared memory.
 
 ``launches`` counts kernel launches (both directions, both profiles);
 ``launches_by_kernel`` splits them by name and I/O width (``ntt_forward``,
 ``ntt_inverse``: int64 in and out; ``ntt_forward_u32``, ``ntt_inverse_u32``:
 u32 out; ``ntt_forward_u64``, ``ntt_inverse_u64``). Each wrapper adds one
-where it launches and nowhere else; a u64 transform at n = 32768 is one
-count for its two launches (stage 0 or the last stage runs as a global
-pass).
+where it launches and nowhere else; every transform is one launch.
 """
 
 from __future__ import annotations
@@ -59,8 +62,8 @@ def _declare(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.pplp_ntt_forward.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
     lib.pplp_ntt_inverse.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
-    lib.pplp_ntt_forward_u64.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
-    lib.pplp_ntt_inverse_u64.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
+    lib.pplp_ntt_forward_u64.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
+    lib.pplp_ntt_inverse_u64.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
     for name in ("forward", "inverse", "forward_u64", "inverse_u64"):
         getattr(lib, f"pplp_ntt_{name}").restype = ci
 
@@ -71,22 +74,25 @@ def load():
 
 
 def table_buffers(tb) -> dict:
-    """The tables the kernels read. m31: u32 copies cached on ``tb`` (q, the
-    n^-1 pair, the interleaved (w, w_shoup) / (iw, iw_shoup) tables ``tw`` /
-    ``itw`` [L, n, 2], and ``mu`` = floor(2^64 / q) as int64 for the BEHZ
-    kernels' Barrett reductions); m62: the int64 tables themselves, read as
-    u64."""
-    if tb.profile == "m62":
-        return {name: getattr(tb, name)
-                for name in ("q", "w", "ws", "iw", "iws", "n_inv", "n_inv_s")}
+    """The tables the kernels read, cached on ``tb``: q, the n^-1 pair and
+    the interleaved (w, w_shoup) / (iw, iw_shoup) tables ``tw`` / ``itw``
+    [L, n, 2]. m31: u32 copies, and ``mu`` = floor(2^64 / q) as int64 for the
+    BEHZ kernels' Barrett reductions; m62: int64, read as u64."""
     bufs = tb.kernel_buffers
-    if not bufs:
-        for name in ("q", "n_inv", "n_inv_s"):
-            bufs[name] = cuda_build.u32_buffer(getattr(tb, name), tb.device)
-        bufs["tw"] = cuda_build.u32_buffer(torch.stack([tb.w, tb.ws], -1), tb.device)
-        bufs["itw"] = cuda_build.u32_buffer(torch.stack([tb.iw, tb.iws], -1), tb.device)
+    if bufs:
+        return bufs
+    if tb.profile == "m62":
+        def put(t):
+            return t.contiguous()
+    else:
+        def put(t):
+            return cuda_build.u32_buffer(t, tb.device)
         bufs["mu"] = torch.tensor([(1 << 64) // m.value for m in tb.moduli],
                                   dtype=torch.int64, device=tb.device)
+    for name in ("q", "n_inv", "n_inv_s"):
+        bufs[name] = put(getattr(tb, name))
+    bufs["tw"] = put(torch.stack([tb.w, tb.ws], -1))
+    bufs["itw"] = put(torch.stack([tb.iw, tb.iws], -1))
     return bufs
 
 
@@ -163,14 +169,14 @@ def _m62(x, tb, inverse):
     if inverse:
         name = "ntt_inverse_u64"
         code = lib.pplp_ntt_inverse_u64(
-            x.data_ptr(), out.data_ptr(), b["q"].data_ptr(), b["iw"].data_ptr(),
-            b["iws"].data_ptr(), b["n_inv"].data_ptr(), b["n_inv_s"].data_ptr(),
-            rows, tb.L, tb.logn, _stream(x))
+            x.data_ptr(), out.data_ptr(), b["q"].data_ptr(), b["itw"].data_ptr(),
+            b["n_inv"].data_ptr(), b["n_inv_s"].data_ptr(), rows // tb.L, tb.L, tb.logn,
+            _stream(x))
     else:
         name = "ntt_forward_u64"
         code = lib.pplp_ntt_forward_u64(
-            x.data_ptr(), out.data_ptr(), b["q"].data_ptr(), b["w"].data_ptr(),
-            b["ws"].data_ptr(), rows, tb.L, tb.logn, _stream(x))
+            x.data_ptr(), out.data_ptr(), b["q"].data_ptr(), b["tw"].data_ptr(),
+            rows // tb.L, tb.L, tb.logn, _stream(x))
     cuda_build.check(code, lib, name)
     _count(name)
     return out

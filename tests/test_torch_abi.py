@@ -1,6 +1,7 @@
 """The ctypes declarations of the kernel wrappers against the C entry points
 of ``pplp_tpu_torch/csrc/*.cu``: every declared entry point exists, with as
-many arguments, pointers where the C side takes pointers. A mismatch would
+many arguments, pointers where the C side takes pointers, and every entry
+point of the C side is declared. A mismatch would
 show only as a failed call on the card; this test needs neither nvcc nor a
 card."""
 
@@ -46,6 +47,8 @@ def test_argtypes_match_the_c_entry_points(wrapper):
     wrapper._declare(lib)
     c_side = _entry_points(wrapper.SOURCE)
     assert lib.functions, "the wrapper declares no entry point"
+    undeclared = set(c_side) - set(lib.functions) - {"pplp_cuda_error_string"}
+    assert not undeclared, f"entry points without argtypes: {sorted(undeclared)}"
     for name, fn in lib.functions.items():
         assert name in c_side, f"{name} is not an entry point of {wrapper.SOURCE.name}"
         kinds = ["p" if t is ctypes.c_void_p else "i" for t in fn.argtypes]

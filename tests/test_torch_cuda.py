@@ -63,20 +63,31 @@ def test_kernel_matches_plain(dev, n, batch):
     assert ntt_cuda.launches_by_kernel["ntt_inverse"] == before["ntt_inverse"] + 1
 
 
-# The seal chains (n, L): 4096/3, 8192/5, 16384/9 and 32768/16; n = 32768 is
-# the kernel's split path. The last case puts primes just below 2^62 and
-# 2^61 on the split path, where the lazy forward values reach 4q ~ 2^64.
+# The seal chains (n, L): 4096/3, 8192/5, 16384/9 and 32768/16, each row over
+# a cluster of 2, 2, 2 and 4 blocks. The last case puts primes just below
+# 2^62 and 2^61 on the cluster of four, where the lazy forward values reach
+# 4q ~ 2^64.
 U64_CASES = [(4096, None), (8192, None), (16384, None), (32768, None),
              (32768, (62, 61))]
+U64_ONLY = {"ntt_forward": 0, "ntt_inverse": 0, "ntt_forward_u32": 0, "ntt_inverse_u32": 0,
+            "ntt_forward_u64": 1, "ntt_inverse_u64": 1}
 
 
-@pytest.mark.parametrize("n,bits", U64_CASES)
-def test_u64_kernel_matches_plain(dev, n, bits):
-    chain = bfv_default(n) if bits is None else [get_primes(b, 1, n)[0] for b in bits]
+def _tables62(n, dev, bits=None):
+    """The seal chain where there is one (n >= 4096), else 36-, 44- and
+    61-bit primes; or one prime of each of ``bits``."""
+    if bits is None and n >= 4096:
+        chain = bfv_default(n)
+    else:
+        chain = [get_primes(b, 1, n)[0] for b in bits or (36, 44, 61)]
     tb = ntt.build_tables([Modulus(q) for q in chain], n, dev)
     assert tb.profile == "m62"
-    x = _residues(tb, (2,), n)
-    x[0, :, :4] = tb.q_b(1) - 1
+    return tb
+
+
+def _u64_round_trip(x, tb):
+    """forward and inverse on the card against the plain transforms; the
+    launches they counted."""
     before = dict(ntt_cuda.launches_by_kernel)
     spec = ntt.forward(x, tb)
     back = ntt.inverse(spec, tb)
@@ -85,9 +96,58 @@ def test_u64_kernel_matches_plain(dev, n, bits):
     assert torch.equal(back, ntt.inverse_plain(spec, tb))
     assert torch.equal(back, x)
     after = ntt_cuda.launches_by_kernel
-    assert {k: after[k] - before[k] for k in after} == {
-        "ntt_forward": 0, "ntt_inverse": 0, "ntt_forward_u32": 0, "ntt_inverse_u32": 0,
-        "ntt_forward_u64": 1, "ntt_inverse_u64": 1}
+    return {k: after[k] - before[k] for k in after}
+
+
+@pytest.mark.parametrize("n,bits", U64_CASES)
+def test_u64_kernel_matches_plain(dev, n, bits):
+    tb = _tables62(n, dev, bits)
+    x = _residues(tb, (2,), n)
+    x[0, :, :4] = tb.q_b(1) - 1
+    assert _u64_round_trip(x, tb) == U64_ONLY  # one launch per transform at every n
+
+
+@pytest.mark.parametrize("batch", [1, 5, 15, 30, 64])
+@pytest.mark.parametrize("n", [64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768])
+def test_u64_kernel_rows_per_limb(dev, n, batch):
+    """1 .. 64 rows per limb at every n: several rows of a limb per block
+    with a tail block (n <= 1024), one row per block (2048), one row per
+    cluster of blocks (from 4096 on)."""
+    tb = _tables62(n, dev)
+    assert _u64_round_trip(_residues(tb, (batch,), n + batch), tb) == U64_ONLY
+
+
+@pytest.mark.parametrize("n", [64, 1024, 4096, 8192, 16384, 32768])
+def test_u64_extreme_inputs(dev, n):
+    """All q - 1 drives the lazy butterflies to their bounds; all 0."""
+    tb = _tables62(n, dev)
+    x = _residues(tb, (3,), n)
+    x[0] = tb.q_b(1) - 1
+    x[1] = 0
+    _u64_round_trip(x, tb)
+
+
+def test_u64_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    tb = _tables62(4096, dev)
+    x = _residues(tb, (4,), 1)
+    before = ntt_cuda.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ntt_cuda.forward(x.cpu(), tb)
+    with pytest.raises(ValueError, match="tables on"):
+        ntt_cuda.inverse(x, ntt.build_tables(tb.moduli, tb.n, "cpu"))
+    with pytest.raises(TypeError):
+        ntt_cuda.forward(x.to(torch.int32), tb)
+    with pytest.raises(ValueError, match="contiguous"):
+        ntt_cuda.forward(x[::2], tb)
+    with pytest.raises(ValueError, match="contiguous"):
+        ntt_cuda.inverse(torch.stack([x, x], dim=-1)[..., 0], tb)
+    with pytest.raises(ValueError):
+        ntt_cuda.forward(x[..., :2048].contiguous(), tb)
+    with pytest.raises(ValueError, match="16-byte"):
+        ntt_cuda.forward(x.reshape(-1)[1:1 + tb.L * tb.n].view(1, tb.L, tb.n), tb)
+    empty = torch.empty((0, tb.L, tb.n), dtype=torch.int64, device=dev)
+    assert ntt_cuda.inverse(empty, tb).shape == empty.shape
+    assert ntt_cuda.launches == before
 
 
 @pytest.mark.parametrize("n", [64, 4096, 8192, 32768])

@@ -1,4 +1,5 @@
-"""A numpy model of the Hopper m31 NTT kernel's index schedule (``csrc/ntt.cu``).
+"""A numpy model of the Hopper NTT kernels' index schedule (``csrc/ntt.cu``):
+the m31 kernels on u32 words and the m62 kernels on u64 words.
 
 The kernel cannot run on the CPU, so its schedule is modelled here op for op
 and held bit-exact against ``ops/ntt.forward_plain``/``inverse_plain`` and,
@@ -19,7 +20,15 @@ for a few sizes, against ``pplp_tpu.ops.ntt``'s stage engine:
   ``bfv.behz.relinearize`` at widths 1 and 2;
 * the fused tensor kernel (forward x 4 -> Karatsuba -> inverse x 3) against
   ``RnsMultiplier.tensor_spectra``, the plain multiply's spectra products;
-* ``measure_multiply``'s shape-derived counts.
+* ``measure_multiply``'s shape-derived counts;
+* the u64 kernels (``csrc/ntt_block64.cuh``): the same rounds on 8-byte
+  words under ``swizzle64``, interleaved twiddle pairs, lazy values below 4q
+  (forward) and 2q (inverse) with 4q < 2^64, several rows of a limb per block
+  with a tail block, and a row spread over a cluster of 2^cl blocks (the
+  forward's first round from device memory into the blocks' shared memory,
+  each block's part as the sub-transform 2^cl + rank; the inverse mirrored),
+  against ``forward_plain``/``inverse_plain`` on m62 tables and the stage
+  engine on (lo, hi) pairs.
 
 Tolerance 0 throughout: exact integer arithmetic.
 """
@@ -37,7 +46,7 @@ from pplp_tpu_torch.bfv import behz
 from pplp_tpu_torch.measure_multiply import kernel_counts, work_counts
 from pplp_tpu_torch.ops import ntt
 from pplp_tpu_torch.ops.primes import Modulus as PortModulus
-from pplp_tpu_torch.ops.primes import get_primes, tpu_default
+from pplp_tpu_torch.ops.primes import bfv_default, get_primes, tpu_default
 
 M32 = np.uint64(0xFFFFFFFF)
 WARP = 32
@@ -74,16 +83,16 @@ def swizzle(i):
     return i ^ (((i >> 5) & 7) << 2)
 
 
-def group_indices(logn, s, kk, inverse, groups):
+def group_indices(logn, s, kk, inverse, groups, top=1):
     """Row indices [G, 2^kk] held by each group of a round at stage s, the
-    group's twiddle node r, and log2 of the element stride."""
-    n = 1 << logn
+    group's twiddle node r, and log2 of the element stride. ``top`` is the
+    part of a larger transform that the 2^logn points are (1: the whole)."""
     logt = s if inverse else logn - s - kk
     lo = groups & ((1 << logt) - 1)
     hi = groups >> logt
     base = (hi << (logt + kk)) + lo
     idx = base[:, None] + (np.arange(1 << kk)[None, :] << logt)
-    r = ((n >> (s + kk)) if inverse else (1 << s)) + hi
+    r = (top << (logn - s - kk if inverse else s)) + hi
     return idx, r, logt
 
 
@@ -256,11 +265,53 @@ def _vector_degree(words4):
     return worst
 
 
+def swizzle64(i):
+    """Shared-memory u64 word of logical element i: 16-byte units (two words)
+    XOR-permuted within each 128-byte line."""
+    return i ^ (((i >> 4) & 7) << 1)
+
+
+def _degree64(words):
+    """Wavefronts of one warp-wide 8-byte access: the warp goes as two
+    half-warps, each conflict-free when its 16 lanes touch 16 distinct
+    8-byte bank pairs."""
+    worst = 1
+    for ph in range(0, WARP, 16):
+        pairs = {}
+        for wd in words[ph:ph + 16]:
+            pairs.setdefault(int(wd) % 16, set()).add(int(wd))
+        worst = max([worst] + [len(v) for v in pairs.values()])
+    return worst
+
+
+def _vector_degree64(words2):
+    """Wavefronts per quarter-warp of a 16-byte access (first u64 word of
+    each lane's unit): 8 lanes must cover the 8 distinct 16-byte bank groups."""
+    worst = 1
+    for ph in range(0, WARP, 8):
+        units = {}
+        for wd in words2[ph:ph + 8]:
+            units.setdefault((int(wd) >> 1) % 8, set()).add(int(wd))
+        worst = max([worst] + [len(v) for v in units.values()])
+    return worst
+
+
+# bytes of a word -> (swizzle, words per 16-byte unit, scalar and vector conflict degree)
+WORDS = {4: (swizzle, 4, _bank_degree, _vector_degree),
+         8: (swizzle64, 2, _degree64, _vector_degree64)}
+
+
+@pytest.mark.parametrize("word", [4, 8])
 @pytest.mark.parametrize("k", [3, 4])
 @pytest.mark.parametrize("logn", range(6, 16))
-def test_exchange_pattern(logn, k):
+def test_exchange_pattern(logn, k, word):
     """Each round reads and writes every element once; scalar rounds are at
-    most 2-way bank conflicted, the stride-1 rounds vectorise conflict-free."""
+    most 2-way bank conflicted, the stride-1 rounds vectorise conflict-free.
+    On 4-byte words (m31) and on 8-byte words (m62, up to the 16,384 points
+    a block's shared memory takes)."""
+    if word == 8 and logn == 15:
+        logn = 14
+    swz, unit, degree, vector_degree = WORDS[word]
     n = 1 << logn
     for inverse in (False, True):
         s = 0
@@ -268,24 +319,373 @@ def test_exchange_pattern(logn, k):
             groups = np.arange(n >> kk)
             idx, r, logt = group_indices(logn, s, kk, inverse, groups)
             assert sorted(idx.ravel().tolist()) == list(range(n))
-            phys = swizzle(idx)
+            phys = swz(idx)
             assert sorted(phys.ravel().tolist()) == list(range(n))
             if logt == 0:
-                assert kk >= 2 and (idx[:, 0] % 4 == 0).all()
-                # 4-word units stay whole and in order under the swizzle.
-                assert (phys[:, 1::4] == phys[:, 0::4] + 1).all()
+                assert (1 << kk) >= unit and (idx[:, 0] % unit == 0).all()
+                # 16-byte units stay whole and in order under the swizzle.
+                for c in range(1, unit):
+                    assert (phys[:, c::unit] == phys[:, 0::unit] + c).all()
             # Twiddle nodes: one per group, inside the table's [1, n) range.
             top = (r << (kk - 1)) + (1 << (kk - 1)) - 1
             assert r.min() >= 1 and top.max() < n
             for w0 in range(0, min(len(groups), 8 * WARP), WARP):
                 warp = phys[w0:w0 + WARP]
                 if logt == 0:
-                    for c in range(0, 1 << kk, 4):
-                        assert _vector_degree(warp[:, c]) == 1
+                    for c in range(0, 1 << kk, unit):
+                        assert vector_degree(warp[:, c]) == 1
                 else:
                     for m in range(1 << kk):
-                        assert _bank_degree(warp[:, m]) <= 2
+                        assert degree(warp[:, m]) <= 2
             s += kk
+
+
+# ---------------------------------------------------------------------------
+# The u64 (m62) schedule (mirrors csrc/ntt_block64.cuh and csrc/ntt.cu)
+# ---------------------------------------------------------------------------
+
+K64 = 3  # kRadixLog64, the radix the kernels are built with
+CLUSTER_LOG = {12: 1, 13: 1, 14: 1, 15: 2}  # cluster_log: log2 of the blocks a row takes
+MIN_GROUPS = 256  # kMinGroups: a block's least work, where the batch has it
+
+
+def _umul64hi(a, b):
+    """High 64 bits of a 64 x 64-bit product, from 32-bit halves (exact)."""
+    a0, a1, b0, b1 = a & M32, a >> np.uint64(32), b & M32, b >> np.uint64(32)
+    p01, p10 = a0 * b1, a1 * b0
+    mid = ((a0 * b0) >> np.uint64(32)) + (p01 & M32) + (p10 & M32)
+    return a1 * b1 + (p01 >> np.uint64(32)) + (p10 >> np.uint64(32)) + (mid >> np.uint64(32))
+
+
+def _u64(v):
+    """An int64 bit pattern (a Shoup companion may reach 2^64 - 1) as u64."""
+    return np.uint64(int(v) % (1 << 64))
+
+
+def _shoup_lazy64(x, w, ws, q):
+    """w x - umul64hi(ws, x) q in wrapping u64 (the kernel's product)."""
+    return np.asarray(w) * x - _umul64hi(np.asarray(ws), x) * q
+
+
+def fwd_stages64(x, kk, r, w, ws, q):
+    """kk forward stages on the groups' registers x [G, 2^kk] (twiddle node
+    r per group), in place: every value stays below 4q < 2^64."""
+    two_q = np.uint64(2) * q
+    for j in range(kk):
+        half = 1 << (kk - 1 - j)
+        for i in range(1 << j):
+            t = (r << j) + i
+            for mm in range(half):
+                u, v = i * 2 * half + mm, i * 2 * half + mm + half
+                assert x[:, u].max() < 2 * two_q
+                xu = _csub(x[:, u], two_q)
+                mv = _shoup_lazy64(x[:, v], w[t], ws[t], q)
+                assert mv.max() < two_q
+                x[:, u] = xu + mv
+                x[:, v] = xu + two_q - mv
+
+
+def inv_stages64(x, kk, r, iw, iws, q):
+    """kk inverse stages, in place: every value stays below 2q."""
+    two_q = np.uint64(2) * q
+    for j in range(kk):
+        half = 1 << j
+        for i in range(1 << (kk - 1 - j)):
+            t = (r << (kk - 1 - j)) + i
+            for mm in range(half):
+                u, v = i * 2 * half + mm, i * 2 * half + mm + half
+                xu, xv = x[:, u].copy(), x[:, v].copy()
+                assert max(xu.max(), xv.max()) < two_q
+                x[:, u] = _csub(xu + xv, two_q)
+                x[:, v] = _shoup_lazy64(xu + two_q - xv, iw[t], iws[t], q)
+
+
+def fwd_block64(a, logm, k, w, ws, q, top=1, s_begin=0):
+    """ntt_fwd_block64: forward stages s_begin .. logm - 1 of the part
+    ``top`` on the rows of ``a`` [R, 2^logm] (physical, swizzled)."""
+    q = np.uint64(q)
+    assert 4 * int(q) < 1 << 64
+    s = s_begin
+    for kk in round_sizes(logm - s_begin, k, inverse=False):
+        idx, r, logt = group_indices(logm, s, kk, False, np.arange((1 << logm) >> kk), top)
+        phys = swizzle64(idx)
+        for row in a:
+            x = row[phys].copy()
+            fwd_stages64(x, kk, r, w, ws, q)
+            if logt == 0:
+                x = _csub(_csub(x, np.uint64(2) * q), q)
+            row[phys] = x
+        s += kk
+
+
+def inv_block64(a, logm, k, iw, iws, n_inv, n_inv_s, q, top=1, s_end=None):
+    """ntt_inv_block64: inverse stages 0 .. s_end - 1 of the part ``top``;
+    the last round of a whole transform (top = 1) multiplies by n^-1."""
+    q = np.uint64(q)
+    s = 0
+    for kk in round_sizes(logm if s_end is None else s_end, k, inverse=True):
+        idx, r, _ = group_indices(logm, s, kk, True, np.arange((1 << logm) >> kk), top)
+        phys = swizzle64(idx)
+        for row in a:
+            x = row[phys].copy()
+            inv_stages64(x, kk, r, iw, iws, q)
+            if top == 1 and s + kk == logm:
+                x = _csub(_shoup_lazy64(x, _u64(n_inv), _u64(n_inv_s), q), q)
+            row[phys] = x
+        s += kk
+
+
+def _to_smem64(rows):
+    rows = np.asarray(rows, dtype=np.uint64)
+    a = np.empty_like(rows)
+    a[:, swizzle64(np.arange(rows.shape[1]))] = rows
+    return a
+
+
+def _from_smem64(a):
+    return a[:, swizzle64(np.arange(a.shape[1]))]
+
+
+def rows_per_block64(n, batch, k=K64):
+    """shape_u64: rows of one limb per block."""
+    groups = n >> k
+    return min(1 if groups >= MIN_GROUPS else MIN_GROUPS // groups, batch)
+
+
+def block_rows64(block, batch, L, rpb):
+    """The limb of a block of the row kernels and the rows [batch * L, n] it
+    holds: batch entries b0 .. of limb block % L, L rows apart; the tail
+    block has fewer."""
+    limb, b0 = block % L, (block // L) * rpb
+    rows = min(rpb, batch - b0)
+    return limb, (b0 * L + limb) + L * np.arange(rows)
+
+
+def cluster_shape64(logn, k=K64):
+    """shape_u64's choice for a row of 2^logn: (stages of the cluster round,
+    log2 of the cluster's blocks), or None for the row kernels."""
+    if logn < 12:
+        return None
+    return (logn - 1) % k + 1, CLUSTER_LOG[logn]
+
+
+def cluster_exchange(logn, kk, cl, rank):
+    """The cluster-round groups of block ``rank`` of a 2^cl-block cluster:
+    the row indices [G, 2^kk] it reads from device memory, and for each
+    element the block whose shared memory holds it and the (swizzled) word
+    there."""
+    logt = logn - kk
+    lo = rank * (1 << (logt - cl)) + np.arange(1 << (logt - cl))
+    m = np.arange(1 << kk)
+    idx = lo[:, None] + (m[None, :] << logt)
+    part = np.broadcast_to(m >> (kk - cl), idx.shape)
+    word = swizzle64(((m[None, :] & ((1 << (kk - cl)) - 1)) << logt) + lo[:, None])
+    return idx, part, word
+
+
+def cluster_forward64(x, logn, k, kk, cl, w, ws, q):
+    """ntt_forward_u64_cluster_kernel on one row [n]: the first kk stages
+    from device memory into the blocks' shared memory, then each block's
+    part 2^cl + rank, beginning at its local stage kk - cl."""
+    q = np.uint64(q)
+    h = 1 << (logn - cl)
+    smem = np.zeros((1 << cl, h), dtype=np.uint64)
+    for rank in range(1 << cl):
+        idx, part, word = cluster_exchange(logn, kk, cl, rank)
+        v = x[idx].copy()
+        fwd_stages64(v, kk, np.ones(len(idx), dtype=np.int64), w, ws, q)
+        smem[part, word] = v
+    out = np.empty(h << cl, dtype=np.uint64)
+    for rank in range(1 << cl):
+        a = smem[rank][None, :]
+        fwd_block64(a, logn - cl, k, w, ws, q, top=(1 << cl) + rank, s_begin=kk - cl)
+        out[rank * h:(rank + 1) * h] = _from_smem64(a)[0]
+    return out
+
+
+def cluster_inverse64(x, logn, k, kk, cl, iw, iws, n_inv, n_inv_s, q):
+    """ntt_inverse_u64_cluster_kernel on one row: each block's part through
+    its local stages 0 .. logn - kk - 1, then the last kk stages and the
+    n^-1 product from the blocks' shared memory to device memory."""
+    q = np.uint64(q)
+    h = 1 << (logn - cl)
+    smem = np.concatenate([_to_smem64(x[None, r * h:(r + 1) * h]) for r in range(1 << cl)])
+    for rank in range(1 << cl):
+        inv_block64(smem[rank][None, :], logn - cl, k, iw, iws, n_inv, n_inv_s, q,
+                    top=(1 << cl) + rank, s_end=logn - kk)
+    out = np.empty(h << cl, dtype=np.uint64)
+    for rank in range(1 << cl):
+        idx, part, word = cluster_exchange(logn, kk, cl, rank)
+        v = smem[part, word]
+        inv_stages64(v, kk, np.ones(len(idx), dtype=np.int64), iw, iws, q)
+        out[idx] = _csub(_shoup_lazy64(v, _u64(n_inv), _u64(n_inv_s), q), q)
+    return out
+
+
+def model_transform64(x, tb, k, inverse, cluster=None):
+    """The u64 kernels on int64 [..., L, n]: the row kernels block by block,
+    or every row through a cluster ``(kk, cl)``; the kernels' own choice
+    (``cluster_shape64``) unless one is given."""
+    lead = x.shape[:-2]
+    flat = x.reshape((-1, tb.n)).numpy().astype(np.uint64)
+    batch = flat.shape[0] // tb.L
+    out = np.zeros_like(flat)
+    done = np.zeros(len(flat), dtype=np.int64)
+    if cluster is None:
+        cluster = cluster_shape64(tb.logn, k)
+    if cluster:
+        blocks = [(r % tb.L, np.array([r])) for r in range(len(flat))]
+    else:
+        rpb = rows_per_block64(tb.n, batch, k)
+        blocks = [block_rows64(b, batch, tb.L, rpb) for b in range(-(-batch // rpb) * tb.L)]
+    for limb, rows in blocks:
+        w, ws, iw, iws, ni, nis, q = _limb_tables(tb, limb)
+        if cluster and inverse:
+            out[rows[0]] = cluster_inverse64(flat[rows[0]], tb.logn, k, *cluster, iw, iws,
+                                             ni, nis, q)
+        elif cluster:
+            out[rows[0]] = cluster_forward64(flat[rows[0]], tb.logn, k, *cluster, w, ws, q)
+        else:
+            a = _to_smem64(flat[rows])
+            if inverse:
+                inv_block64(a, tb.logn, k, iw, iws, ni, nis, q)
+            else:
+                fwd_block64(a, tb.logn, k, w, ws, q)
+            out[rows] = _from_smem64(a)
+        done[rows] += 1
+    assert (done == 1).all()  # every row in exactly one block
+    return torch.from_numpy(out.astype(np.int64).reshape(lead + (tb.L, tb.n)))
+
+
+def _chain62(n):
+    """The seal chain where there is one (n >= 4096), else 36-, 44- and
+    61-bit primes (4q just below 2^64)."""
+    if n >= 4096:
+        return list(bfv_default(n))
+    return [get_primes(b, 1, n)[0] for b in (36, 44, 61)]
+
+
+def _tables62(n):
+    tb = ntt.build_tables([PortModulus(q) for q in _chain62(n)], n, "cpu")
+    assert tb.profile == "m62"
+    return tb
+
+
+ROW_KERNEL = False  # model_transform64's ``cluster`` for the row kernels
+
+
+@pytest.mark.parametrize("k", [3, 4])
+@pytest.mark.parametrize("n", SIZES)
+def test_u64_schedule_matches_plain(n, k):
+    """The in-block transform on whole rows, at both radices."""
+    tb = _tables62(n)
+    x = _rand(np.random.default_rng(62 * n + k), tb, (2,))
+    spec = model_transform64(x, tb, k, False, ROW_KERNEL)
+    assert torch.equal(spec, ntt.forward_plain(x, tb))
+    back = model_transform64(spec, tb, k, True, ROW_KERNEL)
+    assert torch.equal(back, ntt.inverse_plain(spec, tb))
+    assert torch.equal(back, x)
+
+
+@pytest.mark.parametrize("n,batch", [(64, 35), (64, 5), (256, 9), (1024, 3)])
+def test_u64_rows_per_block_and_tail(n, batch):
+    """Several rows of one limb per block; the last block of a limb takes the
+    rows that are left; extreme inputs (all q - 1, all 0) in two entries."""
+    tb = _tables62(n)
+    assert cluster_shape64(tb.logn) is None
+    rpb = rows_per_block64(n, batch)
+    assert rpb == min(MIN_GROUPS // (n >> K64), batch) and rpb > 1
+    assert (batch % rpb != 0) == ((n, batch) != (64, 5))  # a tail, but for one case
+    x = _rand(np.random.default_rng(n + batch), tb, (batch,))
+    x[1] = tb.q_b(1) - 1
+    x[2] = 0
+    spec = model_transform64(x, tb, K64, inverse=False)
+    assert torch.equal(spec, ntt.forward_plain(x, tb))
+    assert torch.equal(model_transform64(spec, tb, K64, inverse=True), x)
+
+
+# (stages of the cluster round, log2 of the blocks): what the kernels run at
+# logn = 12 .. 15, and a cluster of 8.
+CLUSTERS = [(3, 1), (1, 1), (2, 1), (3, 2), (3, 3)]
+
+
+@pytest.mark.parametrize("cluster", CLUSTERS, ids=str)
+@pytest.mark.parametrize("n", [64, 512, 4096])
+def test_u64_cluster_matches_plain(n, cluster):
+    """A row over a cluster of blocks, the code path of n = 4096 .. 32768, at
+    every cluster shape the kernels use."""
+    tb = _tables62(n)
+    x = _rand(np.random.default_rng(n + sum(cluster)), tb, (2,))
+    spec = model_transform64(x, tb, K64, False, cluster)
+    assert torch.equal(spec, ntt.forward_plain(x, tb))
+    back = model_transform64(spec, tb, K64, True, cluster)
+    assert torch.equal(back, ntt.inverse_plain(spec, tb))
+    assert torch.equal(back, x)
+
+
+@pytest.mark.parametrize("logn", range(12, 16))
+def test_u64_cluster_exchange_indices(logn):
+    """After the cluster round block r holds the part r of the row (the
+    sub-blocks r 2^(kk-cl) .. of its 2^kk), each word written once, a share
+    1 - 2^-cl of a block's elements going to its peers; every later round has
+    k stages and reads twiddle nodes inside the limb's table."""
+    n = 1 << logn
+    kk, cl = cluster_shape64(logn)
+    assert (cl, (n << 3) >> cl) == (CLUSTER_LOG[logn], min(n << 2, 1 << 16))  # <= 64 KB a block
+    assert (logn - kk) % K64 == 0 and kk >= cl
+    h = n >> cl
+    seen = np.zeros((1 << cl, h), dtype=np.int64)
+    read = np.zeros(n, dtype=np.int64)
+    for rank in range(1 << cl):
+        idx, part, word = cluster_exchange(logn, kk, cl, rank)
+        read[idx] += 1
+        assert (idx // h == part).all()  # the block that holds the element's part
+        assert (swizzle64(idx - part * h) == word).all()
+        assert ((idx // (n >> kk)) >> (kk - cl) == part).all()
+        assert (part != rank).mean() == 1 - 1 / (1 << cl)
+        np.add.at(seen, (part, word), 1)
+        # neighbouring threads read neighbouring device-memory words
+        assert (np.diff(idx, axis=0) == 1).all()
+    assert (seen == 1).all() and (read == 1).all()
+    for inverse in (False, True):
+        for rank in range(1 << cl):
+            s = 0 if inverse else kk - cl
+            for size in round_sizes(logn - kk, K64, inverse):
+                assert size == K64
+                groups = np.arange(h >> size)
+                idx, r, _ = group_indices(logn - cl, s, size, inverse, groups,
+                                          top=(1 << cl) + rank)
+                assert sorted(idx.ravel().tolist()) == list(range(h))
+                top = (r << (size - 1)) + (1 << (size - 1)) - 1
+                assert r.min() >= 1 and top.max() < n
+                s += size
+
+
+@pytest.mark.parametrize("n", [64, 4096])
+def test_u64_schedule_matches_stage_engine(n):
+    """Against ``pplp_tpu.ops.ntt`` on (lo, hi) u32 pairs: the row kernels
+    and the cluster path (at n = 4096 the kernels' own choice; the cluster
+    of four at both)."""
+    chain = _chain62(n)
+    tb_ref = ref_ntt.build_tables([Modulus(q) for q in chain], n)
+    tb = _tables62(n)
+    assert tb_ref.profile == "m62"
+    x = _rand(np.random.default_rng(9 * n), tb, (1,))
+
+    def pair(v):
+        v = v.numpy().astype(np.uint64)
+        return (jnp.asarray((v & M32).astype(np.uint32)),
+                jnp.asarray((v >> np.uint64(32)).astype(np.uint32)))
+
+    def unpair(p):
+        lo, hi = (np.asarray(a).astype(np.uint64) for a in p)
+        return torch.from_numpy((lo | (hi << np.uint64(32))).view(np.int64))
+
+    want = unpair(jax.jit(lambda v: ref_ntt.forward(v, tb_ref))(pair(x)))
+    back = unpair(jax.jit(lambda v: ref_ntt.inverse(v, tb_ref))(pair(want)))
+    for cluster in (ROW_KERNEL, None, (3, 2)):
+        assert torch.equal(model_transform64(x, tb, K64, False, cluster), want)
+        assert torch.equal(model_transform64(want, tb, K64, True, cluster), back)
 
 
 # ---------------------------------------------------------------------------
