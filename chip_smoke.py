@@ -61,11 +61,32 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
                against the plain version, then each of those kernels' steps
                bit-exact against its plain step on the same inputs, and its
                device time per call (torch.profiler) beside the plain step's.
-               It runs last, so that its context does not count in the
-               pipeline's peak memory.
+               It runs after the pipeline, so that its context does not
+               count in the pipeline's peak memory;
+9. seal_multiply -- the seal (m62) multiply + relinearization through
+               ``Evaluator`` on the u64 route (``csrc/behz64.cu`` around the
+               u64 transforms) on three seal chains: n = 4096 (3 primes,
+               |B_sk| = 5), t = 2^16, batch 256, widths 1 (default) and 2;
+               n = 8192 (5 primes, |B_sk| = 7), t = 2^56, batch 64, widths 2
+               (default) and 1; n = 32768 (16 primes, |B_sk| = 18), t = 2^56,
+               batch 2, width 2. Per chain: multiply + relinearize at each
+               width, multiply alone and relinearize alone, bit-exact
+               against the plain version (plain NTTs); the six behz64
+               kernels must have been launched; the u64 transforms on the
+               chain's 60-bit B_sk tables bit-exact against the plain NTT;
+               each kernel's wrapper step bit-exact against its plain step
+               on the same inputs (both widths), with its device time
+               (torch.profiler) beside the plain step's CUDA-event time; on
+               n = 4096 and 8192 one real product decrypted and equal to the
+               host negacyclic product; on every chain ``mod_switch_to_next``
+               on the card equal to the same call on a CPU copy and
+               decrypting to the plaintext with the restricted key. Last,
+               so that none of its contexts counts in the pipeline's peak.
 
 The last lines are a JSON object with one entry per kernel (launches on
-the main paths, max error, ms and plain ms as measured here, the bound:
+the main paths, max error, ms and plain ms as measured here, ``ms_source``:
+"profiler" where ms is the kernel's device time under torch.profiler,
+"events" where it is the CUDA-event time of its wrapper step, the bound:
 the larger of the bytes the kernel's interface moves over 3.35 TB/s and its
 Shoup products over the card's integer-multiply peak,
 ``measure_multiply.MULMODS_PER_S``; ``library_ms`` null, since no PyTorch call computes
@@ -104,6 +125,9 @@ PROFILE_NTT = {"tpu": ("ntt_forward", "ntt_inverse"),
                "seal": ("ntt_forward_u64", "ntt_inverse_u64")}
 MUL_SEP_N = 32768  # the separate route: neither fused kernel fits
 MUL_SEP_BATCH = 2
+# The seal (m62) multiply: (n, log2 t, batch, gadget widths, the default first).
+SEAL_MUL = ((4096, 16, 256, (1, 2)), (8192, 56, 64, (2, 1)), (32768, 56, 2, (2,)))
+SEAL_REAL_MAX_N = 8192  # the real products: host negacyclic products up to here
 NTT_TPU = "pplp_tpu/ops/ntt_vmem.py:272"
 BEHZ_TPU = "pplp_tpu/bfv/behz_fused.py:257"
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
@@ -119,6 +143,10 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
         "behz_tensor", "behz_lift", "behz_keyprod", "behz_add")},
     "mulmod_chain": ("pplp_tpu_torch/csrc/mulmod_chain.cu",
                      "scripts/gated_profile.py:105"),
+    # No TPU kernel: the reference runs the m62 multiply through XLA.
+    **{name: ("pplp_tpu_torch/csrc/behz64.cu", "pplp_tpu/bfv/behz.py:388") for name in (
+        "behz64_to_bsk", "behz64_tensor", "behz64_floor_sk", "behz64_lift", "behz64_keyprod",
+        "behz64_add")},
 }
 FUSED = ("behz_to_bsk", "behz_tensor_ntt", "behz_floor_sk", "behz_relin_ntt")
 SEPARATE = ("behz_tensor", "behz_lift", "behz_keyprod", "behz_add")
@@ -167,11 +195,11 @@ def phase_device():
 
 
 def phase_build():
-    from pplp_tpu_torch.ops import behz_cuda, cuda_build, mulmod_chain, ntt_cuda
+    from pplp_tpu_torch.ops import behz64_cuda, behz_cuda, cuda_build, mulmod_chain, ntt_cuda
 
     t0 = time.perf_counter()
     paths = cuda_build.build(sorted(cuda_build.CSRC.glob("*.cu")))
-    for mod in (ntt_cuda, behz_cuda, mulmod_chain):
+    for mod in (ntt_cuda, behz_cuda, behz64_cuda, mulmod_chain):
         mod.load()
     log(f"[build] {len(paths)} libraries in {time.perf_counter() - t0:.2f} s: "
         + ", ".join(p.name for p in paths.values()))
@@ -448,10 +476,11 @@ def phase_multiply(dev):
     for name, (ms, plain_ms) in step_ms.items():
         c = counts[name]
         rows[name] = {"launches": launches[name], "max_abs_err": step_err[name], "ms": ms,
-                      "plain_ms": plain_ms, "bound_ms": c["bound_ms"], "bound_by": c["bound_by"]}
-        log(f"[multiply] {name}: bit-exact against its plain step; {ms:.4f} ms (plain "
-            f"{plain_ms:.4f} ms); {c['bytes'] / 1e6:.1f} MB, {c['mulmods'] / 1e6:.1f}M Shoup "
-            f"products, bound {c['bound_ms']:.4f} ms ({c['bound_by']}), "
+                      "ms_source": "events", "plain_ms": plain_ms, "bound_ms": c["bound_ms"],
+                      "bound_by": c["bound_by"]}
+        log(f"[multiply] {name}: bit-exact against its plain step; {ms:.4f} ms (CUDA "
+            f"events; plain {plain_ms:.4f} ms); {c['bytes'] / 1e6:.1f} MB, "
+            f"{c['mulmods'] / 1e6:.1f}M Shoup products, bound {c['bound_ms']:.4f} ms ({c['bound_by']}), "
             f"{100 * c['bound_ms'] / ms:.1f}% of bound [{card}]")
 
     fused = FusedMultiplier(ctx, rlk2)
@@ -544,10 +573,202 @@ def phase_separate(dev):
         plain_ms = cuda_ms(plain, iters=3, warmup=1)
         c = counts[name]
         rows[name] = {"launches": launches[name], "max_abs_err": step_err, "ms": ms,
-                      "plain_ms": plain_ms, "bound_ms": c["bound_ms"], "bound_by": c["bound_by"]}
+                      "ms_source": "profiler", "plain_ms": plain_ms, "bound_ms": c["bound_ms"],
+                      "bound_by": c["bound_by"]}
         log(f"[separate] {name}: bit-exact against its plain step; {ms:.4f} ms of device "
             f"time per call ({prof[name]['launches_per_call']:g} launches; plain step "
             f"{plain_ms:.4f} ms); bound {c['bound_ms']:.4f} ms ({c['bound_by']}) [{card}]")
+    return rows, ntt_launches
+
+
+def _profile_with(fn, names, calls: int = 3, windows: int = 3) -> dict:
+    """Per-kernel device time of ``fn`` under torch.profiler: the first of
+    up to ``windows`` windows that recorded every kernel in ``names`` (late
+    in a long process a window was seen to miss a kernel's events), else
+    the last one."""
+    from pplp_tpu_torch.measure_multiply import profile_phases
+
+    for _ in range(windows):
+        phases = profile_phases(fn, calls)["phases"]
+        if all(name in phases for name in names):
+            break
+    return phases
+
+
+def phase_seal_multiply(dev):
+    """The seal (m62) multiply + relinearization on the u64 route, chain by
+    chain (``SEAL_MUL``): each chain's calls are counted alone, then held
+    against the plain version, then each kernel step against its plain step.
+    Returns the rows of the n = 4096 chain (its kernels' times and bounds)
+    with the launches of every chain, and the u64 NTT launches."""
+    import numpy as np
+    import torch
+
+    from pplp_tpu_torch import bfv
+    from pplp_tpu_torch.bfv import behz
+    from pplp_tpu_torch.bfv.evaluator import mod_switch_to_next, restrict_secret_key
+    from pplp_tpu_torch.measure_multiply import kernel_counts64
+    from pplp_tpu_torch.ops import behz64_cuda, ntt, ntt_cuda
+
+    t0 = time.perf_counter()
+    card = torch.cuda.get_device_name(dev)
+    launches = dict.fromkeys(behz64_cuda.launches_by_kernel, 0)
+    ntt_launches = dict.fromkeys(ntt_cuda.launches_by_kernel, 0)
+    rows = {}
+    for n, t_bits, batch, widths in SEAL_MUL:
+        t = 1 << t_bits
+        parms = bfv.EncryptionParameters.bfv(n, t, profile="seal")
+        ctx = bfv.BFVContext.build(parms, dev)
+        assert ctx.tables.profile == "m62"
+        mul = behz.multiplier(ctx)
+        gen = torch.Generator(device=dev).manual_seed(n + t_bits)
+        sk, rlk_default = behz.make_keys(ctx, gen)
+        assert behz.default_relin_width(ctx) == widths[0], "the default gadget width moved"
+        rlk = {widths[0]: rlk_default}
+        rlk.update({w: behz.create_relin_keys(ctx, sk, gen, width=w) for w in widths[1:]})
+        ct1 = bfv.Ciphertext(tuple(_synthetic(ctx, batch, gen) for _ in range(2)))
+        ct2 = bfv.Ciphertext(tuple(_synthetic(ctx, batch, gen) for _ in range(2)))
+        ct1.polys[0][0, :, :2] = ctx.q2 - 1  # the largest canonical residues
+        kg = bfv.KeyGenerator(ctx, gen)
+        ksk, kpk = kg.secret_key(), kg.create_public_key()
+        rng = np.random.default_rng(n)
+        ma, mb = (rng.integers(0, 1 << 16, size=n) for _ in range(2))
+        enc = bfv.Encryptor(ctx, kpk)
+        ca, cb = enc.encrypt(bfv.Plaintext(ma.tolist()), gen), enc.encrypt(
+            bfv.Plaintext(mb.tolist()), gen)
+        rlk_real = behz.create_relin_keys(ctx, ksk, gen)
+        tag = f"n={n} L={ctx.L} |B_sk|={mul.K} t=2^{t_bits} batch {batch}"
+
+        # The counted run: every call through the Evaluator, as a user's would.
+        torch.cuda.synchronize()
+        behz64_cuda.reset_launches()
+        ntt_cuda.reset_launches()
+        ev = bfv.Evaluator(ctx)
+        outs = {w: ev.multiply_relinearize(ct1, ct2, rlk[w]) for w in widths}
+        out3 = ev.multiply(ct1, ct2)
+        rel = ev.relinearize(out3, rlk_default)
+        real = ev.multiply_relinearize(ca, cb, rlk_real) if n <= SEAL_REAL_MAX_N else None
+        torch.cuda.synchronize()
+        run = dict(behz64_cuda.launches_by_kernel)
+        run_ntt = dict(ntt_cuda.launches_by_kernel)
+        assert all(v > 0 for v in run.values()), f"{tag}: behz64 launches {run}"
+        assert run_ntt["ntt_forward_u64"] > 0 and run_ntt["ntt_inverse_u64"] > 0, run_ntt
+        for k, v in run.items():
+            launches[k] += v
+        for k, v in run_ntt.items():
+            ntt_launches[k] += v
+
+        # Against the plain version with the plain NTTs (not counted).
+        plain3 = mul.multiply(ct1, ct2)
+        errs = {"multiply": _max_err(out3, plain3),
+                f"relinearize w{widths[0]}": _max_err(rel, behz.relinearize(ctx, plain3,
+                                                                           rlk_default))}
+        for w in widths:
+            errs[f"multiply_relinearize w{w}"] = _max_err(
+                outs[w], behz.relinearize(ctx, plain3, rlk[w]))
+        assert all(e == 0 for e in errs.values()), f"{tag}: kernel differs from plain: {errs}"
+        log(f"[seal_multiply] {tag}: launches {run}, u64 NTT {run_ntt}; max |kernel - plain| "
+            f"{errs}")
+        if real is not None:
+            got = bfv.Decryptor(ctx, ksk).decrypt(real).coeffs[:n]
+            assert got == _negacyclic_mod(ma, mb, t), f"{tag}: decrypted product differs"
+            log(f"[seal_multiply] {tag}: real product decrypt(multiply_relinearize(enc a, enc "
+                f"b)) == a * b mod (x^{n} + 1, t) at width {len(rlk_real.groups[0])}; first "
+                f"coefficients {got[:4]}")
+
+        # mod_switch_to_next on the card, against the same call on a CPU copy.
+        small, sw = mod_switch_to_next(ctx, ca)
+        cpu_ctx = bfv.BFVContext.build(parms, "cpu")
+        _, sw_cpu = mod_switch_to_next(cpu_ctx, bfv.Ciphertext(tuple(p.cpu() for p in ca.polys)))
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(sw.polys, sw_cpu.polys)), (
+            f"{tag}: mod_switch_to_next differs from the CPU's")
+        dec = bfv.Decryptor(small, restrict_secret_key(small, ksk)).decrypt(sw).coeffs[:n]
+        assert dec == ma.tolist(), f"{tag}: the switched ciphertext does not decrypt"
+        log(f"[seal_multiply] {tag}: mod_switch_to_next to L={small.L} on the card == the "
+            f"CPU's, decrypts to the plaintext")
+
+        # The u64 transforms on the 60-bit B_sk tables, and each kernel step
+        # against its plain step on the same inputs (both widths).
+        c0, c1 = ct1.polys
+        d0, d1 = ct2.polys
+        x = torch.stack([c0, c1, d0, d1])
+        tq, tb = ctx.tables, mul.bsk_tables
+        xb_p = mul._to_bsk(x)
+        sq, sb = ntt.forward_plain(x, tq), ntt.forward_plain(xb_p, tb)
+        eq_p = ntt.inverse_plain(mul.tensor_spectra(sq, tq), tq)
+        eb_p = ntt.inverse_plain(mul.tensor_spectra(sb, tb), tb)
+        ntt_err = max(int((ntt_cuda.forward(xb_p, tb) - sb).abs().max()),
+                      int((ntt_cuda.inverse(sb, tb) - xb_p).abs().max()))
+        assert ntt_err == 0, f"{tag}: the u64 NTT differs on the B_sk tables"
+        c2 = plain3.polys[2]
+        steps = {
+            "behz64_to_bsk": (lambda: [behz64_cuda.to_bsk(c0, c1, d0, d1, mul)],
+                              lambda: [mul._to_bsk(x)]),
+            "behz64_tensor": (lambda: list(behz64_cuda.tensor_spectra(sq, sb, mul)),
+                              lambda: [mul.tensor_spectra(sq, tq), mul.tensor_spectra(sb, tb)]),
+            "behz64_floor_sk": (lambda: [behz64_cuda.floor_sk(eq_p, eb_p, mul)],
+                                lambda: [mul._sk_to_q(mul._fast_floor(eq_p, eb_p))]),
+        }
+        for w in widths:
+            key, groups = rlk[w], rlk[w].digit_groups(ctx.L)
+            lifted = torch.stack([behz.lift_digit_grouped(ctx, c2, g) for g in groups])
+            dn = ntt.forward_plain(lifted, tq)
+            d = ntt.inverse_plain(behz.key_products(ctx, dn, key), tq)
+            sfx = "" if w == widths[0] else f" w{w}"
+            steps.update({
+                "behz64_lift" + sfx: (
+                    lambda key=key: [behz64_cuda.lift_digits(c2, ctx, key)],
+                    lambda key=key: [torch.stack([behz.lift_digit_grouped(ctx, c2, g)
+                                                  for g in key.digit_groups(ctx.L)])]),
+                "behz64_keyprod" + sfx: (lambda key=key, dn=dn: [
+                    behz64_cuda.key_products(dn, ctx, key)],
+                    lambda key=key, dn=dn: [behz.key_products(ctx, dn, key)]),
+                "behz64_add" + sfx: (lambda d=d: [behz64_cuda.add_switched(c0, c1, d, ctx)],
+                                     lambda d=d: [torch.stack([ctx.prof.add(c, dj, ctx.q2)
+                                                               for c, dj in zip((c0, c1), d)])]),
+            })
+        prof = _profile_with(lambda: ev.multiply_relinearize(ct1, ct2, rlk_default),
+                             tuple(launches))
+        counts = kernel_counts64(n, ctx.L, mul.K, len(rlk_default.digit_groups(ctx.L)), batch)
+        for name, (kernel, plain) in steps.items():
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            err = max(int((k - p.reshape(k.shape)).abs().max()) for k, p in zip(got, want))
+            assert err == 0, f"{tag}: {name} differs from its plain step: {err}"
+            if name not in counts:  # the other width: held exact, not timed
+                log(f"[seal_multiply] {tag}: {name}: bit-exact against its plain step")
+                continue
+            how, source = "of device time per call", "profiler"
+            if name in prof:
+                ms = prof[name]["ms_per_call"]
+            else:
+                ms, source = cuda_ms(kernel), "events"
+                how = "per step (CUDA events: the profiler missed it)"
+            plain_ms = cuda_ms(plain, iters=1, warmup=1)
+            c = counts[name]
+            if n == SEAL_MUL[0][0]:
+                rows[name] = {"max_abs_err": err, "ms": ms, "ms_source": source,
+                              "plain_ms": plain_ms, "bound_ms": c["bound_ms"],
+                              "bound_by": c["bound_by"]}
+            log(f"[seal_multiply] {tag}: {name}: bit-exact against its plain step; {ms:.4f} ms "
+                f"{how} (plain step {plain_ms:.4f} ms); {c['bytes'] / 1e6:.1f}"
+                f" MB, {c['mulmods'] / 1e6:.1f}M u64 Shoup products, bound {c['bound_ms']:.4f} "
+                f"ms ({c['bound_by']}), {100 * c['bound_ms'] / ms:.1f}% of bound [{card}]")
+        busy = sum(v["ms_per_call"] for v in prof.values())
+        rest = "; ".join(f"{k} {v['ms_per_call']:.4f} ms ({v['launches_per_call']:g})"
+                         for k, v in prof.items() if not k.startswith("behz64"))
+        log(f"[seal_multiply] {tag}: width-{widths[0]} call {busy:.4f} ms of device time; "
+            f"besides the behz64 kernels: {rest}")
+        if batch >= 64:
+            t_w = {w: cuda_ms(lambda w=w: ev.multiply_relinearize(ct1, ct2, rlk[w]))
+                   for w in widths}
+            log(f"[seal_multiply] {tag}: multiply_relinearize " + ", ".join(
+                f"w{w} {ms:.4f} ms ({batch / (ms / 1e3):.1f} mult+relin/s)"
+                for w, ms in t_w.items()) + f" (CUDA events) [{card}]")
+        del ctx, mul, rlk, ct1, ct2, plain3, ev, prof
+    for name, v in rows.items():
+        v["launches"] = launches[name]
+    log(f"[seal_multiply] phase done in {time.perf_counter() - t0:.1f} s")
     return rows, ntt_launches
 
 
@@ -587,8 +808,8 @@ def phase_probe(dev):
         f"window {window:.4f} ms), plain {plain_ms:.4f} ms; x{CEILING_STEPS}: "
         f"{ceiling_ms:.4f} ms, {ceiling:.4e} mulmods/s = {100 * ceiling / MULMODS_PER_S:.1f}% "
         f"of the integer-multiply peak {MULMODS_PER_S:.4e}/s [{card}]")
-    return {"launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"]}
+    return {"launches": launches, "max_abs_err": err, "ms": ms, "ms_source": "profiler",
+            "plain_ms": plain_ms, "bound_ms": c["bound_ms"], "bound_by": c["bound_by"]}
 
 
 def _median_ms(fn, windows: int = 7, iters: int = 5) -> float:
@@ -717,6 +938,8 @@ def main() -> int:
     pipe_ntt = phase_pipeline(dev)
     sep_rows, sep_ntt = phase_separate(dev)
     rows.update(sep_rows)
+    seal_rows, seal_ntt = phase_seal_multiply(dev)
+    rows.update(seal_rows)
     n = 1 << DEMO_N_BITS
     main_shapes = {prof: (6, len(_chain(prof, n)), n) for prof in PROFILE_NTT}
     u32_shape = (ROWS_PER_LIMB, len(_chain("tpu", 32768)), 32768)
@@ -725,21 +948,25 @@ def main() -> int:
         for name in names:
             ms, plain_ms = times[prof, shape][name]
             rows[name] = {"launches": sum(c[name] for c in (launches, mult_ntt, pipe_ntt,
-                                                            sep_ntt)),
-                          "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
+                                                            sep_ntt, seal_ntt)),
+                          "max_abs_err": err[name], "ms": ms, "ms_source": "profiler",
+                          "plain_ms": plain_ms,
                           **_ntt_bound(name, shape)}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep, **rows[name],
                 "library_ms": None}
                for name, (src, rep) in KERNELS.items()]
     for k in kernels:
         log(f"[kernels] {k['name']}: {k['launches']} launches on the main paths, "
-            f"{k['ms']:.4f} ms against a bound of {k['bound_ms']:.4f} ms ({k['bound_by']}), "
+            f"{k['ms']:.4f} ms ({k['ms_source']}) against a bound of {k['bound_ms']:.4f} ms "
+            f"({k['bound_by']}), "
             f"{100 * k['bound_ms'] / k['ms']:.1f}% of bound; plain {k['plain_ms']:.4f} ms")
     log(f"[kernels] NTT ms and plain_ms below are at the demo's blind-distance shape "
         f"(int64 u32: tpu {main_shapes['tpu']}, u64: seal {main_shapes['seal']}; u32 out: "
         f"{u32_shape}); the fused behz kernels at batch {MUL_BATCH} (width 2), the separate "
-        f"ones per call at n = {MUL_SEP_N}, batch {MUL_SEP_BATCH}; mulmod_chain at "
-        f"{PROBE_SHAPE}; library_ms null: no PyTorch call computes these functions")
+        f"ones per call at n = {MUL_SEP_N}, batch {MUL_SEP_BATCH}; the behz64 kernels per "
+        f"call on the seal chain n = {SEAL_MUL[0][0]}, batch {SEAL_MUL[0][2]}, width "
+        f"{SEAL_MUL[0][3][0]}; mulmod_chain at {PROBE_SHAPE}; library_ms null: no PyTorch "
+        f"call computes these functions")
     log(json.dumps({"kernels": kernels}))
     log(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,8 @@
 Counterpart of ``pplp_tpu.bfv`` for what the proximity protocol uses, on
 both residue profiles (``m31``: primes below 2^30; ``m62``: primes in
 [2^32, 2^62)), the device decode of the packed pipeline (``rns_decrypt``),
-and the ct x ct multiply with relinearization (``behz``, ``behz_fused``) on
-``m31`` only.
+and the ct x ct multiply with relinearization and modulus switching
+(``behz``, ``behz_fused``, ``rescale``), on both.
 """
 
 from .params import EncryptionParameters, SCHEME_BFV

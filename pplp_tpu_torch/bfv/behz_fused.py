@@ -1,9 +1,12 @@
 """BEHZ multiply + relinearization through the hand-written kernels.
 
 Counterpart of ``pplp_tpu.bfv.behz_fused.FusedMultiplier``. On a CUDA
-context every call goes to ``ops.behz_cuda`` (``csrc/behz.cu`` plus the NTT
-kernel); on a CPU context to the plain version (``bfv.behz``). The results
-are the same bit for bit.
+context every call goes to the kernels of the context's profile: m31 to
+``ops.behz_cuda`` (``csrc/behz.cu`` plus the NTT kernel), m62 to
+``ops.behz64_cuda`` (``csrc/behz64.cu`` around the u64 NTT kernels). On a
+CPU context it goes to the plain version (``bfv.behz``). This is a dispatch,
+not a fallback: a CUDA context never runs the plain version, and a failed
+build or launch raises. The results are the same bit for bit.
 
 Ciphertexts may carry a leading batch: polynomials [..., L, n]. Contexts are
 built the port's one way (stage spectrum order), so there is no engine
@@ -29,6 +32,16 @@ class FusedMultiplier:
     def on_card(self) -> bool:
         return self.ctx.device.type == "cuda"
 
+    def _kernels(self):
+        """The kernel module of the context's profile."""
+        if self.ctx.tables.profile == "m62":
+            from ..ops import behz64_cuda
+
+            return behz64_cuda
+        from ..ops import behz_cuda
+
+        return behz_cuda
+
     def _keys(self) -> KSwitchKeys:
         if self.rlk is None:
             raise ValueError("this FusedMultiplier was built without relinearization keys")
@@ -39,9 +52,7 @@ class FusedMultiplier:
         _check_pair(ct1, ct2)
         if not self.on_card:
             return self.mul.multiply(ct1, ct2)
-        from ..ops import behz_cuda
-
-        out = behz_cuda.multiply(*ct1.polys, *ct2.polys, self.mul)
+        out = self._kernels().multiply(*ct1.polys, *ct2.polys, self.mul)
         return Ciphertext(tuple(out.unbind(0)), "coeff")
 
     def relinearize(self, ct: Ciphertext) -> Ciphertext:
@@ -51,9 +62,7 @@ class FusedMultiplier:
             return relinearize(self.ctx, ct, rlk)
         if ct.size != 3 or ct.domain != "coeff":
             raise ValueError("relinearize takes a size-3 coefficient-domain ciphertext")
-        from ..ops import behz_cuda
-
-        out = behz_cuda.relinearize(*ct.polys, self.ctx, rlk)
+        out = self._kernels().relinearize(*ct.polys, self.ctx, rlk)
         return Ciphertext(tuple(out.unbind(0)), "coeff")
 
     def multiply_relinearize(self, ct1: Ciphertext, ct2: Ciphertext) -> Ciphertext:

@@ -1,17 +1,16 @@
-"""Homomorphic evaluation: add/sub, plain add/multiply, ct x ct multiply and
-relinearization, NTT-domain chaining, modulus switching.
+"""Homomorphic evaluation: add/sub/negate, plain add/sub/multiply, ct x ct
+multiply and relinearization, NTT-domain chaining, modulus switching.
 
 Counterpart of ``pplp_tpu.bfv.evaluator``. Every op is exact modular ring
 arithmetic and the NTT is a ring isomorphism, so a chained expression can
 transform each operand once, combine in the spectrum and transform back
 once, bit-identical to the op-by-op coefficient-domain chain.
 
-Add, sub and the plain operations run on both residue profiles (through
-``ctx.prof``). ``multiply``, ``relinearize`` and ``multiply_relinearize``
-run the BEHZ multiply with RNS-gadget keys (``bfv.behz``): on a CUDA
-context through the hand-written kernels (``bfv.behz_fused.FusedMultiplier``),
-on a CPU context through the plain version. They and ``mod_switch_to_next``
-are m31 only: on an m62 (seal) context they raise NotImplementedError.
+Every op runs on both residue profiles (through ``ctx.prof``).
+``multiply``, ``relinearize`` and ``multiply_relinearize`` run the BEHZ
+multiply with RNS-gadget keys (``bfv.behz``): on a CUDA context through the
+hand-written kernels of its profile (``bfv.behz_fused.FusedMultiplier``),
+on a CPU context through the plain version.
 """
 
 from __future__ import annotations
@@ -26,14 +25,6 @@ from .plaintext import Plaintext
 from .rescale import make_divide_round_last
 
 __all__ = ["Evaluator", "mod_switch_to_next", "restrict_secret_key"]
-
-
-def _require_m31(ctx: BFVContext, what: str):
-    if ctx.tables.profile != "m31":
-        raise NotImplementedError(
-            f"{what} on the m62 (seal) profile is not ported yet: it needs the "
-            "m62 branches of bfv/behz.py and bfv/rescale.py and a CUDA route for "
-            "the m62 multiply, the next slice of the port; use the tpu profile")
 
 
 class Evaluator:
@@ -63,12 +54,26 @@ class Evaluator:
     def sub(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         return self._zip(a, b, subtract=True)
 
+    def negate(self, a: Ciphertext) -> Ciphertext:
+        p, q2 = self.ctx.prof, self.ctx.q2
+        return Ciphertext(tuple(p.neg(c, q2) for c in a.polys), a.domain)
+
+    def add_many(self, cts) -> Ciphertext:
+        """Tree sum of ciphertexts, pairwise level by level (the reference's
+        order, so sizes and domains combine as there)."""
+        cts = list(cts)
+        if not cts:
+            raise ValueError("add_many of no ciphertexts")
+        while len(cts) > 1:
+            cts = [self.add(cts[i], cts[i + 1]) if i + 1 < len(cts) else cts[i]
+                   for i in range(0, len(cts), 2)]
+        return cts[0]
+
     # -- ct * ct ----------------------------------------------------------
 
     def _multiplier(self, keys=None):
         from .behz_fused import FusedMultiplier
 
-        _require_m31(self.ctx, "the ct x ct multiply")
         if self._fused is None or self._fused.rlk is not keys:
             self._fused = FusedMultiplier(self.ctx, keys)
         return self._fused
@@ -93,11 +98,18 @@ class Evaluator:
             return plain.pair_u32(self.ctx.n)
         return plain  # already host (lo, hi) arrays
 
-    def add_plain(self, a: Ciphertext, plain) -> Ciphertext:
-        assert a.domain == "coeff"
+    def _plain_term(self, a: Ciphertext, plain, fn) -> Ciphertext:
+        """fn(c0, round(q m / t)) with the other components unchanged."""
+        if a.domain != "coeff":
+            raise ValueError("plain add/sub takes a coefficient-domain ciphertext")
         term = self.ctx.scale_plain(*self._plain_pairs(plain))
-        return Ciphertext((self.ctx.prof.add(a.polys[0], term, self.ctx.q2),)
-                          + a.polys[1:], a.domain)
+        return Ciphertext((fn(a.polys[0], term, self.ctx.q2),) + a.polys[1:], a.domain)
+
+    def add_plain(self, a: Ciphertext, plain) -> Ciphertext:
+        return self._plain_term(a, plain, self.ctx.prof.add)
+
+    def sub_plain(self, a: Ciphertext, plain) -> Ciphertext:
+        return self._plain_term(a, plain, self.ctx.prof.sub)
 
     # -- ct * plain -----------------------------------------------------
 
@@ -138,7 +150,6 @@ def mod_switch_to_next(ctx: BFVContext, ct: Ciphertext):
 
     Returns (the smaller context, the switched ciphertext); decrypt with the
     secret key restricted to the head limbs (``restrict_secret_key``)."""
-    _require_m31(ctx, "mod_switch_to_next")
     if ctx.L < 2:
         raise ValueError("nothing left to switch: the chain has one prime")
     if ct.domain != "coeff":
@@ -150,6 +161,8 @@ def mod_switch_to_next(ctx: BFVContext, ct: Ciphertext):
 
 
 def restrict_secret_key(ctx_small: BFVContext, sk):
-    """Project a secret key onto a context with fewer (head) limbs."""
+    """Project a secret key onto a context with fewer (head) limbs; the
+    Shoup companions are recomputed over the smaller chain (``keys.shoup``,
+    64-bit on m62)."""
     s = sk.s_ntt[..., : ctx_small.L, :]
     return SecretKey(s_ntt=s, s_shoup=shoup(ctx_small, s))

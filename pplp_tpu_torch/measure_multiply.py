@@ -1,23 +1,28 @@
 """Measure the ct x ct multiply path and the mulmod chain on one CUDA card.
 
-    python3 -m pplp_tpu_torch.measure_multiply [--json PATH]
+    python3 -m pplp_tpu_torch.measure_multiply [--profile tpu|seal] [--json PATH]
 
 The workload is the one ``chip_smoke.py`` drives: n = 4096 on the tpu chain
-(4 primes, |B_sk| = 6), t = 2^16, random canonical residues made from a
-seeded ``torch.Generator``, keys from ``behz.make_keys``. The script
+(4 primes, |B_sk| = 6, the fused m31 kernels of ``csrc/behz.cu``) or, with
+``--profile seal``, on SEAL's BFVDefault(4096) chain (3 primes of 36-37
+bits, |B_sk| = 5, the u64 route of ``csrc/behz64.cu`` around the u64
+transforms), t = 2^16, random canonical residues made from a seeded
+``torch.Generator``, keys from ``behz.make_keys`` (the default width: 2 on
+tpu, 1 on seal) and ``create_relin_keys`` at the other width. The script
 
-1. checks the width-2 multiply + relinearize at batch 256 against the plain
-   version (bit-exact) once, and fails if they differ;
+1. checks the default-width multiply + relinearize at batch 256 against the
+   plain version (bit-exact) once, and fails if they differ;
 2. times at batch 256, with CUDA events: ``multiply_relinearize`` at
    widths 2 and 1, ``multiply`` alone, ``relinearize`` alone at widths 2
-   and 1, the plain version of the width-2 call, and the mulmod chain on
-   [256, 4, 4096] beside its plain version. Every variant is warmed once,
+   and 1, the plain version of the default-width call (one call per window
+   on seal, where it takes seconds), and the mulmod chain on [256, 4, 4096]
+   beside its plain version (tpu only). Every variant is warmed once,
    then timed once per round as the mean of a window of calls; the rounds
    run the variants in order and reversed, alternately. Reported: the
    median over rounds and the min-max;
-3. sweeps the batch (16, 64, 256, 1024) of the width-2 call, median of 3
-   rounds;
-4. runs ``torch.profiler`` over 10 width-2 calls at batch 256: device time
+3. sweeps the batch (16, 64, 256, 1024) of the default-width call, median
+   of 3 rounds;
+4. runs ``torch.profiler`` over 10 default-width calls at batch 256: device time
    per kernel (ms per call, share, launches), beside each kernel's
    shape-derived work (``kernel_counts``: the bytes its interface moves,
    Shoup products), its bound (``bound``) and its share of the bound; the
@@ -32,7 +37,10 @@ phase at 4 B per residue whatever a kernel stores: a yardstick that is the
 same for every design of the phases (the parent's int64 kernels, the fused
 u32 ones). ``kernel_counts`` (and every bound) counts the bytes each
 kernel's interface must move: int64 ciphertexts in and out, u32
-intermediates, the packed keys once.
+intermediates, the packed keys once. ``kernel_counts64`` does the same for
+the u64 route, whose kernels are its logical phases one for one: each
+operation at the fewest 32-bit multiplies it needs (``U64_*_MULS``),
+converted to u64 Shoup products (``U64_PRODUCT_MULS``).
 
 Prints one line per measurement and the card's name and power limit, and
 writes every number as JSON to ``--json`` if given. Exits 1 without CUDA.
@@ -67,7 +75,14 @@ PHASES = {"ntt_forward_kernel": "ntt_forward", "ntt_inverse_kernel": "ntt_invers
           "tensor_ntt_kernel": "behz_tensor_ntt", "floor_sk_kernel": "behz_floor_sk",
           "relin_ntt_kernel": "behz_relin_ntt", "tensor_kernel": "behz_tensor",
           "lift_kernel": "behz_lift", "keyprod_kernel": "behz_keyprod",
-          "add_kernel": "behz_add", "mulmod_chain_kernel": "mulmod_chain"}
+          "add_kernel": "behz_add", "mulmod_chain_kernel": "mulmod_chain",
+          "ntt_forward_u64_kernel": "ntt_forward_u64",
+          "ntt_forward_u64_cluster_kernel": "ntt_forward_u64",
+          "ntt_inverse_u64_kernel": "ntt_inverse_u64",
+          "ntt_inverse_u64_cluster_kernel": "ntt_inverse_u64",
+          "to_bsk64_kernel": "behz64_to_bsk", "tensor64_kernel": "behz64_tensor",
+          "floor_sk64_kernel": "behz64_floor_sk", "lift64_kernel": "behz64_lift",
+          "keyprod64_kernel": "behz64_keyprod", "add64_kernel": "behz64_add"}
 _KERNEL_NAME = re.compile(r"(?:^|[\s:])(\w+_kernel)[<(]")
 CEILING_STEPS = 256  # chain steps at which the chain is bound by integer work
 # The bound's two rates on one H100 SXM: device memory (NVIDIA's data sheet)
@@ -82,6 +97,20 @@ MULMODS_PER_S = MULS_PER_S / 3
 # product, from the kernels' SASS; ``measure_ntt --sass`` counts them.
 U64_PRODUCT_MULS = 10
 MULMODS64_PER_S = MULS_PER_S / U64_PRODUCT_MULS
+# The u64 route's other operations at the fewest 32 x 32-bit partial
+# products each needs (a Shoup product, 10, is two low words of 3 and a
+# high word of 4). One term of a 128-bit conversion sum is a whole
+# 64 x 64 -> 128-bit product: its 4 partial products. The Barrett reduction
+# of a 128-bit value by r = floor(2^128 / q) < 2^96 (q >= 2^32) forms the
+# words of z r that reach its estimate, all 4 x 3 partial products, then
+# the low word of est q (3): 15; of a 64-bit value, 2 x 3 + 3 = 9. A general
+# product mod q is a whole product and a 128-bit reduction: 19. These count
+# what the functions need, not the kernels' SASS (behz64.cu's Barrett also
+# multiplies by the high word of r as if it were 64 bits wide).
+U64_MAC_MULS = 4
+U64_REDUCE128_MULS = 15
+U64_REDUCE64_MULS = 9
+U64_MULMOD_MULS = U64_MAC_MULS + U64_REDUCE128_MULS
 RESIDUE_BYTES = 4  # the least that holds an m31 residue
 
 
@@ -182,12 +211,58 @@ def kernel_counts(n: int, L: int, K: int, D: int, batch: int) -> dict:
     return {k: bound(v) for k, v in out.items()}
 
 
+def kernel_counts64(n: int, L: int, K: int, D: int, batch: int) -> dict:
+    """The u64 route's launches of one multiply + relinearize (``behz64_cuda``),
+    each with its bytes at its interface (8 B per residue: int64 in and out,
+    u64 intermediates, the packed keys at 32 B per key coefficient once), its
+    logical work in u64 Shoup-product equivalents (the fewest 32-bit
+    multiplies of each operation, ``U64_*_MULS``, over ``U64_PRODUCT_MULS``)
+    and its bound at ``MULMODS64_PER_S``. D digits: one limb each when
+    D == L, else consecutive pairs (``L - D`` of them)."""
+    e, l = batch * n, K - 1  # coefficients of one limb over the batch
+    wide = L - D  # two-limb digits
+    shoup, mac, red, red64 = (U64_PRODUCT_MULS, U64_MAC_MULS, U64_REDUCE128_MULS,
+                              U64_REDUCE64_MULS)
+    muls = {
+        "behz64_to_bsk": 4 * e * (L * shoup + K * (L * mac + red + 2 * shoup)),
+        "behz64_tensor": e * (L + K) * 3 * U64_MULMOD_MULS,
+        "behz64_floor_sk": 3 * e * (2 * L * shoup + K * (L * mac + red + 2 * shoup)
+                                    + l * shoup + l * mac + red + shoup
+                                    + L * (l * mac + red + shoup)),
+        "behz64_lift": e * (D * L * red64 + wide * (red64 + shoup + L * shoup)),
+        "behz64_keyprod": e * L * 2 * D * shoup,
+        "behz64_add": 0,
+    }
+    nbytes = {
+        "behz64_to_bsk": 8 * 4 * e * (L + K),
+        "behz64_tensor": 8 * 7 * e * (L + K),
+        "behz64_floor_sk": 8 * 3 * e * (L + K + L),
+        "behz64_lift": 8 * e * L * (1 + D),
+        "behz64_keyprod": 8 * e * L * (D + 2) + 32 * D * L * n,
+        "behz64_add": 8 * 6 * e * L,
+    }
+    out = {k: _phase(e, muls[k] / U64_PRODUCT_MULS, nbytes[k]) for k in muls}
+    fwd_row, inv_row = transform_mulmods(n, False), transform_mulmods(n, True)
+    fwd_rows, inv_rows = batch * (4 * L + 4 * K + D * L), batch * (3 * L + 3 * K + 2 * L)
+    out["ntt_forward_u64"] = _phase(fwd_rows, fwd_rows * fwd_row, 16 * fwd_rows * n, 3)
+    out["ntt_inverse_u64"] = _phase(inv_rows, inv_rows * inv_row, 16 * inv_rows * n, 3)
+    return {k: bound(v, MULMODS64_PER_S) for k, v in out.items()}
+
+
 def call_counts(n: int, L: int, K: int, D: int, batch: int) -> dict:
     """One multiply + relinearize as one function, with its bound: every
     phase's Shoup products; bytes of its interface (four int64 polynomials
     in, two out, the packed keys once)."""
     mulmods = sum(v["mulmods"] for v in work_counts(n, L, K, D, batch).values())
     return bound(_phase(batch, mulmods, batch * n * 48 * L + 16 * D * L * n))
+
+
+def call_counts64(n: int, L: int, K: int, D: int, batch: int) -> dict:
+    """``call_counts`` of the u64 route: the logical work of every phase
+    (``kernel_counts64``, in u64 Shoup products) against the call's
+    interface at 8 B per residue."""
+    mulmods = sum(v["mulmods"] for v in kernel_counts64(n, L, K, D, batch).values())
+    return bound(_phase(batch, mulmods, batch * n * 48 * L + 32 * D * L * n), MULMODS64_PER_S)
 
 
 def rounds_ms(variants: dict, rounds: int) -> dict:
@@ -245,6 +320,8 @@ def profile_phases(fn, calls: int) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", choices=("tpu", "seal"), default="tpu",
+                    help="the chain: tpu (m31, csrc/behz.cu) or seal (m62, csrc/behz64.cu)")
     ap.add_argument("--json", default=None, help="write every number here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -257,15 +334,19 @@ def main(argv=None) -> int:
     from .bfv.behz_fused import FusedMultiplier
     from .ops import mulmod_chain
 
+    seal = args.profile == "seal"
     dev = cuda_device(0)
     card = smi_line()
-    ctx = bfv.BFVContext.build(bfv.EncryptionParameters.bfv(N, 1 << T_BITS, profile="tpu"),
-                               dev)
+    ctx = bfv.BFVContext.build(
+        bfv.EncryptionParameters.bfv(N, 1 << T_BITS, profile=args.profile), dev)
     mul = behz.multiplier(ctx)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    sk, rlk2 = behz.make_keys(ctx, gen)
-    rlk1 = behz.create_relin_keys(ctx, sk, gen, width=1)
-    fused2, fused1 = FusedMultiplier(ctx, rlk2), FusedMultiplier(ctx, rlk1)
+    sk, rlk_default = behz.make_keys(ctx, gen)
+    w_default = behz.default_relin_width(ctx)
+    rlk = {w_default: rlk_default,
+           3 - w_default: behz.create_relin_keys(ctx, sk, gen, width=3 - w_default)}
+    fused = {w: FusedMultiplier(ctx, k) for w, k in rlk.items()}
+    fd = fused[w_default]
 
     def cts(batch):
         def poly():
@@ -275,9 +356,9 @@ def main(argv=None) -> int:
         return bfv.Ciphertext((poly(), poly())), bfv.Ciphertext((poly(), poly()))
 
     ct1, ct2 = cts(BATCH)
-    ct3 = fused2.multiply(ct1, ct2)
-    got = fused2.relinearize(ct3)
-    want = behz.relinearize(ctx, mul.multiply(ct1, ct2), rlk2)
+    ct3 = fd.multiply(ct1, ct2)
+    got = fd.relinearize(ct3)
+    want = behz.relinearize(ctx, mul.multiply(ct1, ct2), rlk_default)
     if not all(torch.equal(a, b) for a, b in zip(got.polys, want.polys)):
         print("measure_multiply: the kernel differs from the plain version", file=sys.stderr)
         return 1
@@ -288,55 +369,61 @@ def main(argv=None) -> int:
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(f"[card] {sms} SMs, top SM clock {clocks}; MULMODS_PER_S {MULMODS_PER_S:.4e}",
-          flush=True)
-    result = {"card": card, "sms": sms, "max_sm_clock": clocks, "n": N, "L": ctx.L,
-              "bsk": mul.K, "t_bits": T_BITS, "batch": BATCH, "rounds": ROUNDS,
-              "mulmods_per_s": MULMODS_PER_S}
-    result["calls"] = rounds_ms({
-        "multiply_relinearize_w2": (lambda: fused2.multiply_relinearize(ct1, ct2), 10),
-        "multiply_relinearize_w1": (lambda: fused1.multiply_relinearize(ct1, ct2), 10),
-        "multiply": (lambda: fused2.multiply(ct1, ct2), 10),
-        "relinearize_w2": (lambda: fused2.relinearize(ct3), 10),
-        "relinearize_w1": (lambda: fused1.relinearize(ct3), 10),
-        "plain_multiply_relinearize_w2": (
-            lambda: behz.relinearize(ctx, mul.multiply(ct1, ct2), rlk2), 3),
-        "mulmod_chain": (lambda: mulmod_chain.chain(x), 20),
-        "plain_mulmod_chain": (lambda: mulmod_chain.chain_plain(x), 5),
-    }, ROUNDS)
+    rate = MULMODS64_PER_S if seal else MULMODS_PER_S
+    print(f"[card] {sms} SMs, top SM clock {clocks}; {'MULMODS64' if seal else 'MULMODS'}"
+          f"_PER_S {rate:.4e}", flush=True)
+    result = {"card": card, "sms": sms, "max_sm_clock": clocks, "profile": args.profile,
+              "n": N, "L": ctx.L, "bsk": mul.K, "t_bits": T_BITS, "batch": BATCH,
+              "rounds": ROUNDS, "mulmods_per_s": rate, "default_width": w_default}
+    variants = {f"multiply_relinearize_w{w}": (
+        lambda w=w: fused[w].multiply_relinearize(ct1, ct2), 10) for w in (2, 1)}
+    variants["multiply"] = (lambda: fd.multiply(ct1, ct2), 10)
+    variants.update({f"relinearize_w{w}": (lambda w=w: fused[w].relinearize(ct3), 10)
+                     for w in (2, 1)})
+    variants[f"plain_multiply_relinearize_w{w_default}"] = (
+        lambda: behz.relinearize(ctx, mul.multiply(ct1, ct2), rlk_default), 1 if seal else 3)
+    if not seal:
+        variants["mulmod_chain"] = (lambda: mulmod_chain.chain(x), 20)
+        variants["plain_mulmod_chain"] = (lambda: mulmod_chain.chain_plain(x), 5)
+    result["calls"] = rounds_ms(variants, ROUNDS)
     for name, s in result["calls"].items():
-        rate = ""
+        rate_s = ""
         if name.startswith("multiply_relinearize"):
-            rate = f" = {BATCH / (s['median_ms'] / 1e3):.1f} mult+relin/s"
+            rate_s = f" = {BATCH / (s['median_ms'] / 1e3):.1f} mult+relin/s"
         elif name == "mulmod_chain":
-            rate = f" = {x.numel() * mulmod_chain.STEPS / (s['median_ms'] / 1e3):.4e} mulmods/s"
-        print(f"[calls] {name}: median {s['median_ms']:.4f} ms "
-              f"[{s['min_ms']:.4f}-{s['max_ms']:.4f}] over {s['rounds']} rounds{rate}",
+            rate_s = f" = {x.numel() * mulmod_chain.STEPS / (s['median_ms'] / 1e3):.4e} mulmods/s"
+        print(f"[calls] {args.profile} {name}: median {s['median_ms']:.4f} ms "
+              f"[{s['min_ms']:.4f}-{s['max_ms']:.4f}] over {s['rounds']} rounds{rate_s}",
               flush=True)
 
     result["sweep"] = {}
     for batch in SWEEP:
         a, b = (ct1, ct2) if batch == BATCH else cts(batch)
-        s = rounds_ms({"w2": (lambda a=a, b=b: fused2.multiply_relinearize(a, b), 10)},
-                      3)["w2"]
+        s = rounds_ms({"w": (lambda a=a, b=b: fd.multiply_relinearize(a, b), 10)}, 3)["w"]
         s["per_s"] = batch / (s["median_ms"] / 1e3)
         result["sweep"][batch] = s
-        print(f"[sweep] batch {batch}: {s['median_ms']:.4f} ms "
-              f"({s['per_s']:.1f} mult+relin/s)", flush=True)
+        print(f"[sweep] {args.profile} width {w_default}, batch {batch}: "
+              f"{s['median_ms']:.4f} ms ({s['per_s']:.1f} mult+relin/s)", flush=True)
 
-    prof = profile_phases(lambda: fused2.multiply_relinearize(ct1, ct2), PROFILE_CALLS)
-    D = len(rlk2.digit_groups(ctx.L))
-    counts = kernel_counts(N, ctx.L, mul.K, D, BATCH)
+    prof = profile_phases(lambda: fd.multiply_relinearize(ct1, ct2), PROFILE_CALLS)
+    D = len(rlk_default.digit_groups(ctx.L))
+    if seal:
+        counts = kernel_counts64(N, ctx.L, mul.K, D, BATCH)
+        call = call_counts64(N, ctx.L, mul.K, D, BATCH)
+    else:
+        counts = kernel_counts(N, ctx.L, mul.K, D, BATCH)
+        call = call_counts(N, ctx.L, mul.K, D, BATCH)
+        result["work"] = {k: bound(v) for k, v in work_counts(N, ctx.L, mul.K, D,
+                                                               BATCH).items()}
     for p, v in prof["phases"].items():
         if p in counts:
             v.update(counts[p])
             v["bound_share"] = v["bound_ms"] / v["ms_per_call"]
-    result["profile"] = prof
-    result["work"] = {k: bound(v) for k, v in work_counts(N, ctx.L, mul.K, D, BATCH).items()}
-    result["call"] = call = call_counts(N, ctx.L, mul.K, D, BATCH)
+    result["profile_phases"] = prof
+    result["call"] = call
     busy = prof["busy_ms"] / PROFILE_CALLS
     total = sum(c["bound_ms"] for c in counts.values())
-    print(f"[profile] {PROFILE_CALLS} width-2 calls at batch {BATCH}: device busy "
+    print(f"[profile] {PROFILE_CALLS} width-{w_default} calls at batch {BATCH}: device busy "
           f"{busy:.4f} ms per call, {100 * prof['busy_share']:.1f}% of the window; sum of "
           f"kernel bounds {total:.4f} ms ({100 * total / busy:.1f}%); the call's own bound "
           f"{call['bound_ms']:.4f} ms ({call['bound_by']}: {call['bytes'] / 1e6:.1f} MB, "
@@ -351,18 +438,19 @@ def main(argv=None) -> int:
         print(f"[profile] {p}: {v['ms_per_call']:.4f} ms per call, "
               f"{100 * v['share']:.1f}%, {v['launches_per_call']:g} launches per call{extra}",
               flush=True)
-    # A chain call is shorter than its host launch path, so its CUDA-event
-    # window reads the launch rate; the profiler reads the kernel itself.
-    result["chain_profile"] = {}
-    for steps in (mulmod_chain.STEPS, CEILING_STEPS):
-        prof = profile_phases(lambda steps=steps: mulmod_chain.chain(x, steps=steps), 20)
-        result["chain_profile"][steps] = prof
-        ms = prof["phases"]["mulmod_chain"]["ms_per_call"]
-        rate = x.numel() * steps / (ms / 1e3)
-        print(f"[profile] mulmod_chain x{steps} on {CHAIN_SHAPE}: {ms:.4f} ms of device time "
-              f"per call ({rate:.4e} mulmods/s, {100 * rate / MULMODS_PER_S:.1f}% of "
-              f"MULMODS_PER_S), device busy {100 * prof['busy_share']:.1f}% of the window",
-              flush=True)
+    if not seal:
+        # A chain call is shorter than its host launch path, so its CUDA-event
+        # window reads the launch rate; the profiler reads the kernel itself.
+        result["chain_profile"] = {}
+        for steps in (mulmod_chain.STEPS, CEILING_STEPS):
+            prof = profile_phases(lambda steps=steps: mulmod_chain.chain(x, steps=steps), 20)
+            result["chain_profile"][steps] = prof
+            ms = prof["phases"]["mulmod_chain"]["ms_per_call"]
+            rate_c = x.numel() * steps / (ms / 1e3)
+            print(f"[profile] mulmod_chain x{steps} on {CHAIN_SHAPE}: {ms:.4f} ms of device "
+                  f"time per call ({rate_c:.4e} mulmods/s, {100 * rate_c / MULMODS_PER_S:.1f}% "
+                  f"of MULMODS_PER_S), device busy {100 * prof['busy_share']:.1f}% of the "
+                  f"window", flush=True)
     print(card, flush=True)
     if args.json:
         os.makedirs(os.path.dirname(args.json) or ".", exist_ok=True)

@@ -1,0 +1,376 @@
+"""Load and launch the m62 BEHZ multiply + relinearization (``csrc/behz64.cu``).
+
+The u64 route of the seal chains (2^32 <= q < 2^62). It replaces no Pallas
+kernel: the reference runs the m62 multiply through XLA
+(``pplp_tpu/bfv/behz.py:388``, ``RnsMultiplier.multiply``, and ``:772``,
+``relinearize``). Separate launches around the u64 transforms of
+``ntt_cuda`` (one launch per base and direction):
+
+* ``multiply``: ``to_bsk``, the forward transforms over Q and B_sk,
+  ``tensor_spectra`` (both bases, one launch), the inverse transforms,
+  ``floor_sk``: 7 launches;
+* ``relinearize``: ``lift_digits`` (width 1 or 2, read from the keys'
+  groups), the forward transform of the digits, ``key_products``, the
+  inverse transform, ``add_switched``: 5 launches.
+
+Every intermediate is u64 (int64 tensors holding the same bits,
+[component, batch, limb, n]) and canonical, so each step equals its plain
+step of ``bfv.behz`` bit for bit: ``RnsMultiplier._to_bsk``,
+``tensor_spectra``, ``_fast_floor`` + ``_sk_to_q``, ``lift_digit_grouped``,
+``key_products`` and the profile's ``add``. ``bfv.behz_fused`` dispatches
+an m62 CUDA context here; these wrappers take CUDA tensors only and raise on
+anything else, and a launch error raises. Bounds: L <= 40, |B_sk| <= 48
+(the source's header).
+
+``launches`` counts launches of ``behz64.cu`` (the transforms are counted by
+``ntt_cuda``); ``launches_by_kernel`` splits them. The packed constants are
+cached here, keyed by the multiplier and keys objects they were packed from.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import weakref
+
+import numpy as np
+import torch
+
+from . import cuda_build, ntt_cuda
+from .modmath import shoup_ints
+
+__all__ = ["multiply", "relinearize", "to_bsk", "tensor_spectra", "floor_sk", "lift_digits",
+           "key_products", "add_switched", "launches", "launches_by_kernel", "reset_launches",
+           "MAX_L", "MAX_K"]
+
+SOURCE = cuda_build.CSRC / "behz64.cu"
+MAX_L = 40
+MAX_K = 48
+_NO_LIMB = (1 << 64) - 1
+_BITS = 64  # Shoup companions floor(w 2^64 / q)
+_BSK_BITS = 60  # B_sk primes below 2^60 keep every conversion sum below 2^128
+
+launches = 0
+launches_by_kernel = {"behz64_to_bsk": 0, "behz64_tensor": 0, "behz64_floor_sk": 0,
+                      "behz64_lift": 0, "behz64_keyprod": 0, "behz64_add": 0}
+
+# multiplier -> (device constants, host scalars); keys -> {(moduli, device):
+# (lift buffer, packed keys)}
+_mul_buffers: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+_key_buffers: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def reset_launches():
+    global launches
+    launches = 0
+    for k in launches_by_kernel:
+        launches_by_kernel[k] = 0
+
+
+def _count(name: str):
+    global launches
+    launches += 1
+    launches_by_kernel[name] += 1
+
+
+def _declare(lib):
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.pplp_behz64_to_bsk.argtypes = [vp] * 7 + [ci] * 4 + [vp]
+    lib.pplp_behz64_tensor.argtypes = [vp] * 6 + [ci] * 4 + [vp]
+    lib.pplp_behz64_floor_sk.argtypes = [vp] * 5 + [ci] * 4 + [vp]
+    lib.pplp_behz64_lift.argtypes = [vp] * 3 + [ci] * 4 + [vp]
+    lib.pplp_behz64_keyprod.argtypes = [vp] * 4 + [ci] * 4 + [vp]
+    lib.pplp_behz64_add.argtypes = [vp] * 5 + [ci] * 3 + [vp]
+    for name in ("to_bsk", "tensor", "floor_sk", "lift", "keyprod", "add"):
+        getattr(lib, f"pplp_behz64_{name}").restype = ci
+
+
+def load():
+    """The kernel library (built if needed), with its argtypes declared."""
+    return cuda_build.load(SOURCE, _declare)
+
+
+def _ratios(moduli) -> list[int]:
+    """floor(2^128 / q) per modulus as (low, high) 64-bit words."""
+    out = []
+    for m in moduli:
+        r = (1 << 128) // m.value
+        out += [r & ((1 << 64) - 1), r >> 64]
+    return out
+
+
+def _pack_constants(mul) -> tuple[list[int], list[int]]:
+    """The multiplier's constants in the order of ``Consts`` in behz64.cu,
+    as values below 2^64: (the arrays' device buffer, the four scalars the
+    kernels take from host memory)."""
+    qmods, bsk = mul.ctx.moduli, mul.bsk_moduli
+    l = mul.l
+    b_basis, msk = bsk[:l], bsk[l]
+
+    def shoup(vals, mods):  # constants, then their Shoup companions
+        w, ws = shoup_ints(vals, [m.value for m in mods], _BITS)
+        return w + [v % (1 << 64) for v in ws]
+
+    imm = shoup([mul.inv_M_msk_int], [msk])
+    scalars = [mul.neg_inv_q_mtilde, imm[0], imm[1], mul.msk_half]
+    buf = [m.value for m in qmods] + [m.value for m in bsk]
+    buf += _ratios(qmods) + _ratios(bsk)
+    buf += shoup(mul.mtilde_qhat_inv_ints, qmods)
+    buf += [c for row in mul.conv_q_to_bsk for c in row]
+    buf += mul.conv_q_to_mtilde_ints
+    buf += shoup(mul.q_mod_bsk_ints, bsk)
+    buf += shoup(mul.inv_mtilde_bsk_ints, bsk)
+    buf += shoup(mul.t_mod_q_ints, qmods)
+    buf += shoup(mul.t_mod_bsk_ints, bsk)
+    buf += shoup(mul.inv_q_bsk_ints, bsk)
+    buf += shoup(mul.qhat_inv_ints, qmods)
+    buf += shoup(mul.bhat_inv_b, b_basis)
+    buf += [c for row in mul.conv_b_to_q for c in row]
+    buf += mul.conv_b_to_msk[0]
+    buf += shoup(mul.M_mod_q_ints, qmods)
+    buf += mul.mskM_mod_q_ints
+    return buf, scalars
+
+
+def _pack_lift(ctx, groups) -> list[int]:
+    """q [L], floor(2^128 / q) [L][2], then per digit: i0, i1 (or none),
+    q0^-1 mod q1 + companion, then (q0 mod q_d, companion) for every limb d
+    (``lift64_kernel``)."""
+    qs = [m.value for m in ctx.moduli]
+    buf = qs + _ratios(ctx.moduli)
+    for g in groups:
+        if len(g) == 1:
+            buf += [g[0], _NO_LIMB, 0, 0] + [0] * (2 * len(qs))
+            continue
+        if len(g) != 2:
+            raise NotImplementedError("digits wider than two limbs need Garner lifting")
+        i0, i1 = g
+        inv, inv_s = shoup_ints([pow(qs[i0], -1, qs[i1])], [qs[i1]], _BITS)
+        buf += [i0, i1, inv[0], inv_s[0] % (1 << 64)]
+        w, ws = shoup_ints([qs[i0]] * len(qs), qs, _BITS)
+        buf += [v % (1 << 64) for pair in zip(w, ws) for v in pair]
+    return buf
+
+
+def _u64_buffer(values, device) -> torch.Tensor:
+    """Integers in [0, 2^64) -> a contiguous int64 tensor on ``device``
+    holding the same 64 bits, which a kernel reads as uint64."""
+    host = np.asarray(values, dtype=np.uint64).view(np.int64)
+    return torch.from_numpy(np.ascontiguousarray(host)).to(device)
+
+
+def _constants(mul):
+    """(u64 constant buffer on the card, host u64 scalars) of ``mul``."""
+    bufs = _mul_buffers.get(mul)
+    if bufs is None:
+        consts, scalars = _pack_constants(mul)
+        bufs = _mul_buffers[mul] = (_u64_buffer(consts, mul.ctx.device),
+                                    np.asarray(scalars, dtype=np.uint64))
+    return bufs
+
+
+def _key_buffers_of(ctx, rlk) -> tuple[torch.Tensor, torch.Tensor]:
+    """(lift buffer, keys packed as (k0, k0', k1, k1') per coefficient
+    [D, L, n, 4]) of ``rlk`` on ``ctx``."""
+    per_keys = _key_buffers.setdefault(rlk, {})
+    key = (tuple(m.value for m in ctx.moduli), ctx.device)
+    bufs = per_keys.get(key)
+    if bufs is None:
+        lift = _u64_buffer(_pack_lift(ctx, rlk.digit_groups(ctx.L)), ctx.device)
+        keys = torch.stack([rlk.k0, rlk.k0_shoup, rlk.k1, rlk.k1_shoup], -1).contiguous()
+        bufs = per_keys[key] = (lift, keys)
+    return bufs
+
+
+def _check_i64(x, shape, what, device):
+    if (not x.is_cuda or x.dtype != torch.int64 or tuple(x.shape) != tuple(shape)
+            or not x.is_contiguous() or x.data_ptr() % 16):
+        raise ValueError(f"{what} must be a contiguous, 16-byte aligned CUDA int64 "
+                         f"{list(shape)} tensor, got {x.dtype} {tuple(x.shape)} on {x.device}")
+    if x.device != device:
+        raise ValueError(f"{what} on {x.device}, context on {device}")
+
+
+def _validate(polys, ctx) -> int:
+    """Every residue tensor: CUDA, int64, contiguous, 16-byte aligned,
+    [..., L, n] of one shape on the context's device. Returns the flattened
+    batch B."""
+    L, n = ctx.L, ctx.n
+    shape = polys[0].shape
+    for x in polys:
+        if not x.is_cuda:
+            raise ValueError(f"the CUDA BEHZ kernels take CUDA tensors, got {x.device}")
+        if x.dim() < 2 or x.shape[-2:] != (L, n) or x.shape != shape:
+            raise ValueError(f"expected matching [..., {L}, {n}] tensors, got {tuple(x.shape)}")
+        if x.dtype != torch.int64:
+            raise TypeError(f"residues must be int64, got {x.dtype}")
+        _check_i64(x, shape, "residue tensor", ctx.device)
+    if ctx.tables.profile != "m62":
+        raise ValueError("the u64 BEHZ kernels take an m62 (seal) context")
+    if not 6 <= ctx.tables.logn <= 15:
+        raise ValueError(f"n = {n} outside the kernels' range [64, 32768]")
+    return polys[0].numel() // (L * n)
+
+
+def _check_bounds(mul):
+    """L, |B_sk| and the B_sk primes within the bounds under which the
+    kernels' 128-bit conversion sums cannot wrap (behz64.cu's header)."""
+    L, K = mul.ctx.L, mul.K
+    if L > MAX_L or K > MAX_K:
+        raise ValueError(f"L = {L}, |B_sk| = {K} exceed the kernel's bounds "
+                         f"({MAX_L}, {MAX_K})")
+    if max(m.value for m in mul.bsk_moduli) >> _BSK_BITS:
+        raise ValueError(f"the kernels need B_sk primes below 2^{_BSK_BITS}")
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _empty(*shape, device):
+    return torch.empty(shape, dtype=torch.int64, device=device)
+
+
+def _launch(lib, name: str, *args):
+    cuda_build.check(getattr(lib, "pplp_" + name)(*args), lib, name)
+    _count(name)
+
+
+def to_bsk(c0, c1, d0, d1, mul) -> torch.Tensor:
+    """Base extension of the four inputs [..., L, n] -> xb [4, B, K, n]."""
+    ctx = mul.ctx
+    B = _validate((c0, c1, d0, d1), ctx)
+    _check_bounds(mul)
+    xb = _empty(4, B, mul.K, ctx.n, device=c0.device)
+    if B == 0:
+        return xb
+    lib = load()
+    consts, scalars = _constants(mul)
+    _launch(lib, "behz64_to_bsk", c0.data_ptr(), c1.data_ptr(), d0.data_ptr(), d1.data_ptr(),
+            xb.data_ptr(), consts.data_ptr(), scalars.ctypes.data, B, ctx.L, mul.K,
+            ctx.tables.logn, _stream(c0.device))
+    return xb
+
+
+def tensor_spectra(sq, sb, mul) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Karatsuba tensor products of the spectra sq [4, B, L, n] (over Q)
+    and sb [4, B, K, n] (over B_sk) -> ([3, B, L, n], [3, B, K, n]), one
+    launch."""
+    ctx = mul.ctx
+    _check_bounds(mul)
+    if sq.dim() != 4:
+        raise ValueError(f"spectra must be [4, B, {ctx.L}, {ctx.n}], got {tuple(sq.shape)}")
+    B, L, K, n = sq.shape[1], ctx.L, mul.K, ctx.n
+    _check_i64(sq, (4, B, L, n), "Q spectra", ctx.device)
+    _check_i64(sb, (4, B, K, n), "B_sk spectra", ctx.device)
+    eq, eb = _empty(3, B, L, n, device=sq.device), _empty(3, B, K, n, device=sq.device)
+    if B == 0:
+        return eq, eb
+    consts, scalars = _constants(mul)
+    _launch(load(), "behz64_tensor", sq.data_ptr(), sb.data_ptr(), eq.data_ptr(), eb.data_ptr(),
+            consts.data_ptr(), scalars.ctypes.data, B, L, K, ctx.tables.logn,
+            _stream(sq.device))
+    return eq, eb
+
+
+def floor_sk(eq, eb, mul) -> torch.Tensor:
+    """Fast floor + Shenoy-Kumaresan of the products -> [3, B, L, n]."""
+    ctx = mul.ctx
+    _check_bounds(mul)
+    L, K, n = ctx.L, mul.K, ctx.n
+    B = eq.shape[1] if eq.dim() == 4 else -1
+    _check_i64(eq, (3, B, L, n), "eq", ctx.device)
+    _check_i64(eb, (3, B, K, n), "eb", ctx.device)
+    out = _empty(3, B, L, n, device=eq.device)
+    if B == 0:
+        return out
+    consts, scalars = _constants(mul)
+    _launch(load(), "behz64_floor_sk", eq.data_ptr(), eb.data_ptr(), out.data_ptr(),
+            consts.data_ptr(), scalars.ctypes.data, B, L, K, ctx.tables.logn,
+            _stream(eq.device))
+    return out
+
+
+def multiply(c0, c1, d0, d1, mul) -> torch.Tensor:
+    """(c0, c1) x (d0, d1), each [..., L, n] on the card -> [3, ..., L, n]."""
+    ctx, tq, tb = mul.ctx, mul.ctx.tables, mul.bsk_tables
+    batch = tuple(c0.shape[:-2])
+    xb = to_bsk(c0, c1, d0, d1, mul)
+    B = xb.shape[1]
+    if B == 0:
+        return _empty(*((3,) + batch + (ctx.L, ctx.n)), device=c0.device)
+    x = torch.stack([c.reshape(B, ctx.L, ctx.n) for c in (c0, c1, d0, d1)])
+    eq, eb = tensor_spectra(ntt_cuda.forward(x, tq), ntt_cuda.forward(xb, tb), mul)
+    out = floor_sk(ntt_cuda.inverse(eq, tq), ntt_cuda.inverse(eb, tb), mul)
+    return out.reshape((3,) + batch + (ctx.L, ctx.n))
+
+
+def _check_keys(ctx, rlk) -> int:
+    """The keys' digit count D after checking their tensors and L."""
+    L, n, D = ctx.L, ctx.n, len(rlk.digit_groups(ctx.L))
+    if L > MAX_L:
+        raise ValueError(f"L = {L} exceeds the kernel's bound {MAX_L}")
+    for k in (rlk.k0, rlk.k0_shoup, rlk.k1, rlk.k1_shoup):
+        if (k.device != ctx.device or k.dtype != torch.int64
+                or k.shape != (D, L, n) or not k.is_contiguous()):
+            raise ValueError(f"relin keys must be contiguous int64 [{D}, {L}, {n}] on "
+                             f"{ctx.device}, got {k.dtype} {tuple(k.shape)} on {k.device}")
+    return D
+
+
+def relinearize(c0, c1, c2, ctx, rlk) -> torch.Tensor:
+    """Key-switch c2 with ``rlk`` (width-1 or width-2 digits) and add to
+    (c0, c1); each [..., L, n] on the card -> [2, ..., L, n]."""
+    B = _validate((c0, c1, c2), ctx)
+    _check_keys(ctx, rlk)
+    shape = (2,) + tuple(c0.shape[:-2]) + (ctx.L, ctx.n)
+    if B == 0:
+        return _empty(*shape, device=c0.device)
+    dn = ntt_cuda.forward(lift_digits(c2, ctx, rlk), ctx.tables)
+    d = ntt_cuda.inverse(key_products(dn, ctx, rlk), ctx.tables)
+    return add_switched(c0, c1, d, ctx).reshape(shape)
+
+
+def lift_digits(c2, ctx, rlk) -> torch.Tensor:
+    """The gadget digits of c2 [..., L, n] lifted into every limb
+    -> [D, B, L, n]."""
+    B = _validate((c2,), ctx)
+    D = _check_keys(ctx, rlk)
+    dig = _empty(D, B, ctx.L, ctx.n, device=c2.device)
+    if B == 0:
+        return dig
+    lift, _ = _key_buffers_of(ctx, rlk)
+    _launch(load(), "behz64_lift", c2.data_ptr(), dig.data_ptr(), lift.data_ptr(), B, ctx.L, D,
+            ctx.tables.logn, _stream(c2.device))
+    return dig
+
+
+def key_products(dn, ctx, rlk) -> torch.Tensor:
+    """sum_g dn[g] * (k0[g], k1[g]) mod q of the digit spectra dn
+    [D, B, L, n] -> [2, B, L, n]."""
+    D = _check_keys(ctx, rlk)
+    if dn.dim() != 4:
+        raise ValueError(f"digit spectra must be [{D}, B, {ctx.L}, {ctx.n}]")
+    B = dn.shape[1]
+    _check_i64(dn, (D, B, ctx.L, ctx.n), "digit spectra", ctx.device)
+    acc = _empty(2, B, ctx.L, ctx.n, device=dn.device)
+    if B == 0:
+        return acc
+    _, keys = _key_buffers_of(ctx, rlk)
+    _launch(load(), "behz64_keyprod", dn.data_ptr(), keys.data_ptr(), acc.data_ptr(),
+            ntt_cuda.table_buffers(ctx.tables)["q"].data_ptr(), B, ctx.L, D, ctx.tables.logn,
+            _stream(dn.device))
+    return acc
+
+
+def add_switched(c0, c1, d, ctx) -> torch.Tensor:
+    """(c0 + d[0], c1 + d[1]) mod q: c0, c1 [..., L, n], d [2, B, L, n]
+    -> [2, B, L, n]."""
+    B = _validate((c0, c1), ctx)
+    _check_i64(d, (2, B, ctx.L, ctx.n), "d", ctx.device)
+    out = _empty(2, B, ctx.L, ctx.n, device=c0.device)
+    if B == 0:
+        return out
+    _launch(load(), "behz64_add", c0.data_ptr(), c1.data_ptr(), d.data_ptr(), out.data_ptr(),
+            ntt_cuda.table_buffers(ctx.tables)["q"].data_ptr(), B, ctx.L, ctx.tables.logn,
+            _stream(c0.device))
+    return out

@@ -42,11 +42,12 @@ def mulhi32(a, b):
     return mul32(a, b)[1]
 
 
-def shoup_ints(vals, qs):
-    """Host constants: (w mod q, floor((w mod q) * 2^32 / q)) per modulus q,
-    as two lists of Python ints."""
+def shoup_ints(vals, qs, bits: int = 32):
+    """Host constants: (w mod q, floor((w mod q) * 2^bits / q)) per modulus
+    q, as two lists of Python ints. ``bits`` is the profile's
+    ``shoup_bits``: 64-bit companions come as int64 bit patterns."""
     w = [int(v) % q for v, q in zip(vals, qs)]
-    return w, [(v << 32) // q for v, q in zip(w, qs)]
+    return w, [as_int64_bits((v << bits) // q) for v, q in zip(w, qs)]
 
 
 def as_int64_bits(v: int) -> int:

@@ -10,7 +10,9 @@
   from the reference in either spectrum order.
 * The seal profile (m62): the SEAL-default KAT
   (``tests/fixtures/bfv_kat_n4096_sealdefault.json.gz``, the fixture itself
-  is the oracle) for its encrypt, decrypt, add, sub and plain rows; the m62
+  is the oracle) for every row: encrypt, decrypt, add, sub, the plain rows,
+  the BEHZ multiply, the relinearization with the injected per-digit
+  randomness, the decrypted product and mod_switch_to_next; the m62
   samplers on the same words; keys carried over from (lo, hi) pairs; and
   ``invariant_noise_budget`` equal to the reference's on both profiles.
 """
@@ -37,7 +39,8 @@ from pplp_tpu.ops import ntt_vmem
 from pplp_tpu.ops import primes as rprimes
 from pplp_tpu.ops.primes import get_primes
 from pplp_tpu_torch import bfv
-from pplp_tpu_torch.bfv import sampling, serialize
+from pplp_tpu_torch.bfv import behz, sampling, serialize
+from pplp_tpu_torch.bfv.behz_fused import FusedMultiplier
 from pplp_tpu_torch.bfv.keys import keys_from_reference, make_keys
 from pplp_tpu_torch.ops import ntt
 from pplp_tpu_torch.ops import primes
@@ -233,8 +236,9 @@ def _unpair(p):
 
 
 def test_kat_n4096_seal_default(seal_kat):
-    """SEAL 4.1 BFVDefault(4096) chain through the injected path; the
-    multiply, relinearize and mod-switch rows are the next slice's."""
+    """SEAL 4.1 BFVDefault(4096) chain through the injected path, every row
+    of the fixture; the multiply through ``RnsMultiplier``, ``Evaluator``
+    and ``FusedMultiplier`` (the plain version on the CPU)."""
     kat = seal_kat
     n, t, chain = kat["n"], kat["t"], kat["moduli"]
     ctx = bfv.BFVContext.build(bfv.EncryptionParameters.bfv(n, t, coeff_modulus=chain), "cpu")
@@ -270,8 +274,27 @@ def test_kat_n4096_seal_default(seal_kat):
     assert _ct_ints(ev.add_plain(ct1, bfv.Plaintext(kat["m2"])), ctx) == want("add_plain_m2")
     assert (_ct_ints(ev.multiply_plain(ct1, bfv.Plaintext(kat["m2"])), ctx)
             == want("multiply_plain_m2"))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ev.multiply(ct1, ct2)
+    mul = behz.RnsMultiplier(ctx)
+    assert mul.K == 5
+    ct3 = mul.multiply(ct1, ct2)
+    assert _ct_ints(ct3, ctx) == want("multiply")
+    assert _ct_ints(ev.multiply(ct1, ct2), ctx) == want("multiply")
+    assert _ct_ints(FusedMultiplier(ctx).multiply(ct1, ct2), ctx) == want("multiply")
+    inject = [(tres(a), tres(e)) for a, e in zip(kat["relin_a"], kat["relin_e"])]
+    rlk = behz.create_relin_keys(ctx, sk, None, inject=inject)
+    assert rlk.groups == ((0,), (1,), (2,))  # width 1, as the fixture's digits
+    rel = behz.relinearize(ctx, ct3, rlk)
+    assert _ct_ints(rel, ctx) == want("relinearize")
+    assert _ct_ints(ev.relinearize(ct3, rlk), ctx) == want("relinearize")
+    assert (_ct_ints(FusedMultiplier(ctx, rlk).multiply_relinearize(ct1, ct2), ctx)
+            == want("relinearize"))
+    assert bfv.Decryptor(ctx, sk).decrypt(rel).coeffs[:n] == exp["decrypt_product"]
+    small, ms = bfv.evaluator.mod_switch_to_next(ctx, ct1)
+    assert small.L == 2
+    assert _ct_ints(ms, small) == [[int(v) % small.q for v in p]
+                                   for p in exp["mod_switch_ct1"]]
+    small_sk = bfv.evaluator.restrict_secret_key(small, sk)
+    assert bfv.Decryptor(small, small_sk).decrypt(ms).coeffs[:n] == exp["decrypt_ct1"]
 
 
 def _seal_pair(n=256, t=65537):

@@ -1,7 +1,9 @@
 """The port on a CUDA card: the hand-written kernels against their plain
 versions (the u32 NTT in both I/O widths, the u64 NTT,
 the BEHZ multiply + relinearization on the fused and the separate routes,
-the mulmod chain), the demo on both profiles and the packed pipeline.
+the seal (m62) multiply on the u64 route and its steps, the u64 NTT on the
+60-bit B_sk tables, the mulmod chain), the seal real product and mod
+switch, the demo on both profiles and the packed pipeline.
 
 Every test here is marked ``cuda`` and skips without a card. This file
 imports neither jax nor the JAX package, so it also runs where jax is not
@@ -21,7 +23,7 @@ import torch
 from pplp_tpu_torch import bfv
 from pplp_tpu_torch.bfv import behz, behz_fused
 from pplp_tpu_torch.bfv.behz_fused import FusedMultiplier
-from pplp_tpu_torch.ops import behz_cuda, mulmod_chain, ntt, ntt_cuda
+from pplp_tpu_torch.ops import behz64_cuda, behz_cuda, mulmod_chain, ntt, ntt_cuda
 from pplp_tpu_torch.ops.modmath import m31
 from pplp_tpu_torch.ops.primes import Modulus, bfv_default, get_primes, tpu_default
 
@@ -483,6 +485,200 @@ def test_behz_wrappers_refuse_what_the_kernels_do_not_take(dev):
                                groups=rlk.groups)
         behz_cuda.relinearize(c0, c1, d0, ctx, bad)
     assert behz_cuda.launches == before
+
+
+# ---------------------------------------------------------------------------
+# The seal (m62) multiply + relinearization: the u64 route (csrc/behz64.cu)
+# ---------------------------------------------------------------------------
+
+
+def _seal_ctx(n, t_bits, dev):
+    return bfv.BFVContext.build(bfv.EncryptionParameters.bfv(n, 1 << t_bits, profile="seal"),
+                                dev)
+
+
+def _seal_setup(n, t_bits, batch, dev):
+    """Context, multiplier, width-1 and width-2 keys and two ciphertexts."""
+    ctx = _seal_ctx(n, t_bits, dev)
+    g = torch.Generator(device=dev).manual_seed(n + t_bits)
+    sk, _ = behz.make_keys(ctx, g)
+    keys = {w: behz.create_relin_keys(ctx, sk, g, width=w) for w in (1, 2)}
+    ct1, ct2 = _cts(ctx, batch, n + 1)
+    return ctx, behz.multiplier(ctx), keys, ct1, ct2
+
+
+_SEAL_LAUNCHES = {"behz64_to_bsk": 1, "behz64_tensor": 1, "behz64_floor_sk": 1,
+                  "behz64_lift": 1, "behz64_keyprod": 1, "behz64_add": 1}
+
+
+@pytest.mark.parametrize("n,t_bits", [(4096, 16), (8192, 56)])
+def test_seal_steps_match_plain(dev, n, t_bits):
+    """Each u64 kernel's wrapper step on the same inputs as its plain step,
+    at both widths, batch 3."""
+    ctx, mul, keys, ct1, ct2 = _seal_setup(n, t_bits, (3,), dev)
+    tq, tb = ctx.tables, mul.bsk_tables
+    x = torch.stack([*ct1.polys, *ct2.polys])
+    xb = mul._to_bsk(x)
+    assert torch.equal(behz64_cuda.to_bsk(*ct1.polys, *ct2.polys, mul), xb)
+    sq, sb = ntt.forward_plain(x, tq), ntt.forward_plain(xb, tb)
+    eq, eb = behz64_cuda.tensor_spectra(sq, sb, mul)
+    assert torch.equal(eq, mul.tensor_spectra(sq, tq))
+    assert torch.equal(eb, mul.tensor_spectra(sb, tb))
+    eq, eb = ntt.inverse_plain(eq, tq), ntt.inverse_plain(eb, tb)
+    assert torch.equal(behz64_cuda.floor_sk(eq, eb, mul), mul._sk_to_q(mul._fast_floor(eq, eb)))
+    c0, c1, c2 = mul.multiply(ct1, ct2).polys
+    for rlk in keys.values():
+        lifted = torch.stack([behz.lift_digit_grouped(ctx, c2, g)
+                              for g in rlk.digit_groups(ctx.L)])
+        assert torch.equal(behz64_cuda.lift_digits(c2, ctx, rlk), lifted)
+        dn = ntt.forward_plain(lifted, tq)
+        acc = behz.key_products(ctx, dn, rlk)
+        assert torch.equal(behz64_cuda.key_products(dn, ctx, rlk), acc)
+        d = ntt.inverse_plain(acc, tq)
+        want = torch.stack([ctx.prof.add(c, dj, ctx.q2) for c, dj in zip((c0, c1), d)])
+        assert torch.equal(behz64_cuda.add_switched(c0, c1, d, ctx), want)
+
+
+def test_seal_at_the_limb_bound(dev):
+    """L = 40 primes of 62 bits (the kernels' bound; |B_sk| = 44) at n = 64:
+    the widest conversion sums the u64 route meets, up to 2^127.3 (40
+    products of a residue below 2^62 and a constant below 2^60). Each step
+    and the whole call at both widths against the plain version."""
+    chain = get_primes(62, behz64_cuda.MAX_L, 64)
+    ctx = bfv.BFVContext.build(bfv.EncryptionParameters.bfv(64, 1 << 16, coeff_modulus=chain),
+                               dev)
+    mul = behz.multiplier(ctx)
+    assert ctx.tables.profile == "m62" and mul.K <= behz64_cuda.MAX_K
+    tq, tb = ctx.tables, mul.bsk_tables
+    ct1, ct2 = _cts(ctx, (2,), 62)
+    for p in (*ct1.polys, *ct2.polys):
+        p[..., -3:] = tq.q_b(1) - 1  # the largest residues in every input
+    x = torch.stack([*ct1.polys, *ct2.polys])
+    xb = mul._to_bsk(x)
+    assert torch.equal(behz64_cuda.to_bsk(*ct1.polys, *ct2.polys, mul), xb)
+    sq, sb = ntt.forward_plain(x, tq), ntt.forward_plain(xb, tb)
+    eq, eb = behz64_cuda.tensor_spectra(sq, sb, mul)
+    assert torch.equal(eq, mul.tensor_spectra(sq, tq))
+    assert torch.equal(eb, mul.tensor_spectra(sb, tb))
+    eq, eb = ntt.inverse_plain(eq, tq), ntt.inverse_plain(eb, tb)
+    assert torch.equal(behz64_cuda.floor_sk(eq, eb, mul), mul._sk_to_q(mul._fast_floor(eq, eb)))
+    g = torch.Generator(device=dev).manual_seed(40)
+    sk, _ = behz.make_keys(ctx, g)
+    plain3 = mul.multiply(ct1, ct2)
+    for width in (1, 2):
+        rlk = behz.create_relin_keys(ctx, sk, g, width=width)
+        want = behz.relinearize(ctx, plain3, rlk)
+        assert _same(FusedMultiplier(ctx, rlk).multiply_relinearize(ct1, ct2), want)
+
+
+@pytest.mark.parametrize("n", [4096, 8192, 16384, 32768])
+def test_u64_ntt_on_the_bsk_tables(dev, n):
+    """The u64 transforms on each seal chain's 60-bit B_sk primes."""
+    mul = behz.multiplier(_seal_ctx(n, 56, dev))
+    tb = mul.bsk_tables
+    assert tb.profile == "m62" and all(m.value.bit_length() == 60 for m in tb.moduli)
+    x = _residues(tb, (4,), n)
+    x[0, :, :2] = tb.q_b(1) - 1
+    spec = ntt.forward_plain(x, tb)
+    assert torch.equal(ntt_cuda.forward(x, tb), spec)
+    assert torch.equal(ntt_cuda.inverse(spec, tb), x)
+
+
+@pytest.mark.parametrize("n,t_bits,batch", [(4096, 16, (2,)), (8192, 56, (3,)),
+                                            (32768, 56, (1,))])
+def test_seal_multiply_matches_plain(dev, n, t_bits, batch):
+    ctx, mul, keys, ct1, ct2 = _seal_setup(n, t_bits, batch, dev)
+    plain3 = mul.multiply(ct1, ct2)
+    behz64_cuda.reset_launches()
+    assert _same(FusedMultiplier(ctx).multiply(ct1, ct2), plain3)
+    assert behz64_cuda.launches == 3
+    for rlk in keys.values():
+        want = behz.relinearize(ctx, plain3, rlk)
+        fused = FusedMultiplier(ctx, rlk)
+        behz64_cuda.reset_launches()
+        ntt_cuda.reset_launches()
+        assert _same(fused.multiply_relinearize(ct1, ct2), want)
+        assert behz64_cuda.launches_by_kernel == _SEAL_LAUNCHES
+        assert ntt_cuda.launches_by_kernel["ntt_forward_u64"] == 3
+        assert ntt_cuda.launches_by_kernel["ntt_inverse_u64"] == 3
+        assert _same(fused.relinearize(plain3), want)
+
+
+def test_seal_evaluator_on_card_runs_the_kernels_only(dev, monkeypatch):
+    """An m62 CUDA context never reaches a plain version: the plain steps
+    and the plain transforms are made to fail, and the launches counted."""
+    ctx, mul, keys, ct1, ct2 = _seal_setup(4096, 16, (2,), dev)
+    want3 = mul.multiply(ct1, ct2)
+    want = behz.relinearize(ctx, want3, keys[1])
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    for owner, name in ((behz.RnsMultiplier, "multiply"), (behz.RnsMultiplier, "_to_bsk"),
+                        (behz.RnsMultiplier, "tensor_spectra"), (behz, "relinearize"),
+                        (behz, "key_products"), (behz, "lift_digit_grouped"),
+                        (behz_fused, "relinearize"), (ntt, "forward_plain"),
+                        (ntt, "inverse_plain")):
+        monkeypatch.setattr(owner, name, refuse)
+    behz64_cuda.reset_launches()
+    behz_cuda.reset_launches()
+    ntt_cuda.reset_launches()
+    ev = bfv.Evaluator(ctx)
+    assert _same(ev.multiply_relinearize(ct1, ct2, keys[1]), want)
+    assert _same(ev.multiply(ct1, ct2), want3)
+    assert _same(ev.relinearize(want3, keys[1]), want)
+    assert behz64_cuda.launches_by_kernel == {k: 2 for k in _SEAL_LAUNCHES}
+    assert behz_cuda.launches == 0
+    assert ntt_cuda.launches_by_kernel["ntt_forward_u64"] == 6
+    assert ntt_cuda.launches_by_kernel["ntt_inverse_u64"] == 6
+
+
+@pytest.mark.parametrize("n,t_bits", [(4096, 16), (8192, 56)])
+def test_seal_real_product_and_mod_switch_on_card(dev, n, t_bits):
+    ctx = _seal_ctx(n, t_bits, dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    kg = bfv.KeyGenerator(ctx, g)
+    sk, pk = kg.secret_key(), kg.create_public_key()
+    rng = np.random.default_rng(n)
+    a, b = (rng.integers(0, 1 << 16, size=n) for _ in range(2))
+    enc, ev, dec = bfv.Encryptor(ctx, pk), bfv.Evaluator(ctx), bfv.Decryptor(ctx, sk)
+    ca, cb = enc.encrypt(bfv.Plaintext(a.tolist()), g), enc.encrypt(bfv.Plaintext(b.tolist()), g)
+    full = np.concatenate([np.convolve(a, b), [0]])
+    want = [int(v) % ctx.t for v in full[:n] - full[n:]]
+    for width in (1, 2):
+        rlk = behz.create_relin_keys(ctx, sk, g, width=width)
+        assert dec.decrypt(ev.multiply_relinearize(ca, cb, rlk)).coeffs[:n] == want
+    small, sw = bfv.evaluator.mod_switch_to_next(ctx, ca)
+    cpu = bfv.BFVContext.build(ctx.parms, "cpu")
+    _, sw_cpu = bfv.evaluator.mod_switch_to_next(cpu, bfv.Ciphertext(tuple(p.cpu() for p in
+                                                                            ca.polys)))
+    assert all(torch.equal(x.cpu(), y) for x, y in zip(sw.polys, sw_cpu.polys))
+    ssk = bfv.evaluator.restrict_secret_key(small, sk)
+    assert bfv.Decryptor(small, ssk).decrypt(sw).coeffs[:n] == a.tolist()
+
+
+def test_u64_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    ctx, mul, keys, ct1, ct2 = _seal_setup(4096, 16, (2,), dev)
+    c0, c1 = ct1.polys
+    d0, d1 = ct2.polys
+    before = behz64_cuda.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        behz64_cuda.multiply(c0.cpu(), c1, d0, d1, mul)
+    with pytest.raises(TypeError):
+        behz64_cuda.multiply(c0.to(torch.int32), c1, d0, d1, mul)
+    with pytest.raises(ValueError, match="contiguous"):
+        behz64_cuda.multiply(torch.stack([c0, c0], dim=-1)[..., 0], c1, d0, d1, mul)
+    with pytest.raises(ValueError):
+        behz64_cuda.multiply(c0[:1], c1, d0, d1, mul)
+    with pytest.raises(ValueError, match="relin keys"):
+        bad = behz.KSwitchKeys(keys[1].k0[:1], keys[1].k0_shoup[:1], keys[1].k1[:1],
+                               keys[1].k1_shoup[:1], groups=keys[1].groups)
+        behz64_cuda.relinearize(c0, c1, d0, ctx, bad)
+    tpu = _bfv_ctx(4096, dev)
+    x = _residues(tpu.tables, (1,), 3)
+    with pytest.raises(ValueError, match="m62"):
+        behz64_cuda.add_switched(x, x, torch.stack([x, x]).reshape(2, 1, tpu.L, tpu.n), tpu)
+    assert behz64_cuda.launches == before
 
 
 # ---------------------------------------------------------------------------

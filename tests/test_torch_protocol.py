@@ -40,7 +40,7 @@ from pplp_tpu.protocol.roles import ProximityClient as RClient
 from pplp_tpu.protocol.roles import ProximityServer as RServer
 from pplp_tpu.utils.hexcodec import uint64_to_hex_string
 from pplp_tpu_torch import bfv, cli
-from pplp_tpu_torch.bfv import serialize
+from pplp_tpu_torch.bfv import behz, serialize
 from pplp_tpu_torch.device import cuda_device
 from pplp_tpu_torch.primitives import Blinding
 from pplp_tpu_torch.protocol import ProtocolConfig, run_local_demo
@@ -211,17 +211,30 @@ def test_cli_demo_runs_on_cpu(capsys):
 
 
 def test_cli_seal_profile_not_ported():
-    """The seal demo runs now (the CLI's default profile, covered by
-    ``test_cli_seal_demo_matches_oracle``); what is not ported on seal yet,
-    the ct x ct multiply and mod switching, raises and names the next slice."""
-    ctx = bfv.BFVContext.build(bfv.EncryptionParameters.bfv(4096, 1 << 20), "cpu")
-    assert ctx.tables.profile == "m62"
-    zero = torch.zeros((ctx.L, ctx.n), dtype=torch.int64)
-    ct = bfv.Ciphertext((zero, zero))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        bfv.Evaluator(ctx).multiply(ct, ct)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        bfv.evaluator.mod_switch_to_next(ctx, ct)
+    """Nothing of the seal profile (the CLI's default) is left unported: the
+    demo runs (``test_cli_seal_demo_matches_oracle``), and the ct x ct
+    multiply, relinearization and mod switching, once refused there, run on
+    the CLI's default parameters (n = 8192, t = 2^56, width-2 keys): an
+    encrypted product decrypts to the negacyclic product, and a switched
+    ciphertext to its plaintext under the restricted key."""
+    ctx = bfv.BFVContext.build(ProtocolConfig().encryption_parameters(), "cpu")
+    assert ctx.tables.profile == "m62" and (ctx.n, ctx.t) == (8192, 1 << 56)
+    g = torch.Generator().manual_seed(13)
+    kg = bfv.KeyGenerator(ctx, g)
+    sk, pk = kg.secret_key(), kg.create_public_key()
+    rlk = behz.create_relin_keys(ctx, sk, g)
+    assert len(rlk.groups[0]) == 2
+    rng = np.random.default_rng(56)
+    a, b = (rng.integers(0, 1 << 16, size=ctx.n) for _ in range(2))
+    enc, dec = bfv.Encryptor(ctx, pk), bfv.Decryptor(ctx, sk)
+    ca, cb = enc.encrypt(bfv.Plaintext(a.tolist()), g), enc.encrypt(bfv.Plaintext(b.tolist()), g)
+    full = np.concatenate([np.convolve(a, b), [0]])
+    want = [int(v) % ctx.t for v in full[:ctx.n] - full[ctx.n:]]
+    assert dec.decrypt(bfv.Evaluator(ctx).multiply_relinearize(ca, cb, rlk)).coeffs == want
+    small, switched = bfv.evaluator.mod_switch_to_next(ctx, ca)
+    assert small.L == ctx.L - 1
+    ssk = bfv.evaluator.restrict_secret_key(small, sk)
+    assert bfv.Decryptor(small, ssk).decrypt(switched).coeffs[:ctx.n] == a.tolist()
 
 
 def test_defaults_match_reference():
