@@ -9,13 +9,11 @@
 // base and direction, ops/ntt_cuda.py):
 //
 //   behz64_to_bsk:   Q -> B_sk base extension of the four inputs with the
-//                    m~ = 2^16 Montgomery correction (one thread per
-//                    coefficient, its column of L residues in shared memory);
+//                    m~ = 2^16 Montgomery correction;
 //   behz64_tensor:   the Karatsuba tensor product of the spectra over Q and
 //                    over B_sk, both bases in one launch;
 //   behz64_floor_sk: fast floor t e / q in B_sk, then Shenoy-Kumaresan back
-//                    to Q (one thread per coefficient, L + K residues of
-//                    shared memory each);
+//                    to Q;
 //   behz64_lift:     the gadget digits of c2 (one or two limbs each, from the
 //                    keys' groups) lifted into every limb;
 //   behz64_keyprod:  sum over digits of digit spectrum x (k0, k1), with the
@@ -29,33 +27,85 @@
 // n]); every kernel reads and writes canonical residues, so each output
 // equals the plain step's (bfv/behz.py) bit for bit.
 //
-// Arithmetic. Shoup products x w mod q = w x - umul64hi(w', x) q in
-// wrapping u64 with w' = floor(w 2^64 / q), valid for any x < 2^64. General
-// products (the tensor's, the base conversions' sums) are exact 128-bit
-// values reduced by Barrett with floor(2^128 / q) = (r1, r0) (r1 < 2^32):
-// the estimate floor(z r / 2^128) is the quotient or one less, so z - est q,
-// formed in wrapping u64, needs one conditional subtract. A fast base
-// conversion sums its products exactly in a 128-bit accumulator: every
-// product has one factor below 2^60 (a B_sk prime, a residue mod one, or a
-// constant reduced mod one; ops/behz64_cuda.py checks the B_sk primes) and
-// the other below 2^62, so it stays below 2^122, and a sum of at most
-// max(L, K - 1) <= 47 of them below 2^127.6. On the seal chains the sums
-// stay below 2^121. The tensor product's operands are canonical sums below
-// 2q < 2^63, so its products stay below 2^126.
+// Arithmetic of tensor, lift, keyprod, add. Shoup products x w mod q =
+// w x - umul64hi(w', x) q in wrapping u64 with w' = floor(w 2^64 / q), valid
+// for any x < 2^64. General products are exact 128-bit values reduced by
+// Barrett with floor(2^128 / q) = (r1, r0) (r1 < 2^32): the estimate
+// floor(z r / 2^128) is the quotient or one less, so z - est q, formed in
+// wrapping u64, needs one conditional subtract. The tensor product's
+// operands are canonical sums below 2q < 2^63, so its products stay below
+// 2^126.
 //
-// What bounds it. At n = 4096, batch 256, |B_sk| = 5, width 1 the seven
-// multiply launches move 1.96 GB and the five of the relinearization 0.63 GB
-// at their interfaces (0.77 ms at 3.35 TB/s); a general 64 x 64 product
-// mod q needs about two Shoup products' worth of 32-bit multiplies, so
-// floor_sk's conversions are bound by integer work
-// (measure_multiply.kernel_counts64). This is the simple first route: every
-// stage crosses device memory. Fusing the tensor and key products with the
-// in-block u64 transforms (csrc/ntt_block64.cuh: ntt_fwd_block64 /
-// ntt_inv_block64), as csrc/behz.cu does on m31, is the next step.
+// The base conversions (to_bsk, floor_sk). Each output residue is one
+// 128-bit sum of products, reduced once:
 //
-// Bounds: L <= 40 limbs in Q and K = |B_sk| <= 48 (the per-coefficient
-// columns take up to (L + K) x 128 x 8 bytes of shared memory, 88 KB),
-// checked here and in ops/behz64_cuda.py; D <= L digits.
+// * Folded constants. Every modular step between two conversions that stays
+//   in one modulus is folded into the conversion's constants on the host
+//   (ops/behz64_cuda.py, _pack_constants): to_bsk's out_d =
+//   (sum_i y_i (q/q_i) m~^-1 + r (q m~^-1)) mod b_d; floor_sk's
+//   y_i = e_i (t qhat_i^-1) mod q_i (one Shoup product), then
+//   y'_i = (e_i t q^-1 bhat_i^-1 - sum_j y_j (q/q_j) q^-1 bhat_i^-1) mod b_i
+//   for the l primes of B, alpha = (sum_i y'_i (M/b_i) M^-1 - w_msk M^-1)
+//   mod m_sk with w_msk's sum expanded in place, and out_d =
+//   (sum_i y'_i (M/b_i) - alpha M [+ m_sk M if alpha > m_sk / 2]) mod q_d.
+//   The values that leave a modulus as integers (y, y', alpha) are
+//   canonical, as in the plain version, so every output is the same
+//   residue. Per coefficient at L = 3, K = 5 that is 3 Shoup products, 39
+//   product terms and 8 reductions in floor_sk, and 3, 20 and 5 in to_bsk.
+// * Split-word products. A source value y is split once into 32-bit words
+//   (ya, yb) at bit 31 when it is a residue mod q (< 2^62) or at bit 30 when
+//   it is below 2^60 (a B_sk residue, alpha); the host splits each constant
+//   at 61 minus that (it is below 2^60 where y is mod q, below 2^62
+//   otherwise). All four partial products are then below 2^61, and each is
+//   added by one 32 x 32 + 64-bit multiply-add (IMAD.WIDE.U32) into its own
+//   u64 column: weight 1, 2^30, 2^31 and 2^61, with no carry and no compare.
+//   Eight terms fit (8 x 2^61 = 2^64), so a sum is folded into its 128-bit
+//   total every eight terms: 4 partial products per term
+//   (measure_multiply.U64_MAC_MULS).
+// * Sums stay below 2^128: every product has one factor below 2^60 (a B_sk
+//   prime or a residue mod one; ops/behz64_cuda.py checks the B_sk primes)
+//   and the other below 2^62. At the bounds (L = 40, K = 48) the widest sum,
+//   alpha's, holds L products below 2^122 and K below 2^120: below
+//   1.625 x 2^127; out_d's holds K below 2^122 plus m_sk M mod q_d: below
+//   1.5 x 2^127 + 2^62.
+// * The reduction of z = z1 2^64 + z0 < 2^128 by r = floor(2^128 / q) =
+//   rh 2^64 + r0 uses that rh < 2^32 (q > 2^32): est = floor((z0 rh +
+//   z1 r0) / 2^64) + z1 rh mod 2^64, from 11 partial products (z0 rh: 2,
+//   z1 r0: 4, z1 rh: 2, est q: 3). It leaves out the high word of z0 r0
+//   (below 2^64 at weight 2^64), which can carry one into the estimate, so
+//   est is the quotient, or one or two less; z - est q < 3q < 2^64 takes two
+//   conditional subtracts. Exact for every z < 2^128
+//   (tests/test_torch_behz64_words.py models it against Python integers).
+//
+// Layout. A block owns a tile of 2T coefficients of one row (T threads, up
+// to kPairThreads; fewer for a row shorter than the tile or where L and K
+// need the shared memory), and a thread owns two adjacent coefficients:
+// 16-byte loads and stores, and two independent sums (eight u64 columns) in
+// flight per term. The row's residues reach shared memory by 16-byte
+// cp.async, each thread's pair in its own slot per limb, so the thread reads
+// back only what it wrote; the block stages its kernel's constant buffer in
+// shared memory once, and a term reads one 8-byte constant (both words) by
+// broadcast. Index arithmetic is per block, in 32 bits: a row is a shift of
+// the block index. The seal chains' (L, K) = (3, 5), (5, 7), (9, 11),
+// (16, 18) are compiled with constant limb counts (unrolled loops, folds at
+// fixed terms; one destination per loop pass, so the code stays small);
+// any other shape within the bounds takes the same code with L and K read
+// at run time. On an H100, 128 threads a block measured best at the three
+// seal chains against 64 and 256, and the constant limb counts 20-50%
+// faster than run-time ones (PERF.md).
+//
+// What bounds it. At n = 4096, batch 256, |B_sk| = 5 the conversions move
+// 268 MB (to_bsk) and 277 MB (floor_sk) at 8 B a residue; their integer
+// work, counted as above, takes less time than that at the integer-multiply
+// peak (measure_multiply.kernel_counts64), so both are bound by bytes.
+// Tensor cores are not used: an int8 mma/wgmma conversion (TensorFHE-style
+// byte splitting) has a contraction only 8 L bytes deep, 24 at L = 3, below
+// one k-step of 32, and its recombination of 15 byte columns per product
+// costs as much as the multiply-adds it replaces. It is a candidate for the
+// wide chains (L >= 16; ROADMAP Queue 1 #11).
+//
+// Bounds: L <= 40 limbs in Q and K = |B_sk| <= 48, checked here and in
+// ops/behz64_cuda.py; D <= L digits.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -66,12 +116,18 @@ namespace {
 
 using pplp::csub64;
 using pplp::shoup_lazy64;
+using u128 = unsigned __int128;
 
 constexpr int kMaxL = 40;
 constexpr int kMaxK = 48;
-constexpr int kColThreads = 128;   // coefficients per block, per-coefficient phases
+constexpr int kColThreads = 128;   // coefficients per block, lift64
+constexpr int kPairThreads = 128;  // coefficient pairs per block, the conversions
 constexpr int kElemThreads = 256;  // residues per block, per-element phases
+constexpr int kFoldTerms = 8;      // products per column before a fold (each < 2^61)
+constexpr size_t kConvSmem = 100 * 1024;  // a conversion block's shared memory, at most
 constexpr uint64_t kNoLimb = ~uint64_t{0};
+constexpr uint32_t kLow31 = (1u << 31) - 1;
+constexpr uint32_t kLow30 = (1u << 30) - 1;
 
 __device__ __forceinline__ uint64_t add_mod(uint64_t x, uint64_t y, uint64_t q) {
   return csub64(x + y, q);  // x, y < q < 2^62
@@ -106,91 +162,235 @@ __device__ __forceinline__ uint64_t mulmod(uint64_t x, uint64_t y, uint64_t q, u
   return barrett128(__umul64hi(x, y), x * y, q, r0, r1);
 }
 
-// A sum of products below 2^128 (the header's bound): acc = hi 2^64 + lo.
-struct Acc {
-  uint64_t lo = 0, hi = 0;
+// ---- the base conversions' arithmetic ------------------------------------
 
-  __device__ __forceinline__ void mac(uint64_t x, uint64_t y) {
-    const uint64_t plo = x * y;
-    lo += plo;
-    hi += __umul64hi(x, y) + (lo < plo);
+// Two coefficients' values split into 32-bit words: {y0a, y0b, y1a, y1b},
+// y = ya + yb 2^31 for a residue mod q (kQ), ya + yb 2^30 below 2^60.
+template <bool kQ>
+__device__ __forceinline__ uint4 split2(uint64_t y0, uint64_t y1) {
+  constexpr int s = kQ ? 31 : 30;
+  constexpr uint32_t m = kQ ? kLow31 : kLow30;
+  return make_uint4(static_cast<uint32_t>(y0) & m, static_cast<uint32_t>(y0 >> s),
+                    static_cast<uint32_t>(y1) & m, static_cast<uint32_t>(y1 >> s));
+}
+
+// x y + acc for 32-bit x, y: one IMAD.WIDE.U32.
+__device__ __forceinline__ uint64_t mad_wide(uint32_t x, uint32_t y, uint64_t acc) {
+  return static_cast<uint64_t>(x) * y + acc;
+}
+
+// The four columns of a sum, by weight: 1, 2^30, 2^31, 2^61.
+struct Cols {
+  uint64_t a = 0, w30 = 0, w31 = 0, d = 0;
+
+  // + y c: y split at 31 and c at 30 (kQ), or y at 30 and c at 31; c.x, c.y
+  // are the constant's words.
+  template <bool kQ>
+  __device__ __forceinline__ void mac(uint32_t ya, uint32_t yb, uint2 c) {
+    a = mad_wide(ya, c.x, a);
+    if (kQ) {
+      w30 = mad_wide(ya, c.y, w30);
+      w31 = mad_wide(yb, c.x, w31);
+    } else {
+      w31 = mad_wide(ya, c.y, w31);
+      w30 = mad_wide(yb, c.x, w30);
+    }
+    d = mad_wide(yb, c.y, d);
   }
 
-  __device__ __forceinline__ uint64_t reduce(uint64_t q, const uint64_t* r) const {
-    return barrett128(hi, lo, q, r[0], r[1]);
+  __device__ __forceinline__ u128 fold() const {
+    return u128(a) + (u128(w30) << 30) + (u128(w31) << 31) + (u128(d) << 61);
   }
 };
 
-// The multiplier's constants: four scalars, passed from host memory at each
-// launch, then the arrays of one u64 device buffer packed by
-// ops/behz64_cuda.py (_pack_constants) in exactly this order; l = K - 1.
-// Pairs *_w / *_ws are a constant and its 64-bit Shoup companion;
-// conversion tables are row-major [destination][source] plain constants
-// (their products are summed in 128 bits); rq / rb are floor(2^128 / q) of
-// Q and B_sk as (low, high) words.
+// The sums of one destination for a thread's two coefficients.
+struct Sum2 {
+  u128 t0 = 0, t1 = 0;  // folded totals
+  Cols s0, s1;          // open columns
+  int open = 0;         // terms in the open columns
+
+  template <bool kQ>
+  __device__ __forceinline__ void add(uint4 y, uint2 c) {
+    if (open == kFoldTerms) flush();
+    s0.mac<kQ>(y.x, y.y, c);
+    s1.mac<kQ>(y.z, y.w, c);
+    ++open;
+  }
+
+  __device__ __forceinline__ void flush() {
+    t0 += s0.fold();
+    t1 += s1.fold();
+    s0 = Cols();
+    s1 = Cols();
+    open = 0;
+  }
+};
+
+// z mod q for any z < 2^128 (the header's proof); r = floor(2^128 / q) =
+// rh 2^64 + r0 with rh < 2^32.
+__device__ __forceinline__ uint64_t reduce128(u128 z, uint64_t q, uint64_t r0, uint32_t rh) {
+  const uint64_t z0 = static_cast<uint64_t>(z), z1 = static_cast<uint64_t>(z >> 64);
+  const uint32_t z00 = static_cast<uint32_t>(z0), z01 = static_cast<uint32_t>(z0 >> 32);
+  const uint32_t z10 = static_cast<uint32_t>(z1), z11 = static_cast<uint32_t>(z1 >> 32);
+  const uint32_t r00 = static_cast<uint32_t>(r0), r01 = static_cast<uint32_t>(r0 >> 32);
+  // s = z0 rh (96 bits): s_lo, s_hi.
+  const uint64_t u = static_cast<uint64_t>(z00) * rh;
+  const uint64_t v = mad_wide(z01, rh, u >> 32);
+  const uint64_t s_lo = (v << 32) | static_cast<uint32_t>(u);
+  const uint64_t s_hi = v >> 32;
+  // c = z1 r0 (128 bits): c_lo, c_hi.
+  const uint64_t p = static_cast<uint64_t>(z10) * r00;
+  const uint64_t m1 = mad_wide(z10, r01, p >> 32);
+  const uint64_t m2 = mad_wide(z11, r00, static_cast<uint32_t>(m1));
+  const uint64_t c_lo = (m2 << 32) | static_cast<uint32_t>(p);
+  const uint64_t c_hi = mad_wide(z11, r01, (m1 >> 32) + (m2 >> 32));
+  // est = s_hi + c_hi + carry(s_lo + c_lo) + z1 rh, mod 2^64.
+  const uint64_t w1 = s_lo + c_lo;
+  const uint64_t z1rh = mad_wide(z10, rh, static_cast<uint64_t>(z11 * rh) << 32);
+  const uint64_t est = s_hi + c_hi + (w1 < s_lo) + z1rh;
+  return csub64(csub64(z0 - est * q, q), q);
+}
+
+// A cp.async of 16 bytes into this thread's shared-memory slot.
+__device__ __forceinline__ void cp_async16(uint4* dst, const uint64_t* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ ulonglong2 pair_at(const uint4* slot) {
+  return *reinterpret_cast<const ulonglong2*>(slot);
+}
+
+// Copies `words` u64 constants into shared memory (the whole block).
+__device__ __forceinline__ void stage(uint64_t* dst, const uint64_t* __restrict__ src,
+                                      int words) {
+  for (int i = threadIdx.x; i < words; i += blockDim.x) dst[i] = pplp::ldg64(src + i);
+}
+
+// ---- the conversions' constant buffers (ops/behz64_cuda.py, _pack_constants)
+//
+// Moduli q [L] or b [K]; reduction words (r0, rh) per modulus; Shoup pairs
+// as [w] then [w']; conversion rows of split constants, one u64 each (low
+// word: the bits below the split, high word: the rest), [destination][term].
+
+// to_bsk: q [L], mqh_w [L], mqh_ws [L] (m~ qhat_i^-1 mod q_i), cqm [L]
+// ((q / q_i) mod m~), b [K], rb [K][2], xq [K][L + 1] (terms y_i, then r).
+struct ToBsk {
+  const uint64_t *q, *mqh_w, *mqh_ws, *cqm, *b, *rb;
+  const uint2* xq;
+
+  __device__ ToBsk(const uint64_t* p, int L, int K)
+      : q(p), mqh_w(p + L), mqh_ws(p + 2 * L), cqm(p + 3 * L), b(p + 4 * L),
+        rb(p + 4 * L + K), xq(reinterpret_cast<const uint2*>(p + 4 * L + 3 * K)) {}
+
+  static __host__ __device__ int words(int L, int K) { return 4 * L + 3 * K + K * (L + 1); }
+};
+
+// floor_sk: q [L], rq [L][2], fu_w [L], fu_ws [L] (t qhat_i^-1 mod q_i),
+// mskm [L] (m_sk M mod q_d), b [K], rb [K][2], fb [l][L + 1] (terms y_j,
+// then e_i), fa [l + 1 + L] (terms y'_i, e_msk, y_j), fq [L][l + 1]
+// (terms y'_i, then alpha).
+struct FloorSk {
+  const uint64_t *q, *rq, *fu_w, *fu_ws, *mskm, *b, *rb;
+  const uint2 *fb, *fa, *fq;
+
+  __device__ FloorSk(const uint64_t* p, int L, int K)
+      : q(p), rq(p + L), fu_w(p + 3 * L), fu_ws(p + 4 * L), mskm(p + 5 * L), b(p + 6 * L),
+        rb(p + 6 * L + K),
+        fb(reinterpret_cast<const uint2*>(p + 6 * L + 3 * K)),
+        fa(fb + (K - 1) * (L + 1)),
+        fq(fa + K + L) {}
+
+  static __host__ __device__ int words(int L, int K) {
+    return 6 * L + 3 * K + (K - 1) * (L + 1) + (K + L) + L * K;
+  }
+};
+
+template <int N>
+__device__ __forceinline__ int limbs(int runtime) {
+  return N ? N : runtime;
+}
+
+// The block's row and the first of the thread's two coefficients: the grid
+// has rows << log_tiles blocks of T threads, 2T coefficients a tile.
+__device__ __forceinline__ void tile_pos(int log_tiles, int* row, int* c) {
+  *row = static_cast<int>(blockIdx.x >> log_tiles);
+  const int tile = static_cast<int>(blockIdx.x & ((1u << log_tiles) - 1));
+  *c = (tile * static_cast<int>(blockDim.x) + static_cast<int>(threadIdx.x)) * 2;
+}
+
+// x [B, L, n] for each of c0, c1, d0, d1 -> xb [4, B, K, n]. kL, kK: the
+// limb counts, or 0 to read them at run time.
+template <int kL, int kK>
+__global__ void __launch_bounds__(kPairThreads)
+    to_bsk64_kernel(const uint64_t* __restrict__ c0, const uint64_t* __restrict__ c1,
+                    const uint64_t* __restrict__ d0, const uint64_t* __restrict__ d1,
+                    uint64_t* __restrict__ xb, const uint64_t* __restrict__ consts,
+                    uint32_t neg_inv_q_mt, int B, int L_, int K_, int logn, int log_tiles) {
+  const int L = limbs<kL>(L_), K = limbs<kK>(K_);
+  const int T = blockDim.x;
+  const int words = ToBsk::words(L, K);
+  uint64_t* sc = pplp::dyn_smem64();
+  uint4* slot = reinterpret_cast<uint4*>(sc + ((words + 1) & ~1)) + threadIdx.x;  // [L][T]
+  int row, c;
+  tile_pos(log_tiles, &row, &c);
+  const int p = row / B;
+  const int64_t n = int64_t{1} << logn;
+  const uint64_t* src = (p == 0 ? c0 : p == 1 ? c1 : p == 2 ? d0 : d1) +
+                        static_cast<int64_t>(row - p * B) * L * n + c;
+#pragma unroll
+  for (int i = 0; i < L; ++i) cp_async16(slot + i * T, src + i * n);
+  stage(sc, consts, words);
+  cp_async_wait_all();
+  __syncthreads();
+  const ToBsk k(sc, L, K);
+
+  // y_i = x_i m~ qhat_i^-1 mod q_i, and r = -(sum_i y_i (q / q_i)) q^-1 mod m~.
+  uint32_t acc0 = 0, acc1 = 0;
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    const ulonglong2 x = pair_at(slot + i * T);
+    const uint64_t y0 = csub64(shoup_lazy64(x.x, k.mqh_w[i], k.mqh_ws[i], k.q[i]), k.q[i]);
+    const uint64_t y1 = csub64(shoup_lazy64(x.y, k.mqh_w[i], k.mqh_ws[i], k.q[i]), k.q[i]);
+    const uint32_t m = static_cast<uint32_t>(k.cqm[i]);
+    acc0 += (static_cast<uint32_t>(y0) & 0xFFFFu) * m;  // mod 2^32 keeps mod 2^16
+    acc1 += (static_cast<uint32_t>(y1) & 0xFFFFu) * m;
+    slot[i * T] = split2<true>(y0, y1);
+  }
+  const uint4 r = make_uint4((acc0 * neg_inv_q_mt) & 0xFFFFu, 0, (acc1 * neg_inv_q_mt) & 0xFFFFu,
+                             0);
+
+  uint64_t* dst = xb + static_cast<int64_t>(row) * K * n + c;
+#pragma unroll 1
+  for (int d = 0; d < K; ++d) {
+    const uint2* cd = k.xq + d * (L + 1);
+    Sum2 s;
+#pragma unroll
+    for (int i = 0; i < L; ++i) s.add<true>(slot[i * T], cd[i]);
+    s.add<true>(r, cd[L]);
+    s.flush();
+    const uint64_t bd = k.b[d], r0 = k.rb[2 * d];
+    const uint32_t rh = static_cast<uint32_t>(k.rb[2 * d + 1]);
+    *reinterpret_cast<ulonglong2*>(dst + d * n) =
+        make_ulonglong2(reduce128(s.t0, bd, r0, rh), reduce128(s.t1, bd, r0, rh));
+  }
+}
+
+// The tensor kernel's constants (ops/behz64_cuda.py, _pack_constants): q [L],
+// b [K], then floor(2^128 / q) [L][2] and floor(2^128 / b) [K][2] as (low,
+// high) words.
 struct Consts {
-  uint64_t neg_inv_q_mt, imm_w, imm_ws, msk_half;  // scalars
-  const uint64_t *qq, *qb;                          // [L], [K]
-  const uint64_t *rq, *rb;                          // [L][2], [K][2]
-  const uint64_t *mqh_w, *mqh_ws;                   // [L]  m~ qhat_i^-1 mod q_i
-  const uint64_t* cqb;                              // [K][L] (q / q_i) mod b_d
-  const uint64_t* cqm;                              // [L]  (q / q_i) mod m~
-  const uint64_t *qmb_w, *qmb_ws;                   // [K]  q mod b_d
-  const uint64_t *imt_w, *imt_ws;                   // [K]  m~^-1 mod b_d
-  const uint64_t *tq_w, *tq_ws;                     // [L]  t mod q_i
-  const uint64_t *tb_w, *tb_ws;                     // [K]  t mod b_d
-  const uint64_t *iqb_w, *iqb_ws;                   // [K]  q^-1 mod b_d
-  const uint64_t *qhi_w, *qhi_ws;                   // [L]  qhat_i^-1 mod q_i
-  const uint64_t *bhat_w, *bhat_ws;                 // [l]  bhat_i^-1 mod b_i
-  const uint64_t* cbq;                              // [L][l] (M / b_i) mod q_d
-  const uint64_t* cbm;                              // [l]  (M / b_i) mod m_sk
-  const uint64_t *mmq_w, *mmq_ws;                   // [L]  M mod q_d
-  const uint64_t* mskm;                             // [L]  m_sk M mod q_d
+  const uint64_t *qq, *qb;  // [L], [K]
+  const uint64_t *rq, *rb;  // [L][2], [K][2]
 };
 
-// Host side: the four scalars, and the device buffer cut into its arrays
-// (pointer arithmetic only).
-Consts layout(const uint64_t* base, const uint64_t* host_scalars, int L, int K) {
-  const int l = K - 1;
-  Consts c;
-  c.neg_inv_q_mt = host_scalars[0];
-  c.imm_w = host_scalars[1];
-  c.imm_ws = host_scalars[2];
-  c.msk_half = host_scalars[3];
-  const uint64_t* p = base;
-  auto take = [&p](int count) {
-    const uint64_t* at = p;
-    p += count;
-    return at;
-  };
-  c.qq = take(L);
-  c.qb = take(K);
-  c.rq = take(2 * L);
-  c.rb = take(2 * K);
-  c.mqh_w = take(L);
-  c.mqh_ws = take(L);
-  c.cqb = take(K * L);
-  c.cqm = take(L);
-  c.qmb_w = take(K);
-  c.qmb_ws = take(K);
-  c.imt_w = take(K);
-  c.imt_ws = take(K);
-  c.tq_w = take(L);
-  c.tq_ws = take(L);
-  c.tb_w = take(K);
-  c.tb_ws = take(K);
-  c.iqb_w = take(K);
-  c.iqb_ws = take(K);
-  c.qhi_w = take(L);
-  c.qhi_ws = take(L);
-  c.bhat_w = take(l);
-  c.bhat_ws = take(l);
-  c.cbq = take(L * l);
-  c.cbm = take(l);
-  c.mmq_w = take(L);
-  c.mmq_ws = take(L);
-  c.mskm = take(L);
-  return c;
+Consts layout(const uint64_t* base, int L, int K) {
+  return Consts{base, base + L, base + L + K, base + 3 * L + K};
 }
 
 // Row and coefficient of this thread in a per-coefficient phase: the grid
@@ -199,43 +399,6 @@ __device__ __forceinline__ void row_coeff(int logn, int64_t* row, int* coeff) {
   const int per_row = (1 << logn) / blockDim.x;
   *row = blockIdx.x / per_row;
   *coeff = static_cast<int>(blockIdx.x % per_row) * blockDim.x + threadIdx.x;
-}
-
-// x [B, L, n] for each of c0, c1, d0, d1 -> xb [4, B, K, n].
-__global__ void to_bsk64_kernel(const uint64_t* __restrict__ c0,
-                                const uint64_t* __restrict__ c1,
-                                const uint64_t* __restrict__ d0,
-                                const uint64_t* __restrict__ d1, uint64_t* __restrict__ xb,
-                                Consts k, int B, int L, int K, int logn) {
-  uint64_t* col = pplp::dyn_smem64();  // y [L][blockDim.x]
-  const int n = 1 << logn;
-  const int T = blockDim.x;
-  const int tid = threadIdx.x;
-  int64_t row;
-  int c;
-  row_coeff(logn, &row, &c);
-  const int p = static_cast<int>(row / B);
-  const int64_t b = row % B;
-  const uint64_t* src = (p == 0 ? c0 : p == 1 ? c1 : p == 2 ? d0 : d1) + b * L * n + c;
-
-  uint32_t acc16 = 0;  // mod 2^16, on the low 16 bits of each y
-  for (int i = 0; i < L; ++i) {
-    const uint64_t y = shoup(src[static_cast<int64_t>(i) * n], k.mqh_w[i], k.mqh_ws[i], k.qq[i]);
-    col[i * T + tid] = y;
-    acc16 = (acc16 + (static_cast<uint32_t>(y) & 0xFFFFu) * static_cast<uint32_t>(k.cqm[i])) &
-            0xFFFFu;
-  }
-  const uint64_t r = (acc16 * static_cast<uint32_t>(k.neg_inv_q_mt)) & 0xFFFFu;
-
-  uint64_t* dst = xb + row * K * n + c;
-  for (int d = 0; d < K; ++d) {
-    const uint64_t qd = k.qb[d];
-    Acc acc;
-    for (int i = 0; i < L; ++i) acc.mac(col[i * T + tid], k.cqb[d * L + i]);
-    uint64_t v = acc.reduce(qd, k.rb + 2 * d);
-    v = add_mod(v, shoup(r, k.qmb_w[d], k.qmb_ws[d], qd), qd);
-    dst[static_cast<int64_t>(d) * n] = shoup(v, k.imt_w[d], k.imt_ws[d], qd);
-  }
 }
 
 // Karatsuba over both bases: spectra sq [4, B, L, n] and sb [4, B, K, n] ->
@@ -265,57 +428,95 @@ __global__ void tensor64_kernel(const uint64_t* __restrict__ sq, const uint64_t*
 }
 
 // eq [3, B, L, n], eb [3, B, K, n] (coefficients) -> out [3, B, L, n].
-__global__ void floor_sk64_kernel(const uint64_t* __restrict__ eq,
-                                  const uint64_t* __restrict__ eb, uint64_t* __restrict__ out,
-                                  Consts k, int L, int K, int logn) {
-  uint64_t* ys = pplp::dyn_smem64();  // y [L][T], then w [K][T]
-  const int n = 1 << logn;
-  const int T = blockDim.x;
-  const int tid = threadIdx.x;
+// kL, kK: the limb counts, or 0 to read them at run time.
+template <int kL, int kK>
+__global__ void __launch_bounds__(kPairThreads)
+    floor_sk64_kernel(const uint64_t* __restrict__ eq, const uint64_t* __restrict__ eb,
+                      uint64_t* __restrict__ out, const uint64_t* __restrict__ consts,
+                      uint64_t msk_half, int L_, int K_, int logn, int log_tiles) {
+  const int L = limbs<kL>(L_), K = limbs<kK>(K_);
   const int l = K - 1;
-  int64_t row;
-  int c;
-  row_coeff(logn, &row, &c);
-  uint64_t* ws = ys + L * T;
+  const int T = blockDim.x;
+  const int words = FloorSk::words(L, K);
+  uint64_t* sc = pplp::dyn_smem64();
+  uint4* slot = reinterpret_cast<uint4*>(sc + ((words + 1) & ~1)) + threadIdx.x;  // [L + K][T]
+  uint4* bslot = slot + L * T;
+  int row, c;
+  tile_pos(log_tiles, &row, &c);
+  const int64_t n = int64_t{1} << logn;
+  const uint64_t* srcq = eq + static_cast<int64_t>(row) * L * n + c;
+  const uint64_t* srcb = eb + static_cast<int64_t>(row) * K * n + c;
+#pragma unroll
+  for (int j = 0; j < L; ++j) cp_async16(slot + j * T, srcq + j * n);
+#pragma unroll
+  for (int d = 0; d < K; ++d) cp_async16(bslot + d * T, srcb + d * n);
+  stage(sc, consts, words);
+  cp_async_wait_all();
+  __syncthreads();
+  const FloorSk k(sc, L, K);
 
-  // Fast floor: y_i = (t e_i mod q_i) qhat_i^-1 mod q_i.
-  const uint64_t* srcq = eq + row * L * n + c;
-  for (int i = 0; i < L; ++i) {
-    const uint64_t qi = k.qq[i];
-    const uint64_t te = shoup(srcq[static_cast<int64_t>(i) * n], k.tq_w[i], k.tq_ws[i], qi);
-    ys[i * T + tid] = shoup(te, k.qhi_w[i], k.qhi_ws[i], qi);
+  // y_j = e_j t qhat_j^-1 mod q_j, split at 31; e over B_sk split at 30.
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    const ulonglong2 e = pair_at(slot + j * T);
+    const uint64_t qj = k.q[j];
+    slot[j * T] = split2<true>(csub64(shoup_lazy64(e.x, k.fu_w[j], k.fu_ws[j], qj), qj),
+                               csub64(shoup_lazy64(e.y, k.fu_w[j], k.fu_ws[j], qj), qj));
   }
-  // w_d = (t e_d - conv_d(y)) q^-1 mod b_d over B_sk.
-  const uint64_t* srcb = eb + row * K * n + c;
+#pragma unroll
   for (int d = 0; d < K; ++d) {
-    const uint64_t qd = k.qb[d];
-    Acc acc;
-    for (int i = 0; i < L; ++i) acc.mac(ys[i * T + tid], k.cqb[d * L + i]);
-    const uint64_t conv = acc.reduce(qd, k.rb + 2 * d);
-    const uint64_t te = shoup(srcb[static_cast<int64_t>(d) * n], k.tb_w[d], k.tb_ws[d], qd);
-    ws[d * T + tid] = shoup(sub_mod(te, conv, qd), k.iqb_w[d], k.iqb_ws[d], qd);
+    const ulonglong2 e = pair_at(bslot + d * T);
+    bslot[d * T] = split2<false>(e.x, e.y);
   }
-  // Shenoy-Kumaresan: y_i = w_i bhat_i^-1 mod b_i (in place), then
-  // alpha = (conv_msk(y) - w_msk) M^-1 mod m_sk.
-  for (int i = 0; i < l; ++i) {
-    ws[i * T + tid] = shoup(ws[i * T + tid], k.bhat_w[i], k.bhat_ws[i], k.qb[i]);
-  }
-  const uint64_t msk = k.qb[l];
-  Acc am;
-  for (int i = 0; i < l; ++i) am.mac(ws[i * T + tid], k.cbm[i]);
-  const uint64_t conv_msk = am.reduce(msk, k.rb + 2 * l);
-  const uint64_t alpha = shoup(sub_mod(conv_msk, ws[l * T + tid], msk), k.imm_w, k.imm_ws, msk);
-  const bool high = alpha > k.msk_half;
 
-  uint64_t* dst = out + row * L * n + c;
+  // y'_i = (e_i c_i + sum_j y_j c_ij) mod b_i over B, in e_i's slot.
+#pragma unroll 1
+  for (int i = 0; i < l; ++i) {
+    const uint2* ci = k.fb + i * (L + 1);
+    Sum2 s;
+#pragma unroll
+    for (int j = 0; j < L; ++j) s.add<true>(slot[j * T], ci[j]);
+    s.add<false>(bslot[i * T], ci[L]);
+    s.flush();
+    const uint64_t bi = k.b[i], r0 = k.rb[2 * i];
+    const uint32_t rh = static_cast<uint32_t>(k.rb[2 * i + 1]);
+    bslot[i * T] = split2<false>(reduce128(s.t0, bi, r0, rh), reduce128(s.t1, bi, r0, rh));
+  }
+
+  // alpha over m_sk, canonical.
+  uint64_t a0, a1;
+  {
+    Sum2 s;
+#pragma unroll
+    for (int i = 0; i <= l; ++i) s.add<false>(bslot[i * T], k.fa[i]);
+#pragma unroll
+    for (int j = 0; j < L; ++j) s.add<true>(slot[j * T], k.fa[K + j]);
+    s.flush();
+    const uint64_t msk = k.b[l], r0 = k.rb[2 * l];
+    const uint32_t rh = static_cast<uint32_t>(k.rb[2 * l + 1]);
+    a0 = reduce128(s.t0, msk, r0, rh);
+    a1 = reduce128(s.t1, msk, r0, rh);
+  }
+  const uint4 alpha = split2<false>(a0, a1);
+  const bool high0 = a0 > msk_half, high1 = a1 > msk_half;
+
+  // out_d = (sum_i y'_i c_di + alpha c_d [+ m_sk M]) mod q_d.
+  uint64_t* dst = out + static_cast<int64_t>(row) * L * n + c;
+#pragma unroll 1
   for (int d = 0; d < L; ++d) {
-    const uint64_t qd = k.qq[d];
-    Acc acc;
-    for (int i = 0; i < l; ++i) acc.mac(ws[i * T + tid], k.cbq[d * l + i]);
-    uint64_t v = sub_mod(acc.reduce(qd, k.rq + 2 * d), shoup(alpha, k.mmq_w[d], k.mmq_ws[d], qd),
-                         qd);
-    if (high) v = add_mod(v, k.mskm[d], qd);
-    dst[static_cast<int64_t>(d) * n] = v;
+    const uint2* cd = k.fq + d * K;
+    Sum2 s;
+#pragma unroll
+    for (int i = 0; i < l; ++i) s.add<false>(bslot[i * T], cd[i]);
+    s.add<false>(alpha, cd[l]);
+    s.flush();
+    const uint64_t corr = k.mskm[d];
+    if (high0) s.t0 += corr;
+    if (high1) s.t1 += corr;
+    const uint64_t qd = k.q[d], r0 = k.rq[2 * d];
+    const uint32_t rh = static_cast<uint32_t>(k.rq[2 * d + 1]);
+    *reinterpret_cast<ulonglong2*>(dst + d * n) =
+        make_ulonglong2(reduce128(s.t0, qd, r0, rh), reduce128(s.t1, qd, r0, rh));
   }
 }
 
@@ -391,7 +592,6 @@ __global__ void add64_kernel(const uint64_t* __restrict__ c0, const uint64_t* __
   out[e] = add_mod(c0[e], d[e], q);
   out[total + e] = add_mod(c1[e], d[total + e], q);
 }
-
 int col_shape(int logn, int64_t rows, dim3* grid, dim3* block) {
   if (logn < 6 || logn > 15 || rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int n = 1 << logn;
@@ -415,6 +615,62 @@ int elem_shape(int64_t total, dim3* grid, dim3* block) {
 
 bool limbs_ok(int L, int K) { return L >= 1 && L <= kMaxL && K >= 2 && K <= kMaxK; }
 
+// A conversion's tile: T threads (two coefficients each) and log2 of the
+// tiles per row, with the shared memory of `words` constants and
+// `slots` 16-byte slots per thread.
+int conv_shape(int logn, int64_t rows, int words, int slots, dim3* grid, dim3* block,
+               size_t* smem) {
+  if (logn < 6 || logn > 15 || rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  int log_t = __builtin_ctz(kPairThreads);
+  while (log_t > logn - 1) --log_t;
+  auto bytes = [&](int lt) {
+    return static_cast<size_t>((words + 1) & ~1) * 8 + (static_cast<size_t>(slots) << lt) * 16;
+  };
+  while (log_t > 5 && bytes(log_t) > kConvSmem) --log_t;
+  const int log_tiles = logn - 1 - log_t;
+  const int64_t blocks = rows << log_tiles;
+  if (blocks >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  *grid = dim3(static_cast<unsigned>(blocks));
+  *block = dim3(1u << log_t);
+  *smem = bytes(log_t);
+  return 0;
+}
+
+template <int kL, int kK>
+int launch_to_bsk(const uint64_t* c0, const uint64_t* c1, const uint64_t* d0,
+                  const uint64_t* d1, uint64_t* xb, const uint64_t* consts,
+                  uint32_t neg_inv_q_mt, int B, int L, int K, int logn, cudaStream_t stream) {
+  dim3 grid, block;
+  size_t smem;
+  int err = conv_shape(logn, int64_t{4} * B, ToBsk::words(L, K), L, &grid, &block, &smem);
+  if (err) return err;
+  err = pplp::allow_smem(to_bsk64_kernel<kL, kK>, smem);
+  if (err) return err;
+  const int log_tiles = logn - 1 - __builtin_ctz(block.x);
+  to_bsk64_kernel<kL, kK><<<grid, block, smem, stream>>>(c0, c1, d0, d1, xb, consts,
+                                                         neg_inv_q_mt, B, L, K, logn, log_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kL, int kK>
+int launch_floor_sk(const uint64_t* eq, const uint64_t* eb, uint64_t* out,
+                    const uint64_t* consts, uint64_t msk_half, int B, int L, int K, int logn,
+                    cudaStream_t stream) {
+  dim3 grid, block;
+  size_t smem;
+  int err = conv_shape(logn, int64_t{3} * B, FloorSk::words(L, K), L + K, &grid, &block, &smem);
+  if (err) return err;
+  err = pplp::allow_smem(floor_sk64_kernel<kL, kK>, smem);
+  if (err) return err;
+  const int log_tiles = logn - 1 - __builtin_ctz(block.x);
+  floor_sk64_kernel<kL, kK><<<grid, block, smem, stream>>>(eq, eb, out, consts, msk_half, L, K,
+                                                           logn, log_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The seal chains' shapes with constant limb counts, else run-time ones.
+#define PPLP_SEAL_SHAPES(X) X(3, 5) X(5, 7) X(9, 11) X(16, 18)
+
 }  // namespace
 
 extern "C" {
@@ -422,36 +678,36 @@ extern "C" {
 // Each entry point returns cudaGetLastError() after its launch (0 = success)
 // or cudaErrorInvalidValue for a shape outside the bounds above. Residue
 // tensors are contiguous int64 (read as u64); B is the flattened batch.
-// consts: the device buffer of Consts' arrays; scalars: its four scalars in
-// host memory.
+// consts: the kernel's constant buffer on the device; scalars: host memory.
 
 int pplp_behz64_to_bsk(const void* c0, const void* c1, const void* d0, const void* d1,
                        void* xb, const void* consts, const void* scalars, int B, int L, int K,
                        int logn, void* stream) {
-  dim3 grid, block;
   if (!limbs_ok(L, K)) return static_cast<int>(cudaErrorInvalidValue);
-  const int err = col_shape(logn, int64_t{4} * B, &grid, &block);
-  if (err) return err;
-  const Consts k = layout(static_cast<const uint64_t*>(consts),
-                          static_cast<const uint64_t*>(scalars), L, K);
-  const size_t smem = static_cast<size_t>(L) * block.x * sizeof(uint64_t);
-  to_bsk64_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint64_t*>(c0), static_cast<const uint64_t*>(c1),
-      static_cast<const uint64_t*>(d0), static_cast<const uint64_t*>(d1),
-      static_cast<uint64_t*>(xb), k, B, L, K, logn);
-  return static_cast<int>(cudaGetLastError());
+  const auto* a = static_cast<const uint64_t*>(c0);
+  const auto* b = static_cast<const uint64_t*>(c1);
+  const auto* c = static_cast<const uint64_t*>(d0);
+  const auto* d = static_cast<const uint64_t*>(d1);
+  auto* out = static_cast<uint64_t*>(xb);
+  const auto* k = static_cast<const uint64_t*>(consts);
+  const auto mt = static_cast<uint32_t>(static_cast<const uint64_t*>(scalars)[0]);
+  const auto s = static_cast<cudaStream_t>(stream);
+#define PPLP_TO_BSK(LL, KK) \
+  if (L == LL && K == KK) return launch_to_bsk<LL, KK>(a, b, c, d, out, k, mt, B, L, K, logn, s);
+  PPLP_SEAL_SHAPES(PPLP_TO_BSK)
+#undef PPLP_TO_BSK
+  return launch_to_bsk<0, 0>(a, b, c, d, out, k, mt, B, L, K, logn, s);
 }
 
 int pplp_behz64_tensor(const void* sq, const void* sb, void* eq, void* eb, const void* consts,
-                       const void* scalars, int B, int L, int K, int logn, void* stream) {
+                       int B, int L, int K, int logn, void* stream) {
   dim3 grid, block;
   if (!limbs_ok(L, K) || logn < 6 || logn > 15) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t total_q = (static_cast<int64_t>(B) * L) << logn;
   const int64_t total_b = (static_cast<int64_t>(B) * K) << logn;
   const int err = elem_shape(total_q + total_b, &grid, &block);
   if (err) return err;
-  const Consts k = layout(static_cast<const uint64_t*>(consts),
-                          static_cast<const uint64_t*>(scalars), L, K);
+  const Consts k = layout(static_cast<const uint64_t*>(consts), L, K);
   tensor64_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint64_t*>(sq), static_cast<const uint64_t*>(sb),
       static_cast<uint64_t*>(eq), static_cast<uint64_t*>(eb), k, total_q, total_b, L, K, logn);
@@ -460,19 +716,18 @@ int pplp_behz64_tensor(const void* sq, const void* sb, void* eq, void* eb, const
 
 int pplp_behz64_floor_sk(const void* eq, const void* eb, void* out, const void* consts,
                          const void* scalars, int B, int L, int K, int logn, void* stream) {
-  dim3 grid, block;
   if (!limbs_ok(L, K)) return static_cast<int>(cudaErrorInvalidValue);
-  int err = col_shape(logn, int64_t{3} * B, &grid, &block);
-  if (err) return err;
-  const Consts k = layout(static_cast<const uint64_t*>(consts),
-                          static_cast<const uint64_t*>(scalars), L, K);
-  const size_t smem = static_cast<size_t>(L + K) * block.x * sizeof(uint64_t);
-  err = pplp::allow_smem(floor_sk64_kernel, smem);
-  if (err) return err;
-  floor_sk64_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint64_t*>(eq), static_cast<const uint64_t*>(eb),
-      static_cast<uint64_t*>(out), k, L, K, logn);
-  return static_cast<int>(cudaGetLastError());
+  const auto* a = static_cast<const uint64_t*>(eq);
+  const auto* b = static_cast<const uint64_t*>(eb);
+  auto* o = static_cast<uint64_t*>(out);
+  const auto* k = static_cast<const uint64_t*>(consts);
+  const uint64_t half = static_cast<const uint64_t*>(scalars)[1];
+  const auto s = static_cast<cudaStream_t>(stream);
+#define PPLP_FLOOR_SK(LL, KK) \
+  if (L == LL && K == KK) return launch_floor_sk<LL, KK>(a, b, o, k, half, B, L, K, logn, s);
+  PPLP_SEAL_SHAPES(PPLP_FLOOR_SK)
+#undef PPLP_FLOOR_SK
+  return launch_floor_sk<0, 0>(a, b, o, k, half, B, L, K, logn, s);
 }
 
 int pplp_behz64_lift(const void* c2, void* dig, const void* lift_consts, int B, int L, int D,

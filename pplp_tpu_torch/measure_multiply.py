@@ -1,6 +1,7 @@
 """Measure the ct x ct multiply path and the mulmod chain on one CUDA card.
 
     python3 -m pplp_tpu_torch.measure_multiply [--profile tpu|seal] [--json PATH]
+        [--n N --batch B --t-bits T] [--sass]
 
 The workload is the one ``chip_smoke.py`` drives: n = 4096 on the tpu chain
 (4 primes, |B_sk| = 6, the fused m31 kernels of ``csrc/behz.cu``) or, with
@@ -21,7 +22,7 @@ tpu, 1 on seal) and ``create_relin_keys`` at the other width. The script
    run the variants in order and reversed, alternately. Reported: the
    median over rounds and the min-max;
 3. sweeps the batch (16, 64, 256, 1024) of the default-width call, median
-   of 3 rounds;
+   of 3 rounds (at the default n only);
 4. runs ``torch.profiler`` over 10 default-width calls at batch 256: device time
    per kernel (ms per call, share, launches), beside each kernel's
    shape-derived work (``kernel_counts``: the bytes its interface moves,
@@ -41,6 +42,13 @@ intermediates, the packed keys once. ``kernel_counts64`` does the same for
 the u64 route, whose kernels are its logical phases one for one: each
 operation at the fewest 32-bit multiplies it needs (``U64_*_MULS``),
 converted to u64 Shoup products (``U64_PRODUCT_MULS``).
+
+``--n``, ``--batch`` and ``--t-bits`` move the workload to another chain
+of the profile (the seal chains at n = 8192, t = 2^56, batch 64 and
+n = 32768, batch 2 are ``chip_smoke.py``'s). ``--sass`` also counts, per
+kernel function of the profile's BEHZ library, its SASS instructions and
+among them the 32-bit multiplies by kind (``cuobjdump -sass``), the static
+code that the profiler's times run.
 
 Prints one line per measurement and the card's name and power limit, and
 writes every number as JSON to ``--json`` if given. Exits 1 without CUDA.
@@ -100,15 +108,16 @@ MULMODS64_PER_S = MULS_PER_S / U64_PRODUCT_MULS
 # The u64 route's other operations at the fewest 32 x 32-bit partial
 # products each needs (a Shoup product, 10, is two low words of 3 and a
 # high word of 4). One term of a 128-bit conversion sum is a whole
-# 64 x 64 -> 128-bit product: its 4 partial products. The Barrett reduction
-# of a 128-bit value by r = floor(2^128 / q) < 2^96 (q >= 2^32) forms the
-# words of z r that reach its estimate, all 4 x 3 partial products, then
-# the low word of est q (3): 15; of a 64-bit value, 2 x 3 + 3 = 9. A general
-# product mod q is a whole product and a 128-bit reduction: 19. These count
-# what the functions need, not the kernels' SASS (behz64.cu's Barrett also
-# multiplies by the high word of r as if it were 64 bits wide).
+# 64 x 64 -> 128-bit product: its 4 partial products. The reduction of a
+# 128-bit z by r = floor(2^128 / q) = rh 2^64 + r0 (rh < 2^32, q > 2^32)
+# forms its estimate from z0 rh (2), z1 r0 (4) and z1 rh (2), then the low
+# word of est q (3): 11 (behz64.cu's reduce128; the high word of z0 r0 is
+# left out, and a second conditional subtract covers the carry it may
+# hold); of a 64-bit value, 2 x 3 + 3 = 9. A general product mod q is a
+# whole product and a 128-bit reduction: 15. These count what the
+# functions need, for every design of the kernels alike.
 U64_MAC_MULS = 4
-U64_REDUCE128_MULS = 15
+U64_REDUCE128_MULS = 11
 U64_REDUCE64_MULS = 9
 U64_MULMOD_MULS = U64_MAC_MULS + U64_REDUCE128_MULS
 RESIDUE_BYTES = 4  # the least that holds an m31 residue
@@ -218,17 +227,24 @@ def kernel_counts64(n: int, L: int, K: int, D: int, batch: int) -> dict:
     logical work in u64 Shoup-product equivalents (the fewest 32-bit
     multiplies of each operation, ``U64_*_MULS``, over ``U64_PRODUCT_MULS``)
     and its bound at ``MULMODS64_PER_S``. D digits: one limb each when
-    D == L, else consecutive pairs (``L - D`` of them)."""
+    D == L, else consecutive pairs (``L - D`` of them).
+
+    The conversions count each output as one sum of products reduced once:
+    every modular step between two conversions that stays in one modulus
+    folds into the conversion's constants (behz64.cu's header). to_bsk: a
+    Shoup product per source limb, then per B_sk limb L + 1 terms and a
+    reduction. floor_sk: a Shoup product per Q limb, then per prime of B
+    L + 1 terms and a reduction, alpha's L + K terms and a reduction, and
+    per Q limb K terms and a reduction."""
     e, l = batch * n, K - 1  # coefficients of one limb over the batch
     wide = L - D  # two-limb digits
     shoup, mac, red, red64 = (U64_PRODUCT_MULS, U64_MAC_MULS, U64_REDUCE128_MULS,
                               U64_REDUCE64_MULS)
     muls = {
-        "behz64_to_bsk": 4 * e * (L * shoup + K * (L * mac + red + 2 * shoup)),
+        "behz64_to_bsk": 4 * e * (L * shoup + K * ((L + 1) * mac + red)),
         "behz64_tensor": e * (L + K) * 3 * U64_MULMOD_MULS,
-        "behz64_floor_sk": 3 * e * (2 * L * shoup + K * (L * mac + red + 2 * shoup)
-                                    + l * shoup + l * mac + red + shoup
-                                    + L * (l * mac + red + shoup)),
+        "behz64_floor_sk": 3 * e * (L * shoup + l * ((L + 1) * mac + red)
+                                    + (L + K) * mac + red + L * (K * mac + red)),
         "behz64_lift": e * (D * L * red64 + wide * (red64 + shoup + L * shoup)),
         "behz64_keyprod": e * L * 2 * D * shoup,
         "behz64_add": 0,
@@ -318,11 +334,41 @@ def profile_phases(fn, calls: int) -> dict:
     }
 
 
+_SASS_KINDS = {"IMAD.WIDE": r"IMAD\.WIDE", "IMAD.HI": r"IMAD\.HI",
+               "IMAD": r"IMAD(?![.\w]*(WIDE|HI))", "LDS": r"\bLDS", "LDG": r"\bLDG",
+               "STG": r"\bSTG"}
+
+
+def sass_counts(library) -> dict:
+    """{kernel function: {"instructions": n, kind: n for _SASS_KINDS}} of a
+    built kernel library, from ``cuobjdump -sass``."""
+    from .ops.cuda_build import find_nvcc
+
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for part in text.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        code = [ln for ln in part.splitlines() if re.match(r"\s+/\*[0-9a-f]{4,}\*/", ln)]
+        counts = {"instructions": len(code)}
+        counts.update({k: sum(bool(re.search(rx, ln)) for ln in code)
+                       for k, rx in _SASS_KINDS.items()})
+        out[name] = counts
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", choices=("tpu", "seal"), default="tpu",
                     help="the chain: tpu (m31, csrc/behz.cu) or seal (m62, csrc/behz64.cu)")
     ap.add_argument("--json", default=None, help="write every number here")
+    ap.add_argument("--n", type=int, default=N, help="ring degree (default %(default)s)")
+    ap.add_argument("--batch", type=int, default=BATCH, help="batch (default %(default)s)")
+    ap.add_argument("--t-bits", type=int, default=T_BITS,
+                    help="plaintext modulus bits (default %(default)s)")
+    ap.add_argument("--sass", action="store_true",
+                    help="count the BEHZ library's SASS instructions per kernel")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("measure_multiply: torch.cuda.is_available() is false; this needs a GPU",
@@ -332,13 +378,14 @@ def main(argv=None) -> int:
     from . import bfv
     from .bfv import behz
     from .bfv.behz_fused import FusedMultiplier
-    from .ops import mulmod_chain
+    from .ops import behz64_cuda, behz_cuda, cuda_build, mulmod_chain
 
     seal = args.profile == "seal"
+    n, batch_size = args.n, args.batch
     dev = cuda_device(0)
     card = smi_line()
     ctx = bfv.BFVContext.build(
-        bfv.EncryptionParameters.bfv(N, 1 << T_BITS, profile=args.profile), dev)
+        bfv.EncryptionParameters.bfv(n, 1 << args.t_bits, profile=args.profile), dev)
     mul = behz.multiplier(ctx)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     sk, rlk_default = behz.make_keys(ctx, gen)
@@ -355,7 +402,7 @@ def main(argv=None) -> int:
             return x % ctx.q2
         return bfv.Ciphertext((poly(), poly())), bfv.Ciphertext((poly(), poly()))
 
-    ct1, ct2 = cts(BATCH)
+    ct1, ct2 = cts(batch_size)
     ct3 = fd.multiply(ct1, ct2)
     got = fd.relinearize(ct3)
     want = behz.relinearize(ctx, mul.multiply(ct1, ct2), rlk_default)
@@ -373,7 +420,7 @@ def main(argv=None) -> int:
     print(f"[card] {sms} SMs, top SM clock {clocks}; {'MULMODS64' if seal else 'MULMODS'}"
           f"_PER_S {rate:.4e}", flush=True)
     result = {"card": card, "sms": sms, "max_sm_clock": clocks, "profile": args.profile,
-              "n": N, "L": ctx.L, "bsk": mul.K, "t_bits": T_BITS, "batch": BATCH,
+              "n": n, "L": ctx.L, "bsk": mul.K, "t_bits": args.t_bits, "batch": batch_size,
               "rounds": ROUNDS, "mulmods_per_s": rate, "default_width": w_default}
     variants = {f"multiply_relinearize_w{w}": (
         lambda w=w: fused[w].multiply_relinearize(ct1, ct2), 10) for w in (2, 1)}
@@ -389,7 +436,7 @@ def main(argv=None) -> int:
     for name, s in result["calls"].items():
         rate_s = ""
         if name.startswith("multiply_relinearize"):
-            rate_s = f" = {BATCH / (s['median_ms'] / 1e3):.1f} mult+relin/s"
+            rate_s = f" = {batch_size / (s['median_ms'] / 1e3):.1f} mult+relin/s"
         elif name == "mulmod_chain":
             rate_s = f" = {x.numel() * mulmod_chain.STEPS / (s['median_ms'] / 1e3):.4e} mulmods/s"
         print(f"[calls] {args.profile} {name}: median {s['median_ms']:.4f} ms "
@@ -397,8 +444,8 @@ def main(argv=None) -> int:
               flush=True)
 
     result["sweep"] = {}
-    for batch in SWEEP:
-        a, b = (ct1, ct2) if batch == BATCH else cts(batch)
+    for batch in SWEEP if n == N else ():
+        a, b = (ct1, ct2) if batch == batch_size else cts(batch)
         s = rounds_ms({"w": (lambda a=a, b=b: fd.multiply_relinearize(a, b), 10)}, 3)["w"]
         s["per_s"] = batch / (s["median_ms"] / 1e3)
         result["sweep"][batch] = s
@@ -408,13 +455,13 @@ def main(argv=None) -> int:
     prof = profile_phases(lambda: fd.multiply_relinearize(ct1, ct2), PROFILE_CALLS)
     D = len(rlk_default.digit_groups(ctx.L))
     if seal:
-        counts = kernel_counts64(N, ctx.L, mul.K, D, BATCH)
-        call = call_counts64(N, ctx.L, mul.K, D, BATCH)
+        counts = kernel_counts64(n, ctx.L, mul.K, D, batch_size)
+        call = call_counts64(n, ctx.L, mul.K, D, batch_size)
     else:
-        counts = kernel_counts(N, ctx.L, mul.K, D, BATCH)
-        call = call_counts(N, ctx.L, mul.K, D, BATCH)
-        result["work"] = {k: bound(v) for k, v in work_counts(N, ctx.L, mul.K, D,
-                                                               BATCH).items()}
+        counts = kernel_counts(n, ctx.L, mul.K, D, batch_size)
+        call = call_counts(n, ctx.L, mul.K, D, batch_size)
+        result["work"] = {k: bound(v) for k, v in work_counts(n, ctx.L, mul.K, D,
+                                                               batch_size).items()}
     for p, v in prof["phases"].items():
         if p in counts:
             v.update(counts[p])
@@ -423,7 +470,8 @@ def main(argv=None) -> int:
     result["call"] = call
     busy = prof["busy_ms"] / PROFILE_CALLS
     total = sum(c["bound_ms"] for c in counts.values())
-    print(f"[profile] {PROFILE_CALLS} width-{w_default} calls at batch {BATCH}: device busy "
+    print(f"[profile] {PROFILE_CALLS} width-{w_default} calls at n = {n}, batch {batch_size}: "
+          f"device busy "
           f"{busy:.4f} ms per call, {100 * prof['busy_share']:.1f}% of the window; sum of "
           f"kernel bounds {total:.4f} ms ({100 * total / busy:.1f}%); the call's own bound "
           f"{call['bound_ms']:.4f} ms ({call['bound_by']}: {call['bytes'] / 1e6:.1f} MB, "
@@ -451,6 +499,11 @@ def main(argv=None) -> int:
                   f"time per call ({rate_c:.4e} mulmods/s, {100 * rate_c / MULMODS_PER_S:.1f}% "
                   f"of MULMODS_PER_S), device busy {100 * prof['busy_share']:.1f}% of the "
                   f"window", flush=True)
+    if args.sass:
+        source = (behz64_cuda if seal else behz_cuda).SOURCE
+        result["sass"] = sass_counts(cuda_build.build([source])[source])
+        for name, c in result["sass"].items():
+            print(f"[sass] {name}: " + ", ".join(f"{k} {v}" for k, v in c.items()), flush=True)
     print(card, flush=True)
     if args.json:
         os.makedirs(os.path.dirname(args.json) or ".", exist_ok=True)

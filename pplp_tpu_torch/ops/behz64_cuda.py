@@ -25,6 +25,9 @@ anything else, and a launch error raises. Bounds: L <= 40, |B_sk| <= 48
 ``launches`` counts launches of ``behz64.cu`` (the transforms are counted by
 ``ntt_cuda``); ``launches_by_kernel`` splits them. The packed constants are
 cached here, keyed by the multiplier and keys objects they were packed from.
+The conversions' constants fold the steps between two conversions that
+stay in one modulus, and are split into 32-bit words for the kernels'
+multiply-adds (``_pack_constants``, behz64.cu's header).
 """
 
 from __future__ import annotations
@@ -48,13 +51,16 @@ MAX_K = 48
 _NO_LIMB = (1 << 64) - 1
 _BITS = 64  # Shoup companions floor(w 2^64 / q)
 _BSK_BITS = 60  # B_sk primes below 2^60 keep every conversion sum below 2^128
+_Q_SPLIT = 31  # a residue mod q (< 2^62) is split into words at bit 31
+_B_SPLIT = 30  # a value below 2^60 (mod a B_sk prime) at bit 30
 
 launches = 0
 launches_by_kernel = {"behz64_to_bsk": 0, "behz64_tensor": 0, "behz64_floor_sk": 0,
                       "behz64_lift": 0, "behz64_keyprod": 0, "behz64_add": 0}
 
-# multiplier -> (device constants, host scalars); keys -> {(moduli, device):
-# (lift buffer, packed keys)}
+# multiplier -> ({kernel: constants' device address}, host scalars, the
+# device tensor holding them); keys -> {(moduli, device): (lift buffer,
+# packed keys)}
 _mul_buffers: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 _key_buffers: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 
@@ -75,7 +81,7 @@ def _count(name: str):
 def _declare(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.pplp_behz64_to_bsk.argtypes = [vp] * 7 + [ci] * 4 + [vp]
-    lib.pplp_behz64_tensor.argtypes = [vp] * 6 + [ci] * 4 + [vp]
+    lib.pplp_behz64_tensor.argtypes = [vp] * 5 + [ci] * 4 + [vp]
     lib.pplp_behz64_floor_sk.argtypes = [vp] * 5 + [ci] * 4 + [vp]
     lib.pplp_behz64_lift.argtypes = [vp] * 3 + [ci] * 4 + [vp]
     lib.pplp_behz64_keyprod.argtypes = [vp] * 4 + [ci] * 4 + [vp]
@@ -98,37 +104,69 @@ def _ratios(moduli) -> list[int]:
     return out
 
 
-def _pack_constants(mul) -> tuple[list[int], list[int]]:
-    """The multiplier's constants in the order of ``Consts`` in behz64.cu,
-    as values below 2^64: (the arrays' device buffer, the four scalars the
-    kernels take from host memory)."""
-    qmods, bsk = mul.ctx.moduli, mul.bsk_moduli
-    l = mul.l
-    b_basis, msk = bsk[:l], bsk[l]
+def _split(values, s: int) -> list[int]:
+    """Conversion constants as one u64 each: the bits below ``s`` in the low
+    word, the rest (below 2^32) in the high word. A constant is split at 61
+    minus its source's split (``_Q_SPLIT``, ``_B_SPLIT``), so each of a
+    term's four partial products stays below 2^61 (behz64.cu's header)."""
+    out = []
+    for c in values:
+        if c >> (s + 32):
+            raise ValueError(f"constant {c} too wide for a split at bit {s}")
+        out.append((c & ((1 << s) - 1)) | ((c >> s) << 32))
+    return out
+
+
+def _pack_constants(mul) -> tuple[dict, list[int]]:
+    """The multiplier's constants in the layouts of behz64.cu, as values below
+    2^64: {kernel: its buffer} for ``tensor`` (``Consts``), ``to_bsk``
+    (``ToBsk``) and ``floor_sk`` (``FloorSk``), and the two scalars the
+    kernels take from host memory (-q^-1 mod m~, m_sk // 2).
+
+    The conversions' constants fold every step that stays in one modulus
+    (behz64.cu's header): to_bsk's (q / q_i) m~^-1 and (q m~^-1) mod b_d;
+    floor_sk's t qhat_i^-1 mod q_i, then -(q / q_j) q^-1 bhat_i^-1 and
+    t q^-1 bhat_i^-1 mod b_i, alpha's (M / b_i) M^-1, -t q^-1 M^-1 and
+    (q / q_j) q^-1 M^-1 mod m_sk, and (M / b_i), -M mod q_d."""
+    ctx = mul.ctx
+    qm, bm = [m.value for m in ctx.moduli], [m.value for m in mul.bsk_moduli]
+    L, K, l, t = ctx.L, mul.K, mul.l, ctx.t
+    msk = bm[l]
+    cqb, imt, iqb = mul.conv_q_to_bsk, mul.inv_mtilde_bsk_ints, mul.inv_q_bsk_ints
 
     def shoup(vals, mods):  # constants, then their Shoup companions
-        w, ws = shoup_ints(vals, [m.value for m in mods], _BITS)
+        w, ws = shoup_ints(vals, mods, _BITS)
         return w + [v % (1 << 64) for v in ws]
 
-    imm = shoup([mul.inv_M_msk_int], [msk])
-    scalars = [mul.neg_inv_q_mtilde, imm[0], imm[1], mul.msk_half]
-    buf = [m.value for m in qmods] + [m.value for m in bsk]
-    buf += _ratios(qmods) + _ratios(bsk)
-    buf += shoup(mul.mtilde_qhat_inv_ints, qmods)
-    buf += [c for row in mul.conv_q_to_bsk for c in row]
-    buf += mul.conv_q_to_mtilde_ints
-    buf += shoup(mul.q_mod_bsk_ints, bsk)
-    buf += shoup(mul.inv_mtilde_bsk_ints, bsk)
-    buf += shoup(mul.t_mod_q_ints, qmods)
-    buf += shoup(mul.t_mod_bsk_ints, bsk)
-    buf += shoup(mul.inv_q_bsk_ints, bsk)
-    buf += shoup(mul.qhat_inv_ints, qmods)
-    buf += shoup(mul.bhat_inv_b, b_basis)
-    buf += [c for row in mul.conv_b_to_q for c in row]
-    buf += mul.conv_b_to_msk[0]
-    buf += shoup(mul.M_mod_q_ints, qmods)
-    buf += mul.mskM_mod_q_ints
-    return buf, scalars
+    def q_terms(vals):  # constants of terms whose source is a residue mod q
+        return _split(vals, 61 - _Q_SPLIT)
+
+    def b_terms(vals):  # constants of terms whose source is below 2^60
+        return _split(vals, 61 - _B_SPLIT)
+
+    xq = []
+    for d, b in enumerate(bm):
+        xq += q_terms([cqb[d][i] * imt[d] % b for i in range(L)]
+                      + [mul.q_mod_bsk_ints[d] * imt[d] % b])
+    fb = []
+    for i, b in enumerate(bm[:l]):
+        f = iqb[i] * mul.bhat_inv_b[i] % b
+        fb += q_terms([-cqb[i][j] * f % b for j in range(L)]) + b_terms([t * f % b])
+    f = iqb[l] * mul.inv_M_msk_int % msk
+    fa = (b_terms([c * mul.inv_M_msk_int % msk for c in mul.conv_b_to_msk[0]] + [-t * f % msk])
+          + q_terms([cqb[l][j] * f % msk for j in range(L)]))
+    fq = []
+    for d, q in enumerate(qm):
+        fq += b_terms(list(mul.conv_b_to_q[d]) + [-mul.M % q])
+    ratios_q, ratios_b = _ratios(ctx.moduli), _ratios(mul.bsk_moduli)
+    bufs = {
+        "tensor": qm + bm + ratios_q + ratios_b,
+        "to_bsk": (qm + shoup(mul.mtilde_qhat_inv_ints, qm) + mul.conv_q_to_mtilde_ints + bm
+                   + ratios_b + xq),
+        "floor_sk": (qm + ratios_q + shoup([t * v % q for v, q in zip(mul.qhat_inv_ints, qm)], qm)
+                     + mul.mskM_mod_q_ints + bm + ratios_b + fb + fa + fq),
+    }
+    return bufs, [mul.neg_inv_q_mtilde, mul.msk_half]
 
 
 def _pack_lift(ctx, groups) -> list[int]:
@@ -158,14 +196,19 @@ def _u64_buffer(values, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(host)).to(device)
 
 
-def _constants(mul):
-    """(u64 constant buffer on the card, host u64 scalars) of ``mul``."""
+def _constants(mul) -> tuple[dict, np.ndarray]:
+    """({kernel: device address of its constant buffer}, host u64 scalars)
+    of ``mul``; the buffers share one device tensor, kept with them."""
     bufs = _mul_buffers.get(mul)
     if bufs is None:
-        consts, scalars = _pack_constants(mul)
-        bufs = _mul_buffers[mul] = (_u64_buffer(consts, mul.ctx.device),
-                                    np.asarray(scalars, dtype=np.uint64))
-    return bufs
+        parts, scalars = _pack_constants(mul)
+        dev = _u64_buffer([v for part in parts.values() for v in part], mul.ctx.device)
+        ptrs, offset = {}, 0
+        for name, part in parts.items():
+            ptrs[name] = dev.data_ptr() + 8 * offset
+            offset += len(part)
+        bufs = _mul_buffers[mul] = (ptrs, np.asarray(scalars, dtype=np.uint64), dev)
+    return bufs[0], bufs[1]
 
 
 def _key_buffers_of(ctx, rlk) -> tuple[torch.Tensor, torch.Tensor]:
@@ -246,7 +289,7 @@ def to_bsk(c0, c1, d0, d1, mul) -> torch.Tensor:
     lib = load()
     consts, scalars = _constants(mul)
     _launch(lib, "behz64_to_bsk", c0.data_ptr(), c1.data_ptr(), d0.data_ptr(), d1.data_ptr(),
-            xb.data_ptr(), consts.data_ptr(), scalars.ctypes.data, B, ctx.L, mul.K,
+            xb.data_ptr(), consts["to_bsk"], scalars.ctypes.data, B, ctx.L, mul.K,
             ctx.tables.logn, _stream(c0.device))
     return xb
 
@@ -265,10 +308,9 @@ def tensor_spectra(sq, sb, mul) -> tuple[torch.Tensor, torch.Tensor]:
     eq, eb = _empty(3, B, L, n, device=sq.device), _empty(3, B, K, n, device=sq.device)
     if B == 0:
         return eq, eb
-    consts, scalars = _constants(mul)
+    consts, _ = _constants(mul)
     _launch(load(), "behz64_tensor", sq.data_ptr(), sb.data_ptr(), eq.data_ptr(), eb.data_ptr(),
-            consts.data_ptr(), scalars.ctypes.data, B, L, K, ctx.tables.logn,
-            _stream(sq.device))
+            consts["tensor"], B, L, K, ctx.tables.logn, _stream(sq.device))
     return eq, eb
 
 
@@ -285,7 +327,7 @@ def floor_sk(eq, eb, mul) -> torch.Tensor:
         return out
     consts, scalars = _constants(mul)
     _launch(load(), "behz64_floor_sk", eq.data_ptr(), eb.data_ptr(), out.data_ptr(),
-            consts.data_ptr(), scalars.ctypes.data, B, L, K, ctx.tables.logn,
+            consts["floor_sk"], scalars.ctypes.data, B, L, K, ctx.tables.logn,
             _stream(eq.device))
     return out
 

@@ -24,7 +24,7 @@ import torch
 
 from ..ops.modmath import mul32
 
-__all__ = ["BloomParameters", "BloomFilter", "pack_bits", "probe"]
+__all__ = ["BloomParameters", "BloomFilter", "CompressibleBloomFilter", "pack_bits", "probe"]
 
 BITS_PER_CHAR = 8
 
@@ -192,18 +192,23 @@ def _hash_ap_u64_vec(klo: torch.Tensor, khi: torch.Tensor,
     return h ^ (a ^ b ^ c)
 
 
-def _indices(klo, khi, salts, table_size: int, mixed: bool) -> torch.Tensor:
+def _indices(klo, khi, salts, sizes: tuple, mixed: bool) -> torch.Tensor:
+    """Bit indices [S, K]: the hash reduced by each size of the chain in
+    turn (one size for a plain filter, the historical sizes of a compressed
+    one)."""
     h = _hash_ap_u64_vec(klo, khi, salts)
     if mixed:
         h = _fmix32_vec(h)
-    return h % table_size
+    for s in sizes:
+        h = h % s
+    return h
 
 
 def probe(bits, klo, khi, salts, table_size: int, mixed: bool) -> torch.Tensor:
     """Membership of u64 keys as (lo, hi) word tensors [K] in the unpacked
     bit table ``bits``: the AP hash against every salt, then one gather ->
     bool [K]."""
-    return (bits[_indices(klo, khi, salts, table_size, mixed)] != 0).all(dim=0)
+    return (bits[_indices(klo, khi, salts, (table_size,), mixed)] != 0).all(dim=0)
 
 
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
@@ -268,12 +273,28 @@ class BloomFilter:
 
     # -- host scalar paths (exact reference semantics) ------------------
 
+    def _sizes(self) -> tuple:
+        """The moduli a hash is reduced by, in order."""
+        return (self.table_size,)
+
     def _host_indices(self, data: bytes):
         for s in self.salts:
             h = _hash_ap_bytes(data, int(s))
             if self.index_mode == "mixed":
                 h = _fmix32_int(h)
-            yield h % self.table_size
+            for size in self._sizes():
+                h %= size
+            yield h
+
+    def insert_bytes(self, data: bytes):
+        self._sync_host()
+        for bit_index in self._host_indices(data):
+            self.bit_table[bit_index // 8] |= 1 << (bit_index % 8)
+        self.inserted_element_count += 1
+        self._device_bits = None
+
+    def insert_u64(self, key: int):
+        self.insert_bytes(int(key).to_bytes(8, "little"))
 
     def contains_bytes(self, data: bytes) -> bool:
         self._sync_host()
@@ -315,8 +336,7 @@ class BloomFilter:
         mixed = self.index_mode == "mixed"
         for start in range(0, klo.shape[0], self._INSERT_CHUNK):
             stop = start + self._INSERT_CHUNK
-            idx = _indices(klo[start:stop], khi[start:stop], salts,
-                           self.table_size, mixed)
+            idx = _indices(klo[start:stop], khi[start:stop], salts, self._sizes(), mixed)
             bits.index_fill_(0, idx.reshape(-1), 1)
         self.inserted_element_count += klo.shape[0] if count is None else int(count)
         self._host_dirty = True
@@ -326,8 +346,8 @@ class BloomFilter:
         one gather on the unpacked table over all salts -> bool [K]."""
         klo = torch.as_tensor(klo, device=self.device).reshape(-1)
         khi = torch.as_tensor(khi, device=self.device).reshape(-1)
-        return probe(self.bits_device, klo, khi, self._salts_device(), self.table_size,
-                     self.index_mode == "mixed")
+        idx = _indices(klo, khi, self._salts_device(), self._sizes(), self.index_mode == "mixed")
+        return (self.bits_device[idx] != 0).all(dim=0)
 
     def _sync_host(self):
         if self._device_bits is not None and self._host_dirty:
@@ -342,13 +362,41 @@ class BloomFilter:
             and self.random_seed == other.random_seed
         )
 
+    # -- set algebra (bloomfilter.h:410-444) ----------------------------
+
+    def _combine(self, other, op):
+        if self._compatible(other):
+            self._sync_host()
+            other._sync_host()
+            op(self.bit_table, other.bit_table, out=self.bit_table)
+            self._device_bits = None
+        return self
+
+    def __iand__(self, other):
+        return self._combine(other, np.bitwise_and)
+
+    def __ior__(self, other):
+        return self._combine(other, np.bitwise_or)
+
+    def __ixor__(self, other):
+        return self._combine(other, np.bitwise_xor)
+
+    def clear(self):
+        self._sync_host()
+        self.bit_table[:] = 0
+        self.inserted_element_count = 0
+        self._device_bits = None
+
+    def effective_fpp(self) -> float:
+        k = len(self.salts)
+        return (1.0 - math.exp(-1.0 * k * self.inserted_element_count / self.table_size)) ** k
+
     # -- wire format (bloomfilter.h:218-278) ----------------------------
 
     def compute_serialization_size(self) -> int:
         return _HDR.size + 4 * len(self.salts) + self.table_size // 8
 
-    def serialize(self) -> bytes:
-        self._sync_host()
+    def _header_bytes(self) -> bytes:
         return _HDR.pack(
             self.salt_count,
             self.table_size,
@@ -356,7 +404,33 @@ class BloomFilter:
             self.inserted_element_count,
             self.random_seed,
             self.desired_fpp,
-        ) + self.salts.tobytes() + self.bit_table.tobytes()
+        ) + self.salts.tobytes()
+
+    def serialize(self) -> bytes:
+        self._sync_host()
+        return self._header_bytes() + self.bit_table.tobytes()
+
+    def iter_serialized(self, chunk_bytes: int = 16 << 20):
+        """``serialize()``'s bytes in pieces: the header, then the packed
+        table in slices of ``chunk_bytes``. A table changed on the device is
+        packed there once and copied to the host one slice at a time, so a
+        consumer (a socket) can send a slice while the next one is copied;
+        the host table is refreshed on the way, so a later ``serialize()``
+        costs no copy."""
+        yield self._header_bytes()
+        if self._device_bits is None or not self._host_dirty:
+            table = self.bit_table.tobytes()
+            for off in range(0, len(table), chunk_bytes):
+                yield table[off:off + chunk_bytes]
+            return
+        packed = pack_bits(self._device_bits)
+        host_rows = []
+        for off in range(0, packed.shape[0], chunk_bytes):
+            row = packed[off:off + chunk_bytes].cpu().numpy()
+            host_rows.append(row)
+            yield row.tobytes()
+        self.bit_table = np.concatenate(host_rows) if host_rows else self.bit_table
+        self._host_dirty = False
 
     @classmethod
     def deserialize(cls, buf: bytes, index_mode: str = "reference",
@@ -387,3 +461,64 @@ class BloomFilter:
             and self.inserted_element_count == other.inserted_element_count
             and (self.bit_table == other.bit_table).all()
         )
+
+
+class CompressibleBloomFilter(BloomFilter):
+    """Partow's ``compressible_bloom_filter`` (bloomfilter.h:613-688): the
+    bit table can shrink after construction; an index is reduced by every
+    historical size in turn, so earlier insertions keep resolving.
+
+    ``compress(percentage)`` folds the table (OR of the wrapped bits) to
+    (100 - percentage)% of its current size, byte-aligned, and returns False,
+    leaving the filter unchanged, for an out-of-range or degenerate request.
+    The wire format is the base one, then a u16 count and the u64 sizes."""
+
+    def __init__(self, params: BloomParameters | None = None, device="cpu"):
+        super().__init__(params, device)
+        self.size_list = [self.table_size] if self.table_size else []
+
+    def _sizes(self) -> tuple:
+        return tuple(self.size_list)
+
+    def _size_tail(self) -> bytes:
+        return struct.pack("<H", len(self.size_list)) + b"".join(
+            struct.pack("<Q", size) for size in self.size_list)
+
+    def serialize(self) -> bytes:
+        return super().serialize() + self._size_tail()
+
+    @classmethod
+    def deserialize(cls, buf: bytes, index_mode: str = "reference",
+                    device="cpu") -> "CompressibleBloomFilter":
+        bf = super().deserialize(buf, index_mode, device)
+        off = _HDR.size + 4 * bf.salt_count + bf.table_size // 8
+        (n_sizes,) = struct.unpack_from("<H", buf, off)
+        bf.size_list = list(struct.unpack_from(f"<{n_sizes}Q", buf, off + 2))
+        if not bf.size_list or bf.size_list[-1] != bf.table_size:
+            raise ValueError("the size chain does not end at the table size")
+        return bf
+
+    def compute_serialization_size(self) -> int:
+        return super().compute_serialization_size() + 2 + 8 * len(self.size_list)
+
+    def iter_serialized(self, chunk_bytes: int = 16 << 20):
+        yield from super().iter_serialized(chunk_bytes)
+        yield self._size_tail()
+
+    def compress(self, percentage: float) -> bool:
+        if not 0.0 < percentage < 100.0:
+            return False
+        self._sync_host()
+        original = self.table_size
+        new_size = int(original * (1.0 - percentage / 100.0))
+        new_size -= new_size % BITS_PER_CHAR
+        if new_size < BITS_PER_CHAR or new_size >= original:
+            return False
+        bits = np.unpackbits(self.bit_table, bitorder="little")[:original]
+        folded = np.zeros(new_size, np.uint8)
+        np.bitwise_or.at(folded, np.arange(original) % new_size, bits)
+        self.bit_table = np.packbits(folded, bitorder="little")
+        self.table_size = new_size
+        self.size_list.append(new_size)
+        self._device_bits = None
+        return True

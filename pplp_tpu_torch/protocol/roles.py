@@ -155,6 +155,15 @@ class ProximityServer:
     def bf_message(self) -> bytes:
         return struct.pack("<Q", self.blinding.w) + self.bf.serialize()
 
+    def bf_message_size(self) -> int:
+        return 8 + self.bf.compute_serialization_size()
+
+    def bf_message_chunks(self):
+        """``bf_message`` in pieces (the same bytes): w, then the filter's
+        ``iter_serialized`` slices."""
+        yield struct.pack("<Q", self.blinding.w)
+        yield from self.bf.iter_serialized()
+
     def receive_ciphertexts(self, blobs: list[bytes]):
         self.c1, self.c2, self.c3 = (load_ciphertext(b, self.ctx) for b in blobs)
 

@@ -321,17 +321,21 @@ def test_u64_wrappers_refuse_cpu_tensors(ref):
 
 
 def test_u64_constant_buffer_layout(ref):
-    """The packed constants have exactly the length behz64.cu's layout
-    reads, the four scalars are kept once (host side), and every value fits
-    a u64."""
+    """Each kernel's packed constants have exactly the length behz64.cu's
+    layout reads (``Consts``, ``ToBsk::words``, ``FloorSk::words``), the two
+    scalars are kept once (host side), and every value fits a u64."""
     ctx, mul = ref.ctx, ref.mul
     L, K = ctx.L, mul.K
     l = K - 1
-    buf, scalars = behz64_cuda._pack_constants(mul)
-    assert len(buf) == 13 * L + 11 * K + K * L + 3 * l + L * l
-    assert scalars[0] == mul.neg_inv_q_mtilde and scalars[3] == mul.msk_half
+    bufs, scalars = behz64_cuda._pack_constants(mul)
+    assert {k: len(v) for k, v in bufs.items()} == {
+        "tensor": 3 * L + 3 * K,
+        "to_bsk": 4 * L + 3 * K + K * (L + 1),
+        "floor_sk": 6 * L + 3 * K + l * (L + 1) + (K + L) + L * K}
+    assert scalars == [mul.neg_inv_q_mtilde, mul.msk_half]
+    buf = bufs["tensor"]
     assert buf[:L + K] == [m.value for m in (*ctx.moduli, *mul.bsk_moduli)]
-    assert all(0 <= v < 1 << 64 for v in buf + scalars)
+    assert all(0 <= v < 1 << 64 for part in bufs.values() for v in part + scalars)
     lo, hi = buf[L + K : L + K + 2]  # floor(2^128 / q_0)
     assert lo + (hi << 64) == (1 << 128) // CHAIN[0]
     for width in (1, 2):

@@ -72,18 +72,21 @@ def test_conversion_past_2_128_is_summed_in_parts():
 
 
 def test_u64_route_counts_what_the_functions_need():
-    """A 64 x 64 -> 128-bit product is 4 partial products; the Barrett
-    reduction of a 128-bit value by floor(2^128 / q) < 2^96 is 4 x 3 + 3.
-    On the seal chain n = 4096 at batch 256, width 1, to_bsk is then bound by
-    its bytes and floor_sk by its multiplies, and the call's work is the sum
-    of its phases'."""
+    """A 64 x 64 -> 128-bit product is 4 partial products; the reduction of
+    a 128-bit value by floor(2^128 / q) = rh 2^64 + r0 with rh < 2^32 is
+    2 + 4 + 2 + 3. The conversions count one reduction per output (their
+    folded constants). On the seal chain n = 4096 at batch 256, width 1,
+    to_bsk and floor_sk are then bound by their bytes, and the call's work
+    is the sum of its phases'."""
     mm = measure_multiply
-    assert (mm.U64_MAC_MULS, mm.U64_REDUCE128_MULS, mm.U64_REDUCE64_MULS) == (4, 15, 9)
-    assert mm.U64_MULMOD_MULS == 19 and mm.U64_PRODUCT_MULS == 10
+    assert (mm.U64_MAC_MULS, mm.U64_REDUCE128_MULS, mm.U64_REDUCE64_MULS) == (4, 11, 9)
+    assert mm.U64_MULMOD_MULS == 15 and mm.U64_PRODUCT_MULS == 10
     counts = mm.kernel_counts64(4096, 3, 5, 3, 256)
     assert counts["behz64_to_bsk"]["bound_by"] == "bytes"
-    assert counts["behz64_floor_sk"]["bound_by"] == "operations"
+    assert counts["behz64_floor_sk"]["bound_by"] == "bytes"
+    e = 256 * 4096
+    assert counts["behz64_floor_sk"]["mulmods"] * mm.U64_PRODUCT_MULS == 3 * e * (
+        3 * 10 + 4 * (4 * 4 + 11) + (8 * 4 + 11) + 3 * (5 * 4 + 11))
     call = mm.call_counts64(4096, 3, 5, 3, 256)
     assert call["mulmods"] == sum(c["mulmods"] for c in counts.values())
-    e = 256 * 4096
-    assert counts["behz64_tensor"]["mulmods"] * mm.U64_PRODUCT_MULS == e * 8 * 3 * 19
+    assert counts["behz64_tensor"]["mulmods"] * mm.U64_PRODUCT_MULS == e * 8 * 3 * 15

@@ -539,6 +539,40 @@ def test_seal_steps_match_plain(dev, n, t_bits):
         assert torch.equal(behz64_cuda.add_switched(c0, c1, d, ctx), want)
 
 
+_CONVERSION_CASES = [
+    # (n, chain, t bits, batch): the seal chains (|B_sk| = L + 2, constant
+    # limb counts), rows shorter than one tile of 256 coefficients, and a
+    # shape with run-time limb counts (L = 4, |B_sk| = 6).
+    (4096, None, 16, (1,)), (4096, None, 16, (3,)), (8192, None, 56, (1,)),
+    (8192, None, 56, (5,)), (16384, None, 56, (3,)), (32768, None, 56, (1,)),
+    (32768, None, 56, (3,)), (64, "seal4096", 16, (3,)), (128, "seal4096", 16, (1,)),
+    (256, "62x4", 16, (3,)), (64, "62x4", 16, (1,)),
+]
+
+
+@pytest.mark.parametrize("n,chain,t_bits,batch", _CONVERSION_CASES)
+def test_seal_conversions_match_plain(dev, n, chain, t_bits, batch):
+    """to_bsk and floor_sk against their plain steps on random canonical
+    residues with the largest ones in every limb."""
+    coeff = {None: None, "seal4096": bfv_default(4096), "62x4": get_primes(62, 4, n)}[chain]
+    parms = bfv.EncryptionParameters.bfv(n, 1 << t_bits, profile="seal", coeff_modulus=coeff)
+    ctx = bfv.BFVContext.build(parms, dev)
+    mul = behz.multiplier(ctx)
+    assert ctx.tables.profile == "m62" and (chain != "62x4" or (ctx.L, mul.K) == (4, 6))
+    tq, tb = ctx.tables, mul.bsk_tables
+    x = _residues(tq, (4,) + batch, n + 1)
+    x[..., :3] = tq.q_b(1) - 1
+    behz64_cuda.reset_launches()
+    assert torch.equal(behz64_cuda.to_bsk(*x, mul).reshape(4, *batch, mul.K, n), mul._to_bsk(x))
+    eq, eb = _residues(tq, (3,) + batch, n + 2), _residues(tb, (3,) + batch, n + 3)
+    eq[..., -3:], eb[..., -3:] = tq.q_b(1) - 1, tb.q_b(1) - 1
+    B = int(np.prod(batch))
+    got = behz64_cuda.floor_sk(eq.reshape(3, B, ctx.L, n), eb.reshape(3, B, mul.K, n), mul)
+    assert torch.equal(got.reshape(eq.shape), mul._sk_to_q(mul._fast_floor(eq, eb)))
+    assert behz64_cuda.launches_by_kernel["behz64_to_bsk"] == 1
+    assert behz64_cuda.launches_by_kernel["behz64_floor_sk"] == 1
+
+
 def test_seal_at_the_limb_bound(dev):
     """L = 40 primes of 62 bits (the kernels' bound; |B_sk| = 44) at n = 64:
     the widest conversion sums the u64 route meets, up to 2^127.3 (40

@@ -5,7 +5,7 @@
 * With injected randomness (s, a, e and each message's u, e0, e1 drawn with
   numpy) the port's roles and the reference's put byte-identical messages
   on the wire: the three ciphertexts, w ‖ BF, and the blind distance; on
-  both profiles.
+  both profiles. The streamed w ‖ BF (size and chunks) equals it.
 * The CLI and ``ProtocolConfig`` defaults equal the reference's (the
   default profile is ``seal``); the seal demo runs from the CLI on the CPU.
 * ``import pplp_tpu_torch`` loads neither jax nor the JAX package; without a
@@ -161,6 +161,23 @@ def _wire_messages_byte_identical(small):
     assert bd == rbd
     assert near is r_near is True
     assert client.blind_distance == rclient.blind_distance
+
+
+@pytest.mark.parametrize("mode", ["reference", "mixed"])
+def test_bf_message_size_and_chunks_match_reference(mode):
+    """The streamed w ‖ BF message: ``bf_message_size`` and the joined
+    ``bf_message_chunks`` equal the reference server's and ``bf_message``."""
+    kw = dict(xa=1234, ya=1212, xb=1000, yb=1000, radius=40, bf_index_mode=mode, **SMALL)
+    cfg, rcfg = ProtocolConfig(**kw), RProtocolConfig(**kw)
+    parms = RClient(rcfg).parms_message()
+    rserver, server = RServer(rcfg), ProximityServer(cfg, "cpu")
+    for s in (rserver, server):
+        s.receive_parms(parms)
+        s.build_bloom_filter()
+    want = b"".join(rserver.bf_message_chunks())
+    assert b"".join(server.bf_message_chunks()) == want
+    assert server.bf_message() == want
+    assert server.bf_message_size() == rserver.bf_message_size() == len(want)
 
 
 def test_import_loads_no_jax():
