@@ -80,8 +80,32 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
                n = 4096 and 8192 one real product decrypted and equal to the
                host negacyclic product; on every chain ``mod_switch_to_next``
                on the card equal to the same call on a CPU copy and
-               decrypting to the plaintext with the restricted key. Last,
-               so that none of its contexts counts in the pipeline's peak.
+               decrypting to the plaintext with the restricted key. After
+               the pipeline, so that none of its contexts counts in the
+               pipeline's peak;
+10. network -- the networked entry points at the CLI's -d 13 -b 56, with
+               fpp 1e-4 as the client and server use it. In process, over TCP
+               on 127.0.0.1 (``run_server_protocol`` on
+               ``connect_to_client`` in a thread, ``run_client_protocol`` on
+               ``connect_to_server``), on seal and tpu, r = 4096 near and
+               r = 128 far, each case twice with the same seed: the verdict
+               equals the clear oracle, the blind distance s(d^2 + r) mod t
+               from the server's blinding, the same both times; the
+               profile's NTT kernels launched, the server's filter on the
+               card, each side's bytes sent equal to the other's received,
+               the BF frame 8 + ``compute_serialization_size()`` bytes. The
+               key formats on both profiles: pk, sk and width-1/width-2
+               relinearization keys saved from the card and from a CPU copy
+               to the same bytes, loaded on the card to the CPU's tensors.
+               Then the entry points as processes: ``cli server`` and
+               ``cli client`` at r = 4096 (near), and ``cli ts`` / ``cli tc``
+               over the reference's whole sweep (r = 16..4096, leg then opt,
+               seal): four CSVs with the reference's columns and 9 rows,
+               ``c_total = c_totalSend + c_totalRecv``, ``c_sendPk`` > 0 only
+               in leg rows, ``d_setBF`` and ``d_homoCalc`` > 0, and no
+               radius's server left on the card after it (ts's device
+               memory lines). Per radius it prints the client's totals and
+               the server's setBF, homoCalc and sendBF stages.
 
 The last lines are a JSON object with one entry per kernel (launches on
 the main paths, max error, ms and plain ms as measured here, ``ms_source``:
@@ -100,10 +124,13 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import re
 import subprocess
 import sys
 import time
 
+REPO = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SHAPES = (("tpu", 4096, 4), ("tpu", 8192, 8), ("tpu", 32768, 31),
                  ("seal", 4096, 3), ("seal", 8192, 5), ("seal", 16384, 9),
                  ("seal", 32768, 16))
@@ -917,6 +944,290 @@ def phase_pipeline(dev):
     return launches
 
 
+def _free_port() -> int:
+    """A TCP port on 127.0.0.1 that the kernel gave to a socket bound to
+    port 0 (closed again, so that a listener can take it)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _connect(port: int, wait_s: float = 60.0):
+    """A channel to the listener on 127.0.0.1:port, retried while it starts."""
+    from pplp_tpu_torch.protocol.transport import connect_to_server
+
+    deadline = time.monotonic() + wait_s
+    while True:
+        try:
+            return connect_to_server("127.0.0.1", port)
+        except ConnectionRefusedError:
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.02)
+
+
+def _network_pair(dev, cfg_client, cfg_server):
+    """run_server_protocol on connect_to_client in a thread, run_client_protocol
+    on connect_to_server here, over TCP on 127.0.0.1; (client, server,
+    client channel, server channel, seconds)."""
+    import threading
+
+    from pplp_tpu_torch.protocol.netmain import run_client_protocol, run_server_protocol
+    from pplp_tpu_torch.protocol.transport import connect_to_client
+
+    port = _free_port()
+    out, err = {}, []
+
+    def serve():
+        try:
+            chan = connect_to_client("127.0.0.1", port)
+            out["chan"] = chan
+            try:
+                out["server"] = run_server_protocol(chan, cfg_server, verbose=False, device=dev)
+            finally:
+                chan.close()
+        except BaseException as e:  # re-raised below, in the main thread
+            err.append(e)
+
+    th = threading.Thread(target=serve, daemon=True)
+    t0 = time.perf_counter()
+    th.start()
+    chan = _connect(port)
+    try:
+        client = run_client_protocol(chan, cfg_client, verbose=False, device=dev)
+    finally:
+        chan.close()
+        th.join(timeout=600)
+    seconds = time.perf_counter() - t0
+    assert not th.is_alive(), "the server thread did not finish"
+    if err:
+        raise err[0]
+    return client, out["server"], chan, out["chan"], seconds
+
+
+def _key_leaves(k) -> dict:
+    return {name: v for name, v in vars(k).items() if name != "groups"}
+
+
+def _network_keys(dev, profile):
+    """pk, sk and width-1/width-2 relinearization keys at n = 2^DEMO_N_BITS:
+    saved from the card and from a CPU copy to the same bytes; loaded on the
+    card to the same NTT-domain tensors and Shoup companions as on the CPU."""
+    import copy
+
+    import torch
+
+    from pplp_tpu_torch import bfv
+    from pplp_tpu_torch.bfv import behz, serialize
+
+    parms = bfv.EncryptionParameters.bfv(1 << DEMO_N_BITS, 1 << DEMO_T_BITS, profile=profile)
+    ctx, cpu = bfv.BFVContext.build(parms, dev), bfv.BFVContext.build(parms, "cpu")
+    gen = torch.Generator(device=dev).manual_seed(8192)
+    kg = bfv.KeyGenerator(ctx, gen)
+    sk, pk = kg.secret_key(), kg.create_public_key()
+    cases = [("pk", pk, serialize.save_public_key, serialize.load_public_key),
+             ("sk", sk, serialize.save_secret_key, serialize.load_secret_key)]
+    for width in (1, 2):
+        cases.append((f"kswitch w{width}", behz.create_relin_keys(ctx, sk, gen, width=width),
+                      serialize.save_kswitch_keys, serialize.load_kswitch_keys))
+    sizes = []
+    for name, key, save, load in cases:
+        host = copy.copy(key)
+        for leaf, v in _key_leaves(key).items():
+            setattr(host, leaf, v.cpu())
+        blob = save(key, ctx)
+        assert blob == save(host, cpu), f"{profile} {name}: card and CPU bytes differ"
+        on_card, on_cpu = load(blob, ctx), load(blob, cpu)
+        torch.cuda.synchronize()
+        for leaf, v in _key_leaves(on_card).items():
+            assert v.is_cuda, f"{profile} {name}: {leaf} is not on the card"
+            assert torch.equal(v.cpu(), getattr(on_cpu, leaf)), (
+                f"{profile} {name}: {leaf} loaded on the card differs from the CPU's")
+            assert torch.equal(v, getattr(key, leaf)), f"{profile} {name}: {leaf} round trip"
+        if name.startswith("kswitch"):
+            assert on_card.groups == on_cpu.groups == key.groups, f"{profile} {name}: groups"
+        sizes.append(f"{name} {len(blob)} B")
+    return sizes
+
+
+def _cli(args, log_path):
+    """``python -m pplp_tpu_torch.cli`` with ``args``, its output to ``log_path``."""
+    with open(log_path, "w") as f:
+        return subprocess.Popen([sys.executable, "-u", "-m", "pplp_tpu_torch.cli", *args],
+                                stdout=f, stderr=subprocess.STDOUT, cwd=REPO,
+                                env=dict(os.environ, PYTHONPATH=REPO))
+
+
+def _serve_and_run(server_args, client_args, ready, tmp, name, timeout=600):
+    """The server's CLI as one process; once its log shows ``ready``, the
+    client's CLI as another. Both logs' lines, after both exit 0."""
+    srv_log, cli_log = os.path.join(tmp, f"{name}_server.log"), os.path.join(tmp, f"{name}_client.log")
+    procs = [_cli(server_args, srv_log)]
+    try:
+        deadline = time.monotonic() + timeout
+        while ready not in open(srv_log).read():
+            assert procs[0].poll() is None, f"{name} server exited: {open(srv_log).read()}"
+            assert time.monotonic() < deadline, f"{name} server never became ready"
+            time.sleep(0.1)
+        procs.append(_cli(client_args, cli_log))
+        rc, server_rc = (p.wait(timeout=timeout) for p in procs[::-1])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    client_out, server_out = open(cli_log).read(), open(srv_log).read()
+    assert rc == 0, f"{name} client exit {rc}:\n{client_out}"
+    assert server_rc == 0, f"{name} server exit {server_rc}:\n{server_out}"
+    return client_out.splitlines(), server_out.splitlines()
+
+
+def _read_csv(path):
+    import csv
+
+    with open(path) as f:
+        rows = list(csv.reader(f))
+    return rows[0], [dict(zip(rows[0], map(int, r))) for r in rows[1:]]
+
+
+def phase_network(dev):
+    """The networked entry points on the card; returns the NTT launches of
+    the in-process runs and the key formats."""
+    import tempfile
+
+    import torch
+
+    from pplp_tpu_torch.benchmark import harness
+    from pplp_tpu_torch.benchmark.sweep import RADIUS_SWEEP
+    from pplp_tpu_torch.ops import ntt_cuda
+    from pplp_tpu_torch.protocol import ProtocolConfig
+
+    t_phase = time.perf_counter()
+    card = torch.cuda.get_device_name(dev)
+    launches = {k: 0 for k in ntt_cuda.launches_by_kernel}
+
+    def count():
+        for k, v in ntt_cuda.launches_by_kernel.items():
+            launches[k] += v
+
+    # 1. In process, over TCP on 127.0.0.1: both roles, each case twice.
+    for profile in ("seal", "tpu"):
+        for radius, xa, ya, xb, yb in DEMO_CASES:
+            kw = dict(radius=radius, plain_modulus_bits=DEMO_T_BITS,
+                      poly_modulus_degree_bits=DEMO_N_BITS, profile=profile, seed=11,
+                      false_positive_probability=1e-4)
+            tag = f"{profile} r={radius}"
+            d2 = (xa - xb) ** 2 + (ya - yb) ** 2
+            seen = set()
+            for run in range(2):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                ntt_cuda.reset_launches()
+                client, server, ca, cb, seconds = _network_pair(
+                    dev, ProtocolConfig(xa=xa, ya=ya, **kw), ProtocolConfig(xb=xb, yb=yb, **kw))
+                torch.cuda.synchronize()
+                run_launches = dict(ntt_cuda.launches_by_kernel)
+                count()
+                peak = torch.cuda.max_memory_allocated(dev)
+                bl = server.blinding
+                assert client.is_near == (d2 < radius * radius), f"{tag}: verdict"
+                assert client.blind_distance == bl.s * (d2 + bl.r) % (1 << DEMO_T_BITS), (
+                    f"{tag}: blind distance {client.blind_distance:#x} is not s(d^2+r) mod t")
+                assert all(run_launches[k] > 0 for k in PROFILE_NTT[profile]), (
+                    f"{tag}: NTT kernel launches {run_launches}")
+                assert server.bf.bits_device.device.type == "cuda", f"{tag}: filter not on card"
+                assert (ca.bytes_sent, ca.bytes_received) == (cb.bytes_received, cb.bytes_sent), (
+                    f"{tag}: byte counts {ca.bytes_sent, ca.bytes_received} against "
+                    f"{cb.bytes_received, cb.bytes_sent}")
+                ct_bytes = (ca.bytes_sent - 4 * 128 - len(client.parms_message())) // 3
+                bf_frame = ca.bytes_received - 2 * 128 - ct_bytes
+                assert bf_frame == 8 + server.bf.compute_serialization_size(), (
+                    f"{tag}: BF frame {bf_frame} bytes")
+                seen.add((client.is_near, client.blind_distance))
+                log(f"[network] {tag} run {run}: {'near' if client.is_near else 'far'} (oracle "
+                    f"{'near' if d2 < radius * radius else 'far'}), blind distance "
+                    f"{client.blind_distance:#x}; client sent {ca.bytes_sent} B, received "
+                    f"{ca.bytes_received} B (BF frame {bf_frame} B); {seconds:.3f} s; launches "
+                    f"{run_launches}; peak device memory {peak} B [{card}]")
+                del client, server
+            assert len(seen) == 1, f"{tag}: the two runs differ: {seen}"
+
+    # 2. Key formats: card against CPU.
+    for profile in ("seal", "tpu"):
+        ntt_cuda.reset_launches()
+        sizes = _network_keys(dev, profile)
+        torch.cuda.synchronize()
+        log(f"[network] {profile} keys at n = {1 << DEMO_N_BITS}: saved from the card == from "
+            f"the CPU, loaded on the card == on the CPU ({', '.join(sizes)}); launches "
+            f"{dict(ntt_cuda.launches_by_kernel)}")
+        count()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 3. The client and server entry points as processes (seal, the default).
+        port = str(_free_port())
+        t0 = time.perf_counter()
+        c_lines, _ = _serve_and_run(
+            ["server", "-x", "1000", "-y", "1000", "-r", "4096", "-p", port],
+            ["client", "-x", "1234", "-y", "1212", "-r", "4096", "-p", port],
+            "listening", tmp, "client_server")
+        assert "Result of proximity test: near" in c_lines, "\n".join(c_lines)
+        timed = [x for x in c_lines if x.startswith(("Recv the BF", "Time measured"))]
+        log(f"[network] cli server + client (seal, r = 4096): near; "
+            f"{'; '.join(timed)}; {time.perf_counter() - t0:.1f} s with start-up")
+
+        # 4. The tc/ts pair as processes over the whole sweep, leg then opt.
+        port = str(_free_port())
+        csvs = {k: os.path.join(tmp, f"{k}.csv") for k in
+                ("client_leg", "client_opt", "server_leg", "server_opt")}
+        t0 = time.perf_counter()
+        tc_lines, ts_lines = _serve_and_run(
+            ["ts", "-p", port, "--out-leg", csvs["server_leg"], "--out-opt",
+             csvs["server_opt"]],
+            ["tc", "-p", port, "--out-leg", csvs["client_leg"], "--out-opt",
+             csvs["client_opt"]],
+            "ts prewarm done", tmp, "sweep")
+        sweep_s = time.perf_counter() - t0
+        cols = {"client_leg": harness._CLIENT_LEG_COLS + harness._TRAFFIC_COLS,
+                "client_opt": harness._CLIENT_OPT_COLS + harness._TRAFFIC_COLS,
+                "server_leg": harness._SERVER_LEG_COLS,
+                "server_opt": harness._SERVER_OPT_COLS}
+        table = {}
+        for key, path in csvs.items():
+            header, rows = _read_csv(path)
+            assert header == ["radius", *cols[key]], f"{key}: header {header}"
+            assert [r["radius"] for r in rows] == RADIUS_SWEEP, f"{key}: radii"
+            for r in rows:
+                if key.startswith("client"):
+                    assert r["c_total"] == r["c_totalSend"] + r["c_totalRecv"], f"{key} {r}"
+                    assert (r["c_sendPk"] > 0) == (key == "client_leg"), f"{key} c_sendPk"
+                else:
+                    assert r["d_setBF"] > 0 and r["d_homoCalc"] > 0, f"{key} {r}"
+            table[key] = {r["radius"]: r for r in rows}
+        memory = [re.search(r"peak (\d+) bytes, (\d+) bytes held", x) for x in ts_lines]
+        peaks = [int(m.group(1)) for m in memory if m]
+        held = [int(m.group(2)) for m in memory if m]
+        assert len(held) == 2 * len(RADIUS_SWEEP), "\n".join(ts_lines)
+        assert max(held) < 64 << 20, f"a radius's server stayed on the card: {held}"
+        for radius in RADIUS_SWEEP:
+            c_leg, c_opt = table["client_leg"][radius], table["client_opt"][radius]
+            s_leg, s_opt = table["server_leg"][radius], table["server_opt"][radius]
+            log(f"[network] sweep r={radius}: client d_total leg {c_leg['d_total'] / 1e6:.3f} "
+                f"opt {c_opt['d_total'] / 1e6:.3f} ms; server leg d_setBF "
+                f"{s_leg['d_setBF'] / 1e6:.3f} d_homoCalc {s_leg['d_homoCalc'] / 1e6:.3f} "
+                f"d_sendBF {s_leg['d_sendBF'] / 1e6:.3f} ms, opt {s_opt['d_setBF'] / 1e6:.3f} "
+                f"{s_opt['d_homoCalc'] / 1e6:.3f} {s_opt['d_sendBF'] / 1e6:.3f} ms; c_recvBF "
+                f"{c_leg['c_recvBF']} B, c_sendPk {c_leg['c_sendPk']} B [{card}]")
+        log(f"[network] sweep (seal, -d {DEMO_N_BITS} -b {DEMO_T_BITS}, r = "
+            f"{RADIUS_SWEEP[0]}..{RADIUS_SWEEP[-1]}, leg then opt) in {sweep_s:.1f} s with "
+            f"start-up; ts device memory per radius: peak up to {max(peaks)} B, at most "
+            f"{max(held)} B held after a radius")
+    log(f"[network] phase done in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+
 def main() -> int:
     import torch
 
@@ -940,6 +1251,7 @@ def main() -> int:
     rows.update(sep_rows)
     seal_rows, seal_ntt = phase_seal_multiply(dev)
     rows.update(seal_rows)
+    net_ntt = phase_network(dev)
     n = 1 << DEMO_N_BITS
     main_shapes = {prof: (6, len(_chain(prof, n)), n) for prof in PROFILE_NTT}
     u32_shape = (ROWS_PER_LIMB, len(_chain("tpu", 32768)), 32768)
@@ -948,7 +1260,7 @@ def main() -> int:
         for name in names:
             ms, plain_ms = times[prof, shape][name]
             rows[name] = {"launches": sum(c[name] for c in (launches, mult_ntt, pipe_ntt,
-                                                            sep_ntt, seal_ntt)),
+                                                            sep_ntt, seal_ntt, net_ntt)),
                           "max_abs_err": err[name], "ms": ms, "ms_source": "profiler",
                           "plain_ms": plain_ms,
                           **_ntt_bound(name, shape)}

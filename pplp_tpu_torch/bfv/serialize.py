@@ -1,8 +1,11 @@
-"""Binary wire format for parameters and ciphertexts.
+"""Binary wire format for parameters, ciphertexts and keys.
 
 Counterpart of ``pplp_tpu.bfv.serialize``, byte-identical to it: versioned
 little-endian frames; per-limb residues packed to the minimal byte width of
-the limb's modulus.
+the limb's modulus. Keys live in the NTT domain; on the wire they are in
+coefficient order, so a save runs the inverse transform and a load the
+forward one (the NTT kernels on a CUDA context) and recomputes the Shoup
+companions.
 """
 
 from __future__ import annotations
@@ -12,14 +15,22 @@ import struct
 import numpy as np
 import torch
 
+from ..ops import ntt
+from .behz import KSwitchKeys, _digit_groups
 from .ciphertext import Ciphertext
 from .context import BFVContext
+from .keys import PublicKey, SecretKey, shoup
 from .params import SCHEME_BFV, EncryptionParameters
 
-__all__ = ["save_parms", "load_parms", "save_ciphertext", "load_ciphertext"]
+__all__ = ["save_parms", "load_parms", "save_ciphertext", "load_ciphertext",
+           "save_public_key", "load_public_key", "save_secret_key", "load_secret_key",
+           "save_kswitch_keys", "load_kswitch_keys"]
 
 _MAGIC_PARMS = b"PPLPprm1"
 _MAGIC_CT = b"PPLPctx1"
+_MAGIC_PK = b"PPLPpub1"
+_MAGIC_SK = b"PPLPsec1"
+_MAGIC_KSW = b"PPLPksw1"
 
 
 def save_parms(parms: EncryptionParameters) -> bytes:
@@ -93,3 +104,74 @@ def load_ciphertext(buf: bytes, ctx: BFVContext) -> Ciphertext:
         res, off = _unpack_residues(buf, off, n, widths)
         polys.append(torch.as_tensor(res.astype(np.int64), device=ctx.device))
     return Ciphertext(tuple(polys), "coeff")
+
+
+def _header(buf: bytes, magic: bytes, fmt: str, ctx: BFVContext, what: str):
+    """The fields of a key header after checking its magic and context."""
+    if buf[:8] != magic:
+        raise ValueError(f"bad {what} magic")
+    fields = struct.unpack_from(fmt, buf, 8)
+    if fields[:2] != (ctx.n, ctx.L):
+        raise ValueError(f"{what}/context mismatch")
+    return fields, 8 + struct.calcsize(fmt)
+
+
+def _save_spectra(spectra: torch.Tensor, ctx: BFVContext) -> list[bytes]:
+    """NTT-domain polynomials [k, L, n] -> their packed coefficient residues,
+    one inverse transform for all of them."""
+    widths = _limb_widths(ctx)
+    coeff = ntt.inverse(spectra.contiguous(), ctx.tables).cpu().numpy()
+    return [_pack_residues(poly, widths) for poly in coeff]
+
+
+def _load_spectra(buf: bytes, off: int, count: int, ctx: BFVContext):
+    """``count`` packed coefficient polynomials -> their spectra [count, L, n]
+    and Shoup companions on the context's device, one forward transform."""
+    widths = _limb_widths(ctx)
+    polys = []
+    for _ in range(count):
+        res, off = _unpack_residues(buf, off, ctx.n, widths)
+        polys.append(res.astype(np.int64))
+    x = torch.as_tensor(np.stack(polys), device=ctx.device)
+    spec = ntt.forward(x, ctx.tables)
+    return spec, shoup(ctx, spec)
+
+
+def save_public_key(pk: PublicKey, ctx: BFVContext) -> bytes:
+    """pk0 ‖ pk1 in coefficient order."""
+    blobs = _save_spectra(torch.stack([pk.pk0_ntt, pk.pk1_ntt]), ctx)
+    return b"".join([_MAGIC_PK, struct.pack("<QH", ctx.n, ctx.L), *blobs])
+
+
+def load_public_key(buf: bytes, ctx: BFVContext) -> PublicKey:
+    _, off = _header(buf, _MAGIC_PK, "<QH", ctx, "public key")
+    spec, sh = _load_spectra(buf, off, 2, ctx)
+    return PublicKey(pk0_ntt=spec[0], pk1_ntt=spec[1], pk0_shoup=sh[0], pk1_shoup=sh[1])
+
+
+def save_secret_key(sk: SecretKey, ctx: BFVContext) -> bytes:
+    blobs = _save_spectra(sk.s_ntt[None], ctx)
+    return b"".join([_MAGIC_SK, struct.pack("<QH", ctx.n, ctx.L), *blobs])
+
+
+def load_secret_key(buf: bytes, ctx: BFVContext) -> SecretKey:
+    _, off = _header(buf, _MAGIC_SK, "<QH", ctx, "secret key")
+    spec, sh = _load_spectra(buf, off, 1, ctx)
+    return SecretKey(s_ntt=spec[0], s_shoup=sh[0])
+
+
+def save_kswitch_keys(keys: KSwitchKeys, ctx: BFVContext) -> bytes:
+    """RNS-gadget key-switching keys: the k digit rows of k0, then of k1."""
+    k = keys.k0.shape[0]
+    blobs = _save_spectra(torch.cat([keys.k0, keys.k1]), ctx)
+    return b"".join([_MAGIC_KSW, struct.pack("<QHH", ctx.n, ctx.L, k), *blobs])
+
+
+def load_kswitch_keys(buf: bytes, ctx: BFVContext) -> KSwitchKeys:
+    """Keys with their gadget groups rebuilt from the digit count: keys are
+    built with contiguous equal-width groups, so k digits of L limbs have
+    width ceil(L / k)."""
+    (_, L, k), off = _header(buf, _MAGIC_KSW, "<QHH", ctx, "kswitch keys")
+    spec, sh = _load_spectra(buf, off, 2 * k, ctx)
+    return KSwitchKeys(k0=spec[:k], k0_shoup=sh[:k], k1=spec[k:], k1_shoup=sh[k:],
+                       groups=_digit_groups(L, (L + k - 1) // k))

@@ -150,13 +150,16 @@ def build_tables(moduli: Sequence[Modulus], n: int, device) -> NttTables:
     if profile == "m62":
         mu = put([[(m.const_ratio >> (32 * i)) & 0xFFFFFFFF for m in moduli]
                   for i in range(3)])
+    q = put([m.value for m in moduli])
     return NttTables(
         n=n,
         logn=logn,
         profile=profile,
         moduli=tuple(moduli),
-        device=dev,
-        q=put([m.value for m in moduli]),
+        # A tensor's device: "cuda" becomes "cuda:0" (the current card), as
+        # on every tensor the kernels compare with it.
+        device=q.device,
+        q=q,
         w=put(np.stack(rows["w"])),
         ws=put(np.stack(rows["ws"])),
         iw=put(np.stack(rows["iw"])),

@@ -139,7 +139,7 @@ def build_pipeline_filter(t: int, s_blind: int, r_blind: int, w: int,
                         random_seed=0xA5A5A5A5, index_mode="mixed")
     if not p.compute_optimal_parameters():
         raise ValueError("no Bloom filter parameters for these settings")
-    bf = BloomFilter(p, device)
+    bf = BloomFilter(p, device=device)
     di = torch.arange(r_blind * r_blind, dtype=torch.int64, device=device)
     bf.insert_u64_batch(*blinded_keys(s_blind * (di + r_blind) % t, w, w.bit_length()))
     return bf

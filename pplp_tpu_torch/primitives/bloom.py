@@ -230,7 +230,7 @@ class BloomFilter:
     # Keys per hash/scatter pass (bounds the [salts, keys] index temporaries).
     _INSERT_CHUNK = 1 << 20
 
-    def __init__(self, params: BloomParameters | None = None, device="cpu"):
+    def __init__(self, params: BloomParameters | None = None, *, device):
         self.device = torch.device(device)
         self._device_bits = None  # unpacked uint8 [table_size] on device
         self._host_dirty = False
@@ -433,8 +433,8 @@ class BloomFilter:
         self._host_dirty = False
 
     @classmethod
-    def deserialize(cls, buf: bytes, index_mode: str = "reference",
-                    device="cpu") -> "BloomFilter":
+    def deserialize(cls, buf: bytes, index_mode: str = "reference", *,
+                    device) -> "BloomFilter":
         bf = cls(device=device)
         bf.index_mode = index_mode
         (
@@ -473,8 +473,8 @@ class CompressibleBloomFilter(BloomFilter):
     leaving the filter unchanged, for an out-of-range or degenerate request.
     The wire format is the base one, then a u16 count and the u64 sizes."""
 
-    def __init__(self, params: BloomParameters | None = None, device="cpu"):
-        super().__init__(params, device)
+    def __init__(self, params: BloomParameters | None = None, *, device):
+        super().__init__(params, device=device)
         self.size_list = [self.table_size] if self.table_size else []
 
     def _sizes(self) -> tuple:
@@ -488,9 +488,9 @@ class CompressibleBloomFilter(BloomFilter):
         return super().serialize() + self._size_tail()
 
     @classmethod
-    def deserialize(cls, buf: bytes, index_mode: str = "reference",
-                    device="cpu") -> "CompressibleBloomFilter":
-        bf = super().deserialize(buf, index_mode, device)
+    def deserialize(cls, buf: bytes, index_mode: str = "reference", *,
+                    device) -> "CompressibleBloomFilter":
+        bf = super().deserialize(buf, index_mode, device=device)
         off = _HDR.size + 4 * bf.salt_count + bf.table_size // 8
         (n_sizes,) = struct.unpack_from("<H", buf, off)
         bf.size_list = list(struct.unpack_from(f"<{n_sizes}Q", buf, off + 2))

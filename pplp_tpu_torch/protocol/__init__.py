@@ -1,4 +1,6 @@
-"""The proximity protocol: configuration, stages, roles and the local demo."""
+"""The proximity protocol: configuration, stages, roles, the local demo, the
+TCP transport (``transport``) and the networked client and server
+(``netmain``)."""
 
 from .config import ProtocolConfig
 from .demo import DemoResult, run_local_demo

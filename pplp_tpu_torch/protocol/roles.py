@@ -30,7 +30,15 @@ from ..utils.hexcodec import get_bitlen, uint64_to_hex_string
 from . import stages
 from .config import ProtocolConfig
 
-__all__ = ["ProximityClient", "ProximityServer"]
+__all__ = ["ProximityClient", "ProximityServer", "send_bf"]
+
+
+def send_bf(chan, server) -> int:
+    """Send w || BF as one frame, streamed slice by slice from the table
+    (``Channel.send_frame_stream``): the same wire bytes as
+    ``send_frame(server.bf_message())``, without the whole message on the
+    host at once."""
+    return chan.send_frame_stream(server.bf_message_size(), server.bf_message_chunks())
 
 
 class ProximityClient:
@@ -75,7 +83,10 @@ class ProximityClient:
 
     def receive_bf(self, blob: bytes):
         (self.w,) = struct.unpack_from("<Q", blob, 0)
-        self.bf = BloomFilter.deserialize(blob[8:], index_mode=self.cfg.bf_index_mode)
+        # The client probes one key on the host (contains_u64), as the
+        # reference does: the filter stays on the CPU.
+        self.bf = BloomFilter.deserialize(blob[8:], index_mode=self.cfg.bf_index_mode,
+                                          device="cpu")
 
     def receive_blind_distance(self, blob: bytes) -> bool:
         ct = load_ciphertext(blob, self.ctx)
@@ -147,7 +158,7 @@ class ProximityServer:
             index_mode=cfg.bf_index_mode,
         )
         assert p.compute_optimal_parameters()
-        self.bf = BloomFilter(p, self.device)
+        self.bf = BloomFilter(p, device=self.device)
         for klo, khi, count in blind_distance_keys(self.blinding, cfg.sq_radius,
                                                    self.device):
             self.bf.insert_u64_batch(klo, khi, count=count)

@@ -1,0 +1,117 @@
+"""Two-party TCP transport with the reference's framing discipline.
+
+Copy of ``pplp_tpu.protocol.transport``, the same bytes on the wire; host
+code only. Behavioral equivalent of the C++ reference's
+``include/util.h:47-335``:
+  * 128-byte ASCII length prefix before every framed payload
+    (``bytes_to_send``/``bytes_to_receive``, util.h:51-63)
+  * chunked stream send/recv (``send_by_stream``/``recv_by_stream``)
+  * ``connect_to_server`` (active open) / ``connect_to_client``
+    (bind+listen+accept, SO_REUSEADDR), IPv4 and IPv6.
+
+Divergence from the reference (documented): the reference sends the parms
+message raw and assumes it arrives in a single <=128-byte recv (util.h quirk
+list, SURVEY.md §4); here every message is length-framed, which removes that
+fragility without changing message count or ordering.
+"""
+
+from __future__ import annotations
+
+import socket
+
+__all__ = ["Channel", "connect_to_server", "connect_to_client", "SIZE_BUFFER"]
+
+SIZE_BUFFER = 128
+
+
+class Channel:
+    """Framed, byte-counting channel over a connected socket."""
+
+    def __init__(self, sock: socket.socket):
+        self.sock = sock
+        self.bytes_sent = 0
+        self.bytes_received = 0
+
+    # -- framing (util.h:51-63) -----------------------------------------
+
+    def send_frame(self, payload: bytes) -> int:
+        header = str(len(payload)).encode().ljust(SIZE_BUFFER, b"\x00")
+        self.sock.sendall(header)
+        self.sock.sendall(payload)
+        n = SIZE_BUFFER + len(payload)
+        self.bytes_sent += n
+        return len(payload)
+
+    def send_frame_stream(self, total_len: int, chunks) -> int:
+        """Length-framed send from an iterator of byte chunks: the SAME wire
+        bytes as ``send_frame(b"".join(chunks))``, but each chunk hits the
+        socket as soon as it exists — the producer (e.g. the Bloom filter's
+        chunked device fetch, ``BloomFilter.iter_serialized``) overlaps with
+        the transfer instead of serializing fully first."""
+        header = str(total_len).encode().ljust(SIZE_BUFFER, b"\x00")
+        self.sock.sendall(header)
+        sent = 0
+        for chunk in chunks:
+            if chunk:
+                self.sock.sendall(chunk)
+                sent += len(chunk)
+        if sent != total_len:
+            raise ConnectionError(
+                f"stream length mismatch: declared {total_len}, sent {sent}"
+            )
+        self.bytes_sent += SIZE_BUFFER + sent
+        return sent
+
+    # Reject absurd frame claims before allocating (the reference trusts the
+    # peer's ASCII header unconditionally — util.h:58-63).
+    MAX_FRAME = 1 << 32
+
+    def recv_frame(self) -> bytes:
+        header = self._recv_exact(SIZE_BUFFER)
+        digits = header.split(b"\x00", 1)[0]
+        if not digits.isdigit():
+            raise ConnectionError(f"malformed frame header {digits[:16]!r}")
+        length = int(digits)
+        if length > self.MAX_FRAME:
+            raise ConnectionError(f"frame length {length} exceeds cap")
+        payload = self._recv_exact(length)
+        self.bytes_received += SIZE_BUFFER + length
+        return payload
+
+    def _recv_exact(self, length: int) -> bytes:
+        chunks = []
+        remaining = length
+        while remaining:
+            chunk = self.sock.recv(remaining)
+            if not chunk:
+                raise ConnectionError("peer closed mid-frame")
+            chunks.append(chunk)
+            remaining -= len(chunk)
+        return b"".join(chunks)
+
+    def close(self):
+        self.sock.close()
+
+
+def connect_to_server(ip: str, port: int, ipv6: bool = False, timeout=None) -> Channel:
+    """Active open to the listening peer (util.h:95-178)."""
+    family = socket.AF_INET6 if ipv6 else socket.AF_INET
+    sock = socket.socket(family, socket.SOCK_STREAM)
+    if timeout is not None:
+        sock.settimeout(timeout)
+    sock.connect((ip, port))
+    return Channel(sock)
+
+
+def connect_to_client(ip: str, port: int, ipv6: bool = False, timeout=None) -> Channel:
+    """Bind + listen + accept one peer (util.h:181-335)."""
+    family = socket.AF_INET6 if ipv6 else socket.AF_INET
+    listener = socket.socket(family, socket.SOCK_STREAM)
+    listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    listener.bind((ip, port))
+    listener.listen(8)
+    if timeout is not None:
+        listener.settimeout(timeout)
+    conn, _addr = listener.accept()
+    listener.close()
+    return Channel(conn)

@@ -40,7 +40,7 @@ def test_filter_bits_and_bytes_match_reference(mode):
     lo, hi = _keys(n)
     rp, pp = _params(rprim, n, 1e-4, mode), _params(prim, n, 1e-4, mode)
     assert (pp.table_size, pp.number_of_hashes) == (rp.table_size, rp.number_of_hashes)
-    rbf, bf = rprim.BloomFilter(rp), prim.BloomFilter(pp, "cpu")
+    rbf, bf = rprim.BloomFilter(rp), prim.BloomFilter(pp, device="cpu")
     assert (bf.salts == rbf.salts).all()
     rbf.insert_u64_batch(jnp.asarray(lo.astype(np.uint32)), jnp.asarray(hi.astype(np.uint32)))
     # Two calls on the port side: inserts accumulate in place.
@@ -55,7 +55,7 @@ def test_filter_bits_and_bytes_match_reference(mode):
     # Membership on the host, and on the deserialized copy.
     keys = [(int(hi[i]) << 32) | int(lo[i]) for i in range(50)]
     assert all(bf.contains_u64(k) for k in keys)
-    other = prim.BloomFilter.deserialize(rbf.serialize(), index_mode=mode)
+    other = prim.BloomFilter.deserialize(rbf.serialize(), index_mode=mode, device="cpu")
     rother = rprim.BloomFilter.deserialize(rbf.serialize(), index_mode=mode)
     assert other == bf
     probes = [k ^ (1 << 63) for k in keys] + keys
@@ -101,7 +101,7 @@ def test_blinding_copies_match_reference():
 def _both(cls, n, mode):
     """A reference filter and the port's from the same parameters."""
     return (getattr(rprim, cls)(_params(rprim, n, 1e-3, mode)),
-            getattr(prim, cls)(_params(prim, n, 1e-3, mode), "cpu"))
+            getattr(prim, cls)(_params(prim, n, 1e-3, mode), device="cpu"))
 
 
 def _batch_both(rbf, bf, lo, hi):
@@ -198,10 +198,26 @@ def test_compressible_filter_matches_reference(mode):
     assert got.tolist() == np.asarray(want).tolist()
     assert all(got[:len(keys)].tolist())
     assert [bf.contains_u64(k) for k in probes] == [rbf.contains_u64(k) for k in probes]
-    back = prim.CompressibleBloomFilter.deserialize(wire, index_mode=mode)
+    back = prim.CompressibleBloomFilter.deserialize(wire, index_mode=mode, device="cpu")
     rback = rprim.CompressibleBloomFilter.deserialize(wire, index_mode=mode)
     assert back.size_list == rback.size_list
     assert back.serialize() == wire
     assert [back.contains_u64(k) for k in probes] == [rback.contains_u64(k) for k in probes]
     with pytest.raises(ValueError, match="size chain"):
-        prim.CompressibleBloomFilter.deserialize(wire[:-8] + (1).to_bytes(8, "little"))
+        prim.CompressibleBloomFilter.deserialize(wire[:-8] + (1).to_bytes(8, "little"),
+                                                device="cpu")
+
+
+@pytest.mark.parametrize("cls", ["BloomFilter", "CompressibleBloomFilter"])
+def test_filter_takes_no_default_device(cls):
+    """The device is a required keyword: a filter never lands on the CPU
+    because its caller named no device."""
+    params = _params(prim, 100, 1e-3, "mixed")
+    with pytest.raises(TypeError):
+        getattr(prim, cls)(params)
+    with pytest.raises(TypeError):
+        getattr(prim, cls)(params, "cpu")
+    wire = getattr(prim, cls)(params, device="cpu").serialize()
+    with pytest.raises(TypeError):
+        getattr(prim, cls).deserialize(wire, "mixed")
+    assert getattr(prim, cls).deserialize(wire, "mixed", device="cpu").serialize() == wire

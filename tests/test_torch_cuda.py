@@ -741,3 +741,140 @@ def test_mulmod_chain_refuses_what_the_kernel_does_not_take(dev):
         mulmod_chain.chain_cuda(x.to(torch.int32))
     with pytest.raises(ValueError, match="contiguous"):
         mulmod_chain.chain_cuda(x.T)
+
+
+# -- the networked entry points (protocol.netmain, bfv.serialize keys, the sweep) --
+
+_NET_NTT = {"tpu": ("ntt_forward", "ntt_inverse"), "seal": ("ntt_forward_u64", "ntt_inverse_u64")}
+
+
+def _tcp_run(client_fn, server_fn):
+    """server_fn(channel) on a thread and client_fn(channel) here, over a TCP
+    connection on 127.0.0.1; (client result, server result, channels)."""
+    import socket
+    import threading
+
+    from pplp_tpu_torch.protocol.transport import Channel
+
+    with socket.socket() as listener:
+        listener.bind(("127.0.0.1", 0))
+        listener.listen(1)
+        ca = Channel(socket.create_connection(listener.getsockname()))
+        cb = Channel(listener.accept()[0])
+    out, err = {}, []
+
+    def serve():
+        try:
+            out["server"] = server_fn(cb)
+        except Exception as e:  # re-raised below
+            err.append(e)
+
+    th = threading.Thread(target=serve)
+    th.start()
+    try:
+        client = client_fn(ca)
+    finally:
+        th.join(timeout=300)
+        ca.close()
+        cb.close()
+    assert not th.is_alive()
+    if err:
+        raise err[0]
+    return client, out["server"], ca, cb
+
+
+@pytest.mark.parametrize("profile", ["seal", "tpu"])
+def test_client_server_pair_on_card(dev, profile):
+    """run_client_protocol / run_server_protocol over 127.0.0.1 at n = 8192,
+    t = 2^56, r = 128 (far) and 320 (near): the oracle's verdict, the blind
+    distance s(d^2 + r) mod t, the profile's NTT kernels, the filter on the
+    card, the byte counts of both sides equal."""
+    from pplp_tpu_torch.protocol import ProtocolConfig
+    from pplp_tpu_torch.protocol.netmain import run_client_protocol, run_server_protocol
+
+    for radius, near in ((128, False), (320, True)):
+        kw = dict(radius=radius, profile=profile, seed=17, false_positive_probability=1e-4)
+        ntt_cuda.reset_launches()
+        client, server, ca, cb = _tcp_run(
+            lambda ch: run_client_protocol(ch, ProtocolConfig(xa=1234, ya=1212, **kw),
+                                           verbose=False, device=dev),
+            lambda ch: run_server_protocol(ch, ProtocolConfig(xb=1000, yb=1000, **kw),
+                                           verbose=False, device=dev))
+        counts = dict(ntt_cuda.launches_by_kernel)
+        assert all(counts[k] > 0 for k in _NET_NTT[profile]), counts
+        assert client.is_near is near
+        bl = server.blinding
+        assert client.blind_distance == bl.s * (99_700 + bl.r) % (1 << 56)
+        assert server.bf.bits_device.is_cuda
+        assert (ca.bytes_sent, ca.bytes_received) == (cb.bytes_received, cb.bytes_sent)
+
+
+@pytest.mark.parametrize("profile", ["seal", "tpu"])
+def test_key_formats_on_card(dev, profile):
+    """pk, sk and width-1/2 relinearization keys at n = 8192: the card saves
+    the bytes a CPU copy saves, and loads them to the CPU's tensors."""
+    import copy
+
+    from pplp_tpu_torch.bfv import serialize
+
+    parms = bfv.EncryptionParameters.bfv(8192, 1 << 56, profile=profile)
+    ctx, cpu = bfv.BFVContext.build(parms, dev), bfv.BFVContext.build(parms, "cpu")
+    g = torch.Generator(device=dev).manual_seed(31)
+    kg = bfv.KeyGenerator(ctx, g)
+    sk, pk = kg.secret_key(), kg.create_public_key()
+    cases = [(pk, serialize.save_public_key, serialize.load_public_key),
+             (sk, serialize.save_secret_key, serialize.load_secret_key)]
+    cases += [(behz.create_relin_keys(ctx, sk, g, width=w), serialize.save_kswitch_keys,
+               serialize.load_kswitch_keys) for w in (1, 2)]
+    for key, save, load in cases:
+        leaves = {k: v for k, v in vars(key).items() if k != "groups"}
+        host = copy.copy(key)
+        for k, v in leaves.items():
+            setattr(host, k, v.cpu())
+        ntt_cuda.reset_launches()
+        blob = save(key, ctx)
+        on_card = load(blob, ctx)
+        assert ntt_cuda.launches == 2
+        assert blob == save(host, cpu)
+        on_cpu = load(blob, cpu)
+        for k, v in leaves.items():
+            assert torch.equal(getattr(on_card, k), v), k
+            assert torch.equal(getattr(on_card, k).cpu(), getattr(on_cpu, k)), k
+        assert getattr(on_card, "groups", None) == getattr(key, "groups", None)
+
+
+@pytest.mark.parametrize("profile", ["seal", "tpu"])
+@pytest.mark.parametrize("variant", ["leg", "opt"])
+def test_sweep_radius_on_card(dev, profile, variant):
+    """One tc/ts radius (r = 64, n = 8192, t = 2^56) of either variant over
+    127.0.0.1 on the card: the profile's NTT kernels ran, the traffic counts
+    agree, the server's stages took time."""
+    from pplp_tpu_torch.benchmark import sweep
+
+    tc = getattr(sweep, f"test_client_{variant}")
+    ts = getattr(sweep, f"test_server_{variant}")
+    ntt_cuda.reset_launches()
+    (traffic, dur), sdur, ca, cb = _tcp_run(
+        lambda ch: tc(ch, 64, 1234, 1212, 13, 56, profile, device=dev),
+        lambda ch: ts(ch, 64, 1000, 1000, profile, device=dev))
+    counts = dict(ntt_cuda.launches_by_kernel)
+    assert all(counts[k] > 0 for k in _NET_NTT[profile]), counts
+    assert (traffic.c_sendPk > 0) == (variant == "leg")
+    assert traffic.c_total == traffic.c_totalSend + traffic.c_totalRecv
+    assert ca.bytes_sent == cb.bytes_received and ca.bytes_received == cb.bytes_sent
+    assert sdur.d_setBF > 0 and sdur.d_homoCalc > 0 and dur.d_total > 0
+
+
+def test_device_named_without_an_index(dev):
+    """``--device cuda`` (no index): the tables, the context and every
+    tensor made on it resolve to the current card, so the kernels take
+    them; the demo runs through the NTT kernels."""
+    from pplp_tpu_torch.protocol import ProtocolConfig, run_local_demo
+
+    ctx = bfv.BFVContext.build(bfv.EncryptionParameters.bfv(4096, 1 << 40), "cuda")
+    assert ctx.device == torch.device("cuda", torch.cuda.current_device())
+    ntt_cuda.reset_launches()
+    res = run_local_demo(ProtocolConfig(radius=16, poly_modulus_degree_bits=12,
+                                        plain_modulus_bits=40, seed=3),
+                         verbose=False, device="cuda")
+    assert ntt_cuda.launches > 0 and res.bf_device.type == "cuda"

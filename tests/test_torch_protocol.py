@@ -186,7 +186,10 @@ def test_import_loads_no_jax():
         "pplp_tpu_torch.ops.ntt_cuda, pplp_tpu_torch.ops.behz_cuda, "
         "pplp_tpu_torch.ops.mulmod_chain, pplp_tpu_torch.bfv.behz_fused, "
         "pplp_tpu_torch.bfv.rescale, pplp_tpu_torch.measure_multiply, "
-        "pplp_tpu_torch.parallel, pplp_tpu_torch.bfv.rns_decrypt\n"
+        "pplp_tpu_torch.parallel, pplp_tpu_torch.bfv.rns_decrypt, "
+        "pplp_tpu_torch.protocol.netmain, pplp_tpu_torch.protocol.transport, "
+        "pplp_tpu_torch.benchmark.sweep, pplp_tpu_torch.utils.profiling, "
+        "pplp_tpu_torch.utils.csvwriter\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'pplp_tpu' or m.startswith('pplp_tpu.')]\n"
         "assert not bad, bad\n"
@@ -255,16 +258,40 @@ def test_cli_seal_profile_not_ported():
 
 
 def test_defaults_match_reference():
-    """The repair: the port's demo flags and ProtocolConfig default to the
-    reference's, field for field (profile seal). ``--device`` is the one
-    flag the port adds."""
-    ref = vars(rbuild_parser().parse_args(["demo"]))
-    ours = vars(cli.build_parser().parse_args(["demo"]))
-    assert ours.pop("device") == "cuda"
-    assert ours == ref
-    assert ours["profile"] == "seal"
+    """The repair: the port's flags and ProtocolConfig default to the
+    reference's, field for field (profile seal), on every ported subcommand
+    (demo, client, server, tc, ts). ``--device`` is the one flag the port
+    adds."""
+    for cmd in ("demo", "client", "server", "tc", "ts"):
+        ref = vars(rbuild_parser().parse_args([cmd]))
+        ours = vars(cli.build_parser().parse_args([cmd]))
+        assert ours.pop("device") == "cuda", cmd
+        assert ours == ref, cmd
+        assert ours["profile"] == "seal"
     assert dataclasses.asdict(ProtocolConfig()) == dataclasses.asdict(RProtocolConfig())
     assert ProtocolConfig().profile == "seal"
+
+
+@pytest.mark.parametrize("argv", [
+    ["client", "-H", "::1", "-p", "7", "-6", "-x", "5", "-y", "6", "-r", "9", "-b", "40",
+     "-d", "12", "--profile", "tpu", "--device", "cpu"],
+    ["server", "-H", "0.0.0.0", "-p", "1", "-x", "0", "-y", "7", "-r", "8192"],
+    ["tc", "-H", "h", "-p", "5", "-x", "1", "-y", "2", "-b", "1", "-d", "15", "--out-leg",
+     "a.csv", "--out-opt", "b.csv"],
+    ["ts", "-H", "10.0.0.1", "-p", "65535", "-x", "0", "-y", "1", "--out-leg", "a.csv",
+     "--out-opt", "b.csv", "--profile", "tpu"],
+], ids=lambda a: a[0])
+def test_network_flags_match_reference(argv):
+    """Short forms and values parse to the reference's namespace; out-of-range
+    values are refused by both parsers."""
+    ours = vars(cli.build_parser().parse_args(argv))
+    ours.pop("device")
+    ref_argv = [a for a in argv if a not in ("--device", "cpu")]
+    assert ours == vars(rbuild_parser().parse_args(ref_argv))
+    for bad in (["-p", "0"], ["-p", "65536"], ["-x", str((1 << 27) + 1)]):
+        for parser in (rbuild_parser(), cli.build_parser()):
+            with pytest.raises(SystemExit):
+                parser.parse_args([argv[0], *bad])
 
 
 def test_cli_seal_demo_matches_oracle(capsys):
