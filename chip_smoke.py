@@ -105,7 +105,24 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
                in leg rows, ``d_setBF`` and ``d_homoCalc`` > 0, and no
                radius's server left on the card after it (ts's device
                memory lines). Per radius it prints the client's totals and
-               the server's setBF, homoCalc and sendBF stages.
+               the server's setBF, homoCalc and sendBF stages;
+11. dgk     -- the DGK back-end (BASELINE config[2]) at (k, t, l) =
+               (2048, 320, 16), keys from seed 5 (bench.py): each kernel of
+               ``csrc/dgk_mont.cu`` (mulmod, per-lane and shared-exponent
+               powmod, the blind-distance chain) bit-exact against its plain
+               version at 67 lanes with 0, 1, 2, n - 1, n - 2 among them and
+               exponents 0 and 1; then B = 10,000 comparisons through
+               ``DGKBatch``: five ``encrypt_batch`` (800-bit randomness),
+               ``blind_distance_batch`` (123321, 123654, s = 37, as bench.py),
+               ``decrypt_batch_device``; every lane equals s(d^2 + r) mod u,
+               every ciphertext decrypts to its message, 256 lanes of each
+               equal Python's pow, and the BSGS decrypt agrees on 1,000 lanes;
+               the kernels' device times (profiler) beside their bounds and
+               the plain versions' times on the same inputs, the calls' times,
+               comparisons/s eval-only and full, and peak memory; last
+               ``dgk_sweep_main`` over r = 16..4096 with its Bloom filter on
+               the card: the reference's CSV, and every verdict the mod-u
+               oracle calls near read near.
 
 The last lines are a JSON object with one entry per kernel (launches on
 the main paths, max error, ms and plain ms as measured here, ``ms_source``:
@@ -155,6 +172,15 @@ MUL_SEP_BATCH = 2
 # The seal (m62) multiply: (n, log2 t, batch, gadget widths, the default first).
 SEAL_MUL = ((4096, 16, 256, (1, 2)), (8192, 56, 64, (2, 1)), (32768, 56, 2, (2,)))
 SEAL_REAL_MAX_N = 8192  # the real products: host negacyclic products up to here
+DGK_KEYS = (2048, 320, 16)  # (k, t, l) of bench.py:165, BASELINE config[2]
+DGK_SEED = 5
+DGK_B = 10_000  # lanes of the main path
+DGK_CHECK_B = 64  # lanes of the kernel-against-plain checks (plus edge cases)
+DGK_BSGS_B = 1_000
+DGK_POW_LANES = 256  # lanes of each ciphertext recomputed with Python's pow
+DGK_XB, DGK_YB, DGK_S = 123321, 123654, 37  # bench.py:171
+DGK_TPU = "pplp_tpu/dgk/modexp.py:111"  # the XLA CIOS: no TPU kernel
+DGK_SWEEP_RADII = [16 << i for i in range(9)]  # dgk_sweep_main's default, main.cc:300
 NTT_TPU = "pplp_tpu/ops/ntt_vmem.py:272"
 BEHZ_TPU = "pplp_tpu/bfv/behz_fused.py:257"
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
@@ -174,6 +200,8 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     **{name: ("pplp_tpu_torch/csrc/behz64.cu", "pplp_tpu/bfv/behz.py:388") for name in (
         "behz64_to_bsk", "behz64_tensor", "behz64_floor_sk", "behz64_lift", "behz64_keyprod",
         "behz64_add")},
+    **{name: ("pplp_tpu_torch/csrc/dgk_mont.cu", DGK_TPU) for name in (
+        "dgk_mulmod", "dgk_powmod_lanes", "dgk_powmod_shared", "dgk_blind_distance")},
 }
 FUSED = ("behz_to_bsk", "behz_tensor_ntt", "behz_floor_sk", "behz_relin_ntt")
 SEPARATE = ("behz_tensor", "behz_lift", "behz_keyprod", "behz_add")
@@ -222,11 +250,12 @@ def phase_device():
 
 
 def phase_build():
-    from pplp_tpu_torch.ops import behz64_cuda, behz_cuda, cuda_build, mulmod_chain, ntt_cuda
+    from pplp_tpu_torch.ops import (behz64_cuda, behz_cuda, cuda_build, dgk_cuda, mulmod_chain,
+                                    ntt_cuda)
 
     t0 = time.perf_counter()
     paths = cuda_build.build(sorted(cuda_build.CSRC.glob("*.cu")))
-    for mod in (ntt_cuda, behz_cuda, behz64_cuda, mulmod_chain):
+    for mod in (ntt_cuda, behz_cuda, behz64_cuda, mulmod_chain, dgk_cuda):
         mod.load()
     log(f"[build] {len(paths)} libraries in {time.perf_counter() - t0:.2f} s: "
         + ", ".join(p.name for p in paths.values()))
@@ -1228,6 +1257,265 @@ def phase_network(dev):
 
 
 
+def _dgk_products(e: int) -> int:
+    """Montgomery products of a left-to-right exponentiation by ``e`` from
+    its top bit: a square per lower bit, a product per lower set bit."""
+    return e.bit_length() + bin(e).count("1") - 2 if e else 0
+
+
+def _dgk_bound(W: int, products: int, words: int) -> dict:
+    """A DGK kernel's bound: ``products`` Montgomery products of 2 W^2 + W
+    32 x 32 -> 64-bit multiplies each, every multiply one of the card's
+    32-bit multiply slots (``MULS_PER_S``; whether IMAD.WIDE takes one or
+    two is open), against ``words`` 32-bit words read or written once
+    (3.35 TB/s)."""
+    from pplp_tpu_torch.measure_multiply import BYTES_PER_S, MULS_PER_S
+
+    t_ops = products * (2 * W * W + W) / MULS_PER_S * 1e3
+    t_bytes = 4 * words / BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes
+            else "bytes", "products": products}
+
+
+def _dgk_sweep(dev, tmp):
+    """``dgk_sweep_main`` over r = 16..4096 with its defaults (keys of
+    ``DGK_KEYS`` from seed 0, made anew per radius; the reference's
+    coordinates: d^2 = 78,408) into ``tmp``. The mod-u oracle: the filter holds s(r + di) for di < r^2,
+    so the verdict is near iff (d^2 mod u) < r^2; a far case read near is a
+    Bloom false positive (fpp 1e-4), reported; a near case read far fails."""
+    import contextlib
+    import csv
+    import io
+
+    from pplp_tpu_torch.dgk import dgk_gen_keys
+    from pplp_tpu_torch.dgk.protocol import DGK_CSV_COLUMNS, dgk_sweep_main
+
+    path = os.path.join(tmp, "dgk_measure.csv")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    k, t, l = DGK_KEYS
+    with contextlib.redirect_stdout(out):
+        assert dgk_sweep_main(path, radii=DGK_SWEEP_RADII, seed=0, device=dev, k=k, t=t,
+                              l=l) == 0
+    seconds = time.perf_counter() - t0
+    with open(path) as f:
+        rows = list(csv.reader(f))
+    assert rows[0] == DGK_CSV_COLUMNS, f"dgk_measure.csv header {rows[0]}"
+    radii = DGK_SWEEP_RADII
+    assert [int(r[0]) for r in rows[1:]] == radii, "dgk_measure.csv radii"
+    cols = DGK_CSV_COLUMNS
+    for r in rows[1:]:
+        v = dict(zip(cols, map(float, r)))
+        assert v["d_BsetBF"] > 0 and v["d_BhomoCalc"] > 0 and v["d_AkGen"] > 0, r
+        assert abs(v["d_Atotal"] - v["d_A1"] - v["d_A2"] - v["d_A3"]) < 1e-6 * v["d_Atotal"], r
+    verdicts = dict(re.findall(r"dgk radius=(\d+) (near|far)", out.getvalue()))
+    assert sorted(map(int, verdicts)) == radii, out.getvalue()
+    u = dgk_gen_keys(*DGK_KEYS, seed=0, init_table=False)[1].u
+    d2 = (123123 - 123321) ** 2 + (123456 - 123654) ** 2
+    false_pos = []
+    for r in radii:
+        want = (d2 % u) < r * r
+        got = verdicts[str(r)] == "near"
+        assert got or not want, f"dgk sweep r={r}: far, the mod-u oracle says near"
+        if got and not want:
+            false_pos.append(r)
+    for r in rows:
+        log("[dgk] dgk_measure.csv: " + ",".join(r))
+    log(f"[dgk] sweep r = {radii[0]}..{radii[-1]} in {seconds:.1f} s: "
+        + ", ".join(f"r={r} {verdicts[str(r)]}" for r in radii)
+        + f"; mod-u oracle (d^2 mod u = {d2 % u}, u = {u}): near from r = "
+        f"{min(r for r in radii if (d2 % u) < r * r)}; Bloom false positives: "
+        f"{false_pos or 'none'}")
+
+
+def phase_dgk(dev):
+    """The DGK back-end (BASELINE config[2]) on the card; returns the rows
+    of its four kernels."""
+    import random
+    import tempfile
+
+    import torch
+
+    from pplp_tpu_torch.dgk import dgk_encrypt, dgk_gen_keys
+    from pplp_tpu_torch.dgk.batched import DGKBatch
+    from pplp_tpu_torch.dgk.dgk import dgk_random_num
+    from pplp_tpu_torch.dgk.modexp import from_digits, to_digits
+    from pplp_tpu_torch.ops import dgk_cuda
+
+    t_phase = time.perf_counter()
+
+    def say(*args):  # each line with the phase's elapsed seconds
+        print(f"[dgk] {time.perf_counter() - t_phase:7.1f} s", *args, flush=True)
+
+    card = torch.cuda.get_device_name(dev)
+    k, t, l = DGK_KEYS
+    t0 = time.perf_counter()
+    priv, pub = dgk_gen_keys(k, t, l, seed=DGK_SEED)
+    keygen_s = time.perf_counter() - t0
+    db = DGKBatch.build(pub, device=dev)
+    mc, n, u = db.mc, pub.n, pub.u
+    W = dgk_cuda.limbs(mc)
+    t0 = time.perf_counter()
+    dtab = db.build_device_table(priv)
+    btab = db.build_bsgs_table(priv)
+    table_s = time.perf_counter() - t0
+    say(f"keys (k, t, l) = {DGK_KEYS}, seed {DGK_SEED}: n of {n.bit_length()} bits "
+        f"(D = {mc.D} digits, W = {W} limbs), u = {u}; keygen + table {keygen_s:.2f} s, "
+        f"device tables {table_s:.2f} s ({dtab.size} slots, {dtab.probes} probes; BSGS "
+        f"{btab.size} slots)")
+
+    # 1. Each kernel against its plain version, bit for bit, at a small batch
+    # with the edge cases (not counted).
+    rng = random.Random(2048)
+
+    def numbers(count):
+        vals = [0, 1, 2, n - 1, n - 2] + [rng.randrange(n) for _ in range(count - 5)]
+        return vals, to_digits(vals, mc.D, dev)
+
+    cb = DGK_CHECK_B + 3  # not a multiple of the 64-thread block
+    (a, A), (b, Bd) = numbers(cb), numbers(cb)
+    cs = [numbers(cb)[1] for _ in range(5)]
+    short = [0, 1] + [rng.getrandbits(l) for _ in range(cb - 2)]
+    g = to_digits([pub.g], mc.D, dev)
+    pairs = {
+        "dgk_mulmod": [(dgk_cuda.mulmod(mc, A, Bd), mc.mulmod(A, Bd)),
+                       (dgk_cuda.mulmod(mc, A, Bd[3:4]), mc.mulmod(A, Bd[3:4]))],
+        "dgk_powmod_lanes": [(dgk_cuda.powmod(mc, g, short), dgk_cuda.powmod_plain(mc, g, short)),
+                             (dgk_cuda.powmod(mc, A, short), dgk_cuda.powmod_plain(mc, A, short))],
+        "dgk_powmod_shared": [(dgk_cuda.powmod_shared_exp(mc, A, e), mc.powmod_shared_exp(A, e))
+                              for e in (0, 1, DGK_S, priv.vpq)],
+        "dgk_blind_distance": [
+            (dgk_cuda.blind_distance(mc, *cs[:3], *ex, *cs[3:]),
+             dgk_cuda.blind_distance_plain(mc, *cs[:3], *ex, *cs[3:]))
+            for ex in ((DGK_XB, DGK_YB, DGK_S), (0, 1, 0))],
+    }
+    torch.cuda.synchronize()
+    err = {name: max(int((x - y).abs().max()) for x, y in p) for name, p in pairs.items()}
+    assert all(e == 0 for e in err.values()), f"a DGK kernel differs from plain: {err}"
+    assert from_digits(pairs["dgk_mulmod"][0][0]) == [x * y % n for x, y in zip(a, b)]
+    say(f"kernels against their plain versions at {cb} lanes (0, 1, 2, n - 1, n - 2 "
+        f"among them; per-lane exponents 0, 1 and {l}-bit ones; shared exponents 0, 1, "
+        f"{DGK_S} and vpq; blind distance at ({DGK_XB}, {DGK_YB}, {DGK_S}) and (0, 1, 0)): "
+        f"bit-exact {err}")
+
+    # 2. BASELINE config[2] at full width: real protocol ciphertexts from
+    # random coordinates, randomness of 2.5 t bits.
+    B, rbits = DGK_B, int(2.5 * t)
+    xa = [DGK_XB + rng.randrange(-300, 301) for _ in range(B)]
+    ya = [DGK_YB + rng.randrange(-300, 301) for _ in range(B)]
+    r_blind = dgk_random_num(l, rng)
+    msgs = [[(x * x + y * y) % u for x, y in zip(xa, ya)], [(-2 * x) % u for x in xa],
+            [(-2 * y) % u for y in ya], [DGK_S * (DGK_XB ** 2 + DGK_YB ** 2) % u] * B,
+            [DGK_S * r_blind % u] * B]
+    rands = [[dgk_random_num(rbits, rng) for _ in range(B)] for _ in msgs]
+    want = [DGK_S * ((x - DGK_XB) ** 2 + (y - DGK_YB) ** 2 + r_blind) % u
+            for x, y in zip(xa, ya)]
+
+    def comparisons():
+        cts = [db.encrypt_batch(m, r) for m, r in zip(msgs, rands)]
+        out = db.blind_distance_batch(*cts[:3], DGK_XB, DGK_YB, DGK_S, *cts[3:])
+        return cts, out, db.decrypt_batch_device(priv, dtab, out)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    dgk_cuda.reset_launches()
+    cts, out, dec = comparisons()
+    bsgs = db.decrypt_batch_device_bsgs(priv, btab, out[:DGK_BSGS_B])
+    torch.cuda.synchronize()
+    launches = dict(dgk_cuda.launches_by_kernel)
+    peak = torch.cuda.max_memory_allocated(dev)
+    assert all(v > 0 for v in launches.values()), f"DGK kernel launches {launches}"
+    assert dec.tolist() == want, "a blind distance decrypts to another value than s(d^2 + r)"
+    assert bsgs.tolist() == want[:DGK_BSGS_B], "BSGS decrypt differs"
+    for c, m, r in zip(cts, msgs, rands):
+        assert db.decrypt_batch_device(priv, dtab, c).tolist() == m, "decrypt(encrypt(m)) != m"
+        got = from_digits(c[:DGK_POW_LANES])
+        assert got == [dgk_encrypt(pub, mm, rr)
+                       for mm, rr in zip(m[:DGK_POW_LANES], r[:DGK_POW_LANES])]
+    got = from_digits(out[:DGK_POW_LANES])
+    c_int = [from_digits(c[:DGK_POW_LANES]) for c in cts]
+    assert got == [pow(c1 * pow(c2, DGK_XB, n) * pow(c3, DGK_YB, n) % n, DGK_S, n) * cz * cr % n
+                   for c1, c2, c3, cz, cr in zip(*c_int)], "blind distance differs from pow"
+    say(f"B = {B}: 5 x encrypt_batch ({rbits}-bit randomness), blind_distance_batch "
+        f"({DGK_XB}, {DGK_YB}, s = {DGK_S}), decrypt_batch_device: every lane = s(d^2 + r) mod u; "
+        f"decrypt(encrypt(m)) = m on every lane of the five batches; {DGK_POW_LANES} lanes of "
+        f"each ciphertext and of the blind distance equal Python's pow; BSGS decrypt at "
+        f"{DGK_BSGS_B} lanes agrees; launches {launches}; peak device memory {peak} B")
+
+    # 3. Times: calls (CUDA events, median of windows) and kernels (profiler).
+    h = to_digits([pub.h], mc.D, dev)
+    gm, hr = dgk_cuda.powmod(mc, g, msgs[0]), dgk_cuda.powmod(mc, h, rands[0])
+    calls = {
+        "encrypt_batch": _median_ms(lambda: db.encrypt_batch(msgs[0], rands[0]), 3, 1),
+        "blind_distance_batch": _median_ms(lambda: db.blind_distance_batch(
+            *cts[:3], DGK_XB, DGK_YB, DGK_S, *cts[3:]), 5, 3),
+        "decrypt_batch_device": _median_ms(lambda: db.decrypt_batch_device(priv, dtab, out), 3, 1),
+        f"decrypt_batch_device_bsgs (B = {DGK_BSGS_B})": _median_ms(
+            lambda: db.decrypt_batch_device_bsgs(priv, btab, out[:DGK_BSGS_B]), 3, 1),
+        "full (5 encrypt + eval + decrypt)": _median_ms(comparisons, 3, 1),
+    }
+    kernel_fns = {
+        "dgk_mulmod": (lambda: dgk_cuda.mulmod(mc, gm, hr), lambda: mc.mulmod(gm, hr)),
+        "dgk_powmod_lanes": (lambda: dgk_cuda.powmod(mc, h, rands[0]),
+                             lambda: dgk_cuda.powmod_plain(mc, h, rands[0])),
+        "dgk_powmod_shared": (lambda: dgk_cuda.powmod_shared_exp(mc, out, priv.vpq),
+                              lambda: mc.powmod_shared_exp(out, priv.vpq)),
+        "dgk_blind_distance": (
+            lambda: dgk_cuda.blind_distance(mc, *cts[:3], DGK_XB, DGK_YB, DGK_S, *cts[3:]),
+            lambda: dgk_cuda.blind_distance_plain(mc, *cts[:3], DGK_XB, DGK_YB, DGK_S,
+                                                  *cts[3:])),
+    }
+    lane_products = sum(2 + _dgk_products(e) for e in rands[0])
+    ew = (max(e.bit_length() for e in rands[0]) + 31) // 32
+    bounds = {
+        "dgk_mulmod": _dgk_bound(W, 2 * B, 3 * B * W),
+        "dgk_powmod_lanes": _dgk_bound(W, lane_products, W + B * ew + B * W),
+        "dgk_powmod_shared": _dgk_bound(W, B * (2 + _dgk_products(priv.vpq)), 2 * B * W),
+        "dgk_blind_distance": _dgk_bound(
+            W, B * (10 + sum(_dgk_products(e) for e in (DGK_XB, DGK_YB, DGK_S))), 6 * B * W),
+    }
+    rows = {}
+    for name, (fn, plain) in kernel_fns.items():
+        prof = _profile_with(fn, [name], calls=2)
+        source = "profiler"
+        if name in prof:
+            ms = prof[name]["ms_per_call"] / prof[name]["launches_per_call"]
+        else:  # the profiler missed it: the wrapper call by CUDA events
+            ms, source = cuda_ms(fn, iters=2, warmup=1), "events"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = plain()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got = fn()  # the kernel on the main path's inputs, held against the plain result
+        full_err = int((got - want).abs().max())
+        assert torch.equal(got, want), f"{name} differs from plain at B = {B}: {full_err}"
+        c = bounds[name]
+        rows[name] = {"launches": launches[name], "max_abs_err": full_err,
+                      "max_abs_err_edge_cases": err[name], "ms": ms,
+                      "ms_source": source, "plain_ms": plain_ms,
+                      "bound_ms": c["bound_ms"], "bound_by": c["bound_by"]}
+        say(f"{name} at B = {B}: bit-exact against plain on these inputs (max abs err "
+            f"{full_err}); {ms:.4f} ms per launch ({source}), "
+            f"{c['products']} Montgomery products ({c['products'] / B:.1f} a lane), bound "
+            f"{c['bound_ms']:.4f} ms ({c['bound_by']}), {100 * c['bound_ms'] / ms:.1f}% of "
+            f"bound; plain {plain_ms:.1f} ms (one call) [{card}]")
+    for name, ms in calls.items():
+        say(f"{name}: {ms:.4f} ms per call (CUDA events, median) [{card}]")
+    eval_rate = B / (calls["blind_distance_batch"] / 1e3)
+    full_rate = B / (calls["full (5 encrypt + eval + decrypt)"] / 1e3)
+    eval_bound = B / (bounds["dgk_blind_distance"]["bound_ms"] / 1e3)
+    say(f"comparisons/s at B = {B}, k = {k}: eval-only {eval_rate:.1f} (as bench.py "
+        f"counts them; bound {eval_bound:.1f}), full {full_rate:.1f} (encrypt c1..c3, cz, cr + "
+        f"eval + device decrypt) [{card}]")
+
+    # 4. The sweep, with its Bloom filter on the card.
+    with tempfile.TemporaryDirectory() as tmp:
+        _dgk_sweep(dev, tmp)
+    log(f"[dgk] phase done in {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1237,21 +1525,36 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this needs a GPU",
               file=sys.stderr)
         return 1
+    t_main = time.perf_counter()
+
+    def done(phase):
+        log(f"[main] {phase} done at {time.perf_counter() - t_main:.1f} s")
+
     dev = phase_device()
     phase_build()
+    done("build")
     # The demo's transform shapes: one polynomial (decrypt), three
     # (encrypt, plaintext spectra) and six (the blind distance's stack).
     demo_shapes = [(), (3,), (6,)]
     err, times = phase_kernels(dev, demo_shapes)
+    done("kernels")
     launches = phase_slice(dev)
+    done("slice")
     rows, mult_ntt = phase_multiply(dev)
+    done("multiply")
     rows["mulmod_chain"] = phase_probe(dev)
     pipe_ntt = phase_pipeline(dev)
+    done("probe, pipeline")
     sep_rows, sep_ntt = phase_separate(dev)
     rows.update(sep_rows)
+    done("separate")
     seal_rows, seal_ntt = phase_seal_multiply(dev)
     rows.update(seal_rows)
+    done("seal_multiply")
     net_ntt = phase_network(dev)
+    done("network")
+    rows.update(phase_dgk(dev))
+    done("dgk")
     n = 1 << DEMO_N_BITS
     main_shapes = {prof: (6, len(_chain(prof, n)), n) for prof in PROFILE_NTT}
     u32_shape = (ROWS_PER_LIMB, len(_chain("tpu", 32768)), 32768)
@@ -1277,8 +1580,10 @@ def main() -> int:
         f"{u32_shape}); the fused behz kernels at batch {MUL_BATCH} (width 2), the separate "
         f"ones per call at n = {MUL_SEP_N}, batch {MUL_SEP_BATCH}; the behz64 kernels per "
         f"call on the seal chain n = {SEAL_MUL[0][0]}, batch {SEAL_MUL[0][2]}, width "
-        f"{SEAL_MUL[0][3][0]}; mulmod_chain at {PROBE_SHAPE}; library_ms null: no PyTorch "
-        f"call computes these functions")
+        f"{SEAL_MUL[0][3][0]}; mulmod_chain at {PROBE_SHAPE}; the dgk kernels per launch at "
+        f"B = {DGK_B}, k = {DGK_KEYS[0]} (encrypt's g^m h^r product and h^r, the decrypt's "
+        f"c^vpq, the blind distance), their plain_ms one call on the same inputs; library_ms "
+        f"null: no PyTorch call computes these functions")
     log(json.dumps({"kernels": kernels}))
     log(smi_line())
     print(json.dumps({"ok": True, "device": {

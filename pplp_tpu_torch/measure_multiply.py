@@ -90,7 +90,10 @@ PHASES = {"ntt_forward_kernel": "ntt_forward", "ntt_inverse_kernel": "ntt_invers
           "ntt_inverse_u64_cluster_kernel": "ntt_inverse_u64",
           "to_bsk64_kernel": "behz64_to_bsk", "tensor64_kernel": "behz64_tensor",
           "floor_sk64_kernel": "behz64_floor_sk", "lift64_kernel": "behz64_lift",
-          "keyprod64_kernel": "behz64_keyprod", "add64_kernel": "behz64_add"}
+          "keyprod64_kernel": "behz64_keyprod", "add64_kernel": "behz64_add",
+          "dgk_mulmod_kernel": "dgk_mulmod", "dgk_powmod_lanes_kernel": "dgk_powmod_lanes",
+          "dgk_powmod_shared_kernel": "dgk_powmod_shared",
+          "dgk_blind_distance_kernel": "dgk_blind_distance"}
 _KERNEL_NAME = re.compile(r"(?:^|[\s:])(\w+_kernel)[<(]")
 CEILING_STEPS = 256  # chain steps at which the chain is bound by integer work
 # The bound's two rates on one H100 SXM: device memory (NVIDIA's data sheet)

@@ -1,0 +1,276 @@
+"""Load and launch the DGK back-end's Montgomery kernels (``csrc/dgk_mont.cu``).
+
+They replace no Pallas kernel: the reference's batched DGK runs its
+Montgomery product as the XLA CIOS scan ``pplp_tpu/dgk/modexp.py:111``.
+Four kernels, each one launch:
+
+* ``mulmod``: a b mod n per lane, b per lane or one for all (encrypt's
+  g^m h^r, the BSGS giant step);
+* ``powmod``: base^e mod n with per-lane exponents and a shared or
+  per-lane base (encrypt's g^m and h^r);
+* ``powmod_shared_exp``: base^e mod n with one exponent for every lane
+  (the decrypt's c^vpq);
+* ``blind_distance``: ((c1 c2^xb c3^yb)^s) cz cr mod n per lane, the
+  server's whole DGK chain.
+
+The port keeps numbers as rows of 16-bit digits in int64 tensors [B, D]
+(``dgk.modexp``); the kernels take W = ceil(D / 2) 32-bit limbs (int32
+tensors holding the u32 bits) in the standard domain, and converting is
+this module's job. W is 17 (moduli of 497-528 bits, the tests' k = 512) or
+65 (2033-2064 bits, k = 2048); any other width raises. The modulus'
+constants and the shared exponents (at most 2048 bits) are packed here on
+the host and go to the kernel by value.
+
+Each function takes CUDA tensors; the dispatchers (``mulmod``, ``powmod``,
+``powmod_shared_exp``, ``blind_distance``) send a CPU tensor to the plain
+version (``dgk.modexp.MontgomeryCtx``, ``blind_distance_plain``) and raise
+on any other device. ``launches_by_kernel`` counts launches per kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from ..dgk.modexp import DIGIT_BITS, MontgomeryCtx, exp_to_bits
+from . import cuda_build
+
+__all__ = ["mulmod", "powmod", "powmod_shared_exp", "blind_distance", "powmod_plain",
+           "blind_distance_plain",
+           "mulmod_cuda", "powmod_cuda", "powmod_shared_exp_cuda", "blind_distance_cuda",
+           "limbs", "WIDTHS", "launches_by_kernel", "reset_launches"]
+
+SOURCE = cuda_build.CSRC / "dgk_mont.cu"
+WIDTHS = (17, 65)  # the widths dgk_mont.cu is compiled for
+EXP_WORDS = 64  # a shared exponent's 32-bit words (at most 2048 bits)
+
+launches_by_kernel = {"dgk_mulmod": 0, "dgk_powmod_lanes": 0, "dgk_powmod_shared": 0,
+                      "dgk_blind_distance": 0}
+
+
+def reset_launches():
+    for k in launches_by_kernel:
+        launches_by_kernel[k] = 0
+
+
+def _count(name: str):
+    launches_by_kernel[name] += 1
+
+
+def _declare(lib):
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.pplp_dgk_mulmod.argtypes = [vp, vp, ll, vp, i, i, vp, vp]
+    lib.pplp_dgk_powmod_lanes.argtypes = [vp, ll, vp, i, i, vp, i, i, vp, vp]
+    lib.pplp_dgk_powmod_shared.argtypes = [vp, vp, i, i, vp, vp, vp, vp]
+    lib.pplp_dgk_blind_distance.argtypes = [vp, vp, vp, vp, vp, vp, i, i, vp, vp, vp, vp]
+    for fn in (lib.pplp_dgk_mulmod, lib.pplp_dgk_powmod_lanes, lib.pplp_dgk_powmod_shared,
+               lib.pplp_dgk_blind_distance):
+        fn.restype = ctypes.c_int
+
+
+def load():
+    """The kernel library (built if needed), with its argtypes declared."""
+    return cuda_build.load(SOURCE, _declare)
+
+
+def limbs(mc: MontgomeryCtx) -> int:
+    """W, the 32-bit limbs of a number of ``mc``'s D digits."""
+    return (mc.D + 1) // 2
+
+
+def _width(mc: MontgomeryCtx) -> int:
+    W = limbs(mc)
+    if W not in WIDTHS:
+        raise ValueError(f"the DGK kernels take {WIDTHS} 32-bit limbs (moduli of 497-528 or "
+                         f"2033-2064 bits); n has {mc.n_int.bit_length()} bits, W = {W}")
+    return W
+
+
+def _words(v: int, W: int) -> np.ndarray:
+    return np.frombuffer(int(v).to_bytes(4 * W, "little"), "<u4")
+
+
+@functools.lru_cache(maxsize=16)
+def _consts(n: int, W: int) -> np.ndarray:
+    """n, R'^2 mod n, R' mod n, 1 (W words each) and -n^-1 mod 2^32, R' = 2^(32 W)."""
+    R = 1 << (32 * W)
+    parts = [_words(v, W) for v in (n, R * R % n, R % n, 1)]
+    return np.concatenate(parts + [np.array([(-pow(n, -1, 1 << 32)) % (1 << 32)], "<u4")])
+
+
+def _shared_exponents(exps) -> tuple[np.ndarray, np.ndarray]:
+    """Up to three exponents -> ([3, EXP_WORDS] u32 words, [3] int32 bit lengths)."""
+    words = np.zeros((3, EXP_WORDS), "<u4")
+    bits = np.zeros(3, np.int32)
+    for k, e in enumerate(exps):
+        e = int(e)
+        if e < 0 or e.bit_length() > 32 * EXP_WORDS:
+            raise ValueError(f"a shared exponent must lie in [0, 2^{32 * EXP_WORDS}), got {e}")
+        words[k] = _words(e, EXP_WORDS)
+        bits[k] = e.bit_length()
+    return words, bits
+
+
+def _to_words(digs: torch.Tensor, W: int) -> torch.Tensor:
+    """[B, D] int64 16-bit digits -> contiguous int32 [B, W] holding the u32 limbs."""
+    pad = 2 * W - digs.shape[-1]
+    if pad:
+        digs = torch.nn.functional.pad(digs, (0, pad))
+    words = digs[..., 0::2] | (digs[..., 1::2] << DIGIT_BITS)
+    return words.to(torch.int32).contiguous()
+
+
+def _to_digits(words: torch.Tensor, D: int) -> torch.Tensor:
+    """int32 [B, W] u32 limbs -> int64 [B, D] 16-bit digits."""
+    w = words.to(torch.int64) & 0xFFFFFFFF
+    digs = torch.stack([w & 0xFFFF, w >> DIGIT_BITS], dim=-1)
+    return digs.reshape(w.shape[0], -1)[:, :D].contiguous()
+
+
+def _check(mc: MontgomeryCtx, *tensors):
+    dev = tensors[0].device
+    for t in tensors:
+        if not t.is_cuda:
+            raise ValueError(f"the DGK kernels take CUDA tensors, got {t.device}")
+        if t.device != dev:
+            raise ValueError(f"operands on {dev} and {t.device}")
+        if t.dtype != torch.int64 or t.dim() != 2 or t.shape[-1] != mc.D:
+            raise ValueError(f"numbers must be int64 [B, {mc.D}] digit rows, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    return _width(mc)
+
+
+def _launch(name, fn, *args):
+    code = fn(*args)
+    cuda_build.check(code, load(), name)
+    _count(name)
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def mulmod_cuda(mc: MontgomeryCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a b mod n: a [B, D], b [B, D] or [1, D] (one for every lane)."""
+    W = _check(mc, a, b)
+    B = a.shape[0]
+    if b.shape[0] not in (1, B):
+        raise ValueError(f"b has {b.shape[0]} rows for {B} lanes")
+    aw, bw = _to_words(a, W), _to_words(b, W)
+    out = torch.empty_like(aw)
+    if B:
+        consts = _consts(mc.n_int, W)
+        _launch("dgk_mulmod", load().pplp_dgk_mulmod, aw.data_ptr(), bw.data_ptr(),
+                W if b.shape[0] == B else 0, out.data_ptr(), B, W, consts.ctypes.data,
+                _stream(a))
+    return _to_digits(out, mc.D)
+
+
+def powmod_cuda(mc: MontgomeryCtx, base: torch.Tensor, exps) -> torch.Tensor:
+    """base^e mod n for per-lane Python-int exponents ``exps`` (B of them):
+    base [B, D] or [1, D] (one for every lane) -> [B, D]."""
+    W = _check(mc, base)
+    exps = [int(e) for e in exps]
+    B = len(exps)
+    if base.shape[0] not in (1, B):
+        raise ValueError(f"base has {base.shape[0]} rows for {B} exponents")
+    if any(e < 0 for e in exps):
+        raise ValueError("exponents must be non-negative")
+    bits = max((e.bit_length() for e in exps), default=0)
+    ew = max(1, (bits + 31) // 32)
+    host = np.frombuffer(b"".join(e.to_bytes(4 * ew, "little") for e in exps), "<u4")
+    ebuf = torch.from_numpy(host.view(np.int32).copy()).to(base.device)
+    bw = _to_words(base, W)
+    out = torch.empty((B, W), dtype=torch.int32, device=base.device)
+    if B:
+        _launch("dgk_powmod_lanes", load().pplp_dgk_powmod_lanes, bw.data_ptr(),
+                W if base.shape[0] == B else 0, ebuf.data_ptr(), ew, bits, out.data_ptr(), B,
+                W, _consts(mc.n_int, W).ctypes.data, _stream(base))
+    return _to_digits(out, mc.D)
+
+
+def powmod_shared_exp_cuda(mc: MontgomeryCtx, base: torch.Tensor, exp: int) -> torch.Tensor:
+    """base^exp mod n for per-lane bases [B, D] and one Python-int exponent."""
+    W = _check(mc, base)
+    words, bits = _shared_exponents([exp])
+    bw = _to_words(base, W)
+    out = torch.empty_like(bw)
+    if base.shape[0]:
+        _launch("dgk_powmod_shared", load().pplp_dgk_powmod_shared, bw.data_ptr(),
+                out.data_ptr(), base.shape[0], W, _consts(mc.n_int, W).ctypes.data,
+                words.ctypes.data, bits.ctypes.data, _stream(base))
+    return _to_digits(out, mc.D)
+
+
+def blind_distance_cuda(mc: MontgomeryCtx, c1, c2, c3, xb: int, yb: int, s_blind: int,
+                        cz, cr) -> torch.Tensor:
+    """((c1 c2^xb c3^yb)^s) cz cr mod n over [B, D] ciphertexts, one launch."""
+    W = _check(mc, c1, c2, c3, cz, cr)
+    B = c1.shape[0]
+    if any(c.shape[0] != B for c in (c2, c3, cz, cr)):
+        raise ValueError("the five ciphertext batches differ in size")
+    words, bits = _shared_exponents([xb, yb, s_blind])
+    cw = [_to_words(c, W) for c in (c1, c2, c3, cz, cr)]
+    out = torch.empty_like(cw[0])
+    if B:
+        _launch("dgk_blind_distance", load().pplp_dgk_blind_distance,
+                *(c.data_ptr() for c in cw), out.data_ptr(), B, W,
+                _consts(mc.n_int, W).ctypes.data, words.ctypes.data, bits.ctypes.data,
+                _stream(c1))
+    return _to_digits(out, mc.D)
+
+
+def powmod_plain(mc: MontgomeryCtx, base: torch.Tensor, exps) -> torch.Tensor:
+    """``powmod``'s plain version: the reference's bit-array form."""
+    exps = [int(e) for e in exps]
+    bits = max((e.bit_length() for e in exps), default=0) or 1
+    return mc.powmod(base, exp_to_bits(exps, bits))
+
+
+def blind_distance_plain(mc: MontgomeryCtx, c1, c2, c3, xb: int, yb: int, s_blind: int,
+                         cz, cr) -> torch.Tensor:
+    """``blind_distance``'s plain version, the reference's chain: five
+    conversions in, one out, the products in the Montgomery domain."""
+    c1m, c2m, c3m = mc.to_mont(c1), mc.to_mont(c2), mc.to_mont(c3)
+    czm, crm = mc.to_mont(cz), mc.to_mont(cr)
+    t2 = mc.powmod_shared_exp_mont(c2m, xb)
+    t3 = mc.powmod_shared_exp_mont(c3m, yb)
+    acc = mc.mont_mul(mc.mont_mul(c1m, t2), t3)
+    acc = mc.powmod_shared_exp_mont(acc, s_blind)
+    return mc.from_mont(mc.mont_mul(mc.mont_mul(acc, czm), crm))
+
+
+def _on(t: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises on other devices."""
+    if t.is_cuda:
+        return True
+    if t.device.type != "cpu":
+        raise ValueError(f"no DGK {what} for device {t.device}")
+    return False
+
+
+def mulmod(mc: MontgomeryCtx, a, b):
+    """a b mod n: the kernel for CUDA tensors, the plain version for CPU ones."""
+    return mulmod_cuda(mc, a, b) if _on(a, "product") else mc.mulmod(a, b)
+
+
+def powmod(mc: MontgomeryCtx, base, exps):
+    """base^e mod n with per-lane exponents: the kernel or the plain version."""
+    return powmod_cuda(mc, base, exps) if _on(base, "exponentiation") else powmod_plain(
+        mc, base, exps)
+
+
+def powmod_shared_exp(mc: MontgomeryCtx, base, exp: int):
+    """base^exp mod n, one exponent: the kernel or the plain version."""
+    if _on(base, "exponentiation"):
+        return powmod_shared_exp_cuda(mc, base, exp)
+    return mc.powmod_shared_exp(base, exp)
+
+
+def blind_distance(mc: MontgomeryCtx, c1, c2, c3, xb, yb, s_blind, cz, cr):
+    """The blind-distance chain: the kernel or the plain version."""
+    fn = blind_distance_cuda if _on(c1, "blind distance") else blind_distance_plain
+    return fn(mc, c1, c2, c3, xb, yb, s_blind, cz, cr)

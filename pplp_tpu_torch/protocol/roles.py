@@ -127,8 +127,10 @@ class ProximityServer:
         if self._blinding is None:
             cfg = self.cfg
             if cfg.safe_blinding:
+                # Bounded by the t of the parameters received, which the
+                # client chose: the server's own plain_modulus_bits may differ.
                 self._blinding = Blinding.for_protocol(
-                    cfg.plain_modulus_bits,
+                    self.ctx.t.bit_length() - 1,
                     cfg.sq_radius,
                     cfg.seed,
                     max_s_bits=self._noise_aware_s_bits(),

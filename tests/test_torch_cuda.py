@@ -2,8 +2,9 @@
 versions (the u32 NTT in both I/O widths, the u64 NTT,
 the BEHZ multiply + relinearization on the fused and the separate routes,
 the seal (m62) multiply on the u64 route and its steps, the u64 NTT on the
-60-bit B_sk tables, the mulmod chain), the seal real product and mod
-switch, the demo on both profiles and the packed pipeline.
+60-bit B_sk tables, the mulmod chain, the DGK Montgomery kernels), the seal
+real product and mod switch, the demo on both profiles, the packed pipeline,
+the networked entry points and the DGK batch path and protocol.
 
 Every test here is marked ``cuda`` and skips without a card. This file
 imports neither jax nor the JAX package, so it also runs where jax is not
@@ -878,3 +879,131 @@ def test_device_named_without_an_index(dev):
                                         plain_modulus_bits=40, seed=3),
                          verbose=False, device="cuda")
     assert ntt_cuda.launches > 0 and res.bf_device.type == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# The DGK back-end (csrc/dgk_mont.cu)
+# ---------------------------------------------------------------------------
+
+_DGK_KEYS = {512: (512, 64, 12, 7), 2048: (2048, 320, 16, 5)}  # W = 17 and 65
+_DGK_LANES = 67  # not a multiple of the 64-thread block
+
+
+@pytest.fixture(scope="module", params=sorted(_DGK_KEYS), ids=lambda k: f"k{k}")
+def dgk_keys(request):
+    from pplp_tpu_torch.dgk import dgk_gen_keys
+
+    return dgk_gen_keys(*_DGK_KEYS[request.param][:3], seed=_DGK_KEYS[request.param][3])
+
+
+def _dgk_operands(mc, dev, seed):
+    """_DGK_LANES numbers below n: 0, 1, 2, n - 1, n - 2, then random."""
+    import random
+
+    from pplp_tpu_torch.dgk.modexp import to_digits
+
+    rng, n = random.Random(seed), mc.n_int
+    vals = [0, 1, 2, n - 1, n - 2] + [rng.randrange(n) for _ in range(_DGK_LANES - 5)]
+    rng.shuffle(vals)
+    return vals, to_digits(vals, mc.D, dev)
+
+
+def test_dgk_kernels_match_plain(dev, dgk_keys):
+    """Each kernel against its plain version on the card and against pow."""
+    import random
+
+    from pplp_tpu_torch.dgk.batched import DGKBatch
+    from pplp_tpu_torch.dgk.modexp import from_digits
+    from pplp_tpu_torch.ops import dgk_cuda
+
+    priv, pub = dgk_keys
+    mc = DGKBatch.build(pub, device=dev).mc
+    n, rng = pub.n, random.Random(1)
+    a, A = _dgk_operands(mc, dev, 1)
+    b, Bd = _dgk_operands(mc, dev, 2)
+    before = dict(dgk_cuda.launches_by_kernel)
+    got = dgk_cuda.mulmod(mc, A, Bd)
+    assert torch.equal(got, mc.mulmod(A, Bd))
+    assert from_digits(got) == [x * y % n for x, y in zip(a, b)]
+    assert torch.equal(dgk_cuda.mulmod(mc, A, Bd[3:4]), mc.mulmod(A, Bd[3:4]))
+    exps = [0, 1, 2] + [rng.getrandbits(rng.choice([5, 20, 33])) for _ in range(_DGK_LANES - 3)]
+    for base in (A, A[:1]):  # per-lane and shared bases
+        got = dgk_cuda.powmod(mc, base, exps)
+        assert torch.equal(got, dgk_cuda.powmod_plain(mc, base, exps))
+    for e in (0, 1, 37, 123321):
+        assert torch.equal(dgk_cuda.powmod_shared_exp(mc, A, e), mc.powmod_shared_exp(A, e))
+    got = from_digits(dgk_cuda.powmod_shared_exp(mc, A, priv.vpq))  # the decrypt exponent
+    assert got == [pow(x, priv.vpq, n) for x in a]
+    cs = [_dgk_operands(mc, dev, s)[1] for s in range(3, 8)]
+    for xb, yb, s in ((123321, 123654, 37), (0, 3, 0), (1, 0, 65535)):
+        got = dgk_cuda.blind_distance(mc, *cs[:3], xb, yb, s, *cs[3:])
+        assert torch.equal(got, dgk_cuda.blind_distance_plain(mc, *cs[:3], xb, yb, s, *cs[3:]))
+    after = dgk_cuda.launches_by_kernel
+    assert {k: after[k] - before[k] for k in after} == {
+        "dgk_mulmod": 2, "dgk_powmod_lanes": 2, "dgk_powmod_shared": 5, "dgk_blind_distance": 3}
+
+
+def test_dgk_batch_on_card_runs_the_kernels_only(dev, dgk_keys, monkeypatch):
+    """encrypt, blind distance and both device decrypts on the card through
+    the kernels alone (the plain products raise), against the clear oracle."""
+    import random
+
+    from pplp_tpu_torch.dgk import dgk_encrypt
+    from pplp_tpu_torch.dgk.batched import DGKBatch
+    from pplp_tpu_torch.dgk.modexp import MontgomeryCtx, to_digits
+    from pplp_tpu_torch.ops import dgk_cuda
+
+    priv, pub = dgk_keys
+    db = DGKBatch.build(pub, device=dev)
+    u, rng, B = pub.u, random.Random(5), _DGK_LANES
+    xa, ya = [rng.randrange(300) for _ in range(B)], [rng.randrange(300) for _ in range(B)]
+    xb, yb, s, r = 123, 45, rng.randrange(1, u), rng.randrange(u)
+    rnd = int(2.5 * pub.t)
+    monkeypatch.setattr(MontgomeryCtx, "mont_mul", lambda *a: pytest.fail("plain product"))
+    dgk_cuda.reset_launches()
+    ms = [(x * x + y * y) % u for x, y in zip(xa, ya)]
+    c1 = db.encrypt_batch(ms, [rng.getrandbits(rnd) for _ in range(B)])
+    c2, c3, cz, cr = (to_digits([dgk_encrypt(pub, m, rng.getrandbits(rnd)) for m in row],
+                                db.mc.D, dev)
+                      for row in ([(-2 * x) % u for x in xa], [(-2 * y) % u for y in ya],
+                                  [s * (xb * xb + yb * yb) % u] * B, [s * r % u] * B))
+    out = db.blind_distance_batch(c1, c2, c3, xb, yb, s, cz, cr)
+    want = [s * ((x - xb) ** 2 + (y - yb) ** 2 + r) % u for x, y in zip(xa, ya)]
+    assert db.decrypt_batch_device(priv, db.build_device_table(priv), out).tolist() == want
+    assert db.decrypt_batch_device_bsgs(priv, db.build_bsgs_table(priv), out).tolist() == want
+    assert db.decrypt_batch(priv, c1) == ms
+    counts = dgk_cuda.launches_by_kernel
+    assert counts["dgk_powmod_lanes"] == 2 and counts["dgk_blind_distance"] == 1
+    assert counts["dgk_powmod_shared"] == 3 and counts["dgk_mulmod"] > 1
+
+
+def test_dgk_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from pplp_tpu_torch.dgk.modexp import MontgomeryCtx, to_digits
+    from pplp_tpu_torch.ops import dgk_cuda
+
+    mc = MontgomeryCtx.build((1 << 383) | 12345, device=dev)  # W = 13
+    x = to_digits([1, 2], mc.D, dev)
+    with pytest.raises(ValueError, match="W = 13"):
+        dgk_cuda.mulmod(mc, x, x)
+    mc = MontgomeryCtx.build((1 << 511) | 12345, device=dev)  # W = 17
+    x = to_digits([1, 2], mc.D, dev)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        dgk_cuda.mulmod_cuda(mc, x, x.cpu())
+    with pytest.raises(ValueError, match="digit rows"):
+        dgk_cuda.mulmod_cuda(mc, x.to(torch.int32), x)
+    with pytest.raises(ValueError, match="rows for"):
+        dgk_cuda.powmod_cuda(mc, x, [1, 2, 3])
+    with pytest.raises(ValueError, match="shared exponent"):
+        dgk_cuda.powmod_shared_exp(mc, x, 1 << 2048)
+
+
+@pytest.mark.parametrize("radius,coords,near", [(44, (100, 100, 140, 110), True),
+                                                (31, (100, 100, 140, 120), False)])
+def test_pplp_dgk_on_card(dev, radius, coords, near):
+    from pplp_tpu_torch.dgk import dgk_gen_keys
+    from pplp_tpu_torch.dgk.protocol import pplp_dgk
+
+    xa, ya, xb, yb = coords
+    res = pplp_dgk(radius, xa=xa, ya=ya, xb=xb, yb=yb, k=512, t=64, l=12, seed=8,
+                   keys=dgk_gen_keys(512, 64, 12, seed=7))
+    assert res.is_near == near

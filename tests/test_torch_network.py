@@ -147,6 +147,34 @@ def test_sweep_pairs_across_packages(port_client, send_pk):
     sweep_pair("tpu", port_client, send_pk, PAIRS[0])
 
 
+@pytest.mark.parametrize("port_server", [True, False], ids=["port-server", "reference-server"])
+def test_client_t_differs_from_the_server_default(port_server):
+    """A port client at -b 40 against a server left at its default t = 2^56
+    (the server CLI has no -b), near pair, the same seed. The port's server
+    blinds for the t of the parameters it receives: s(d^2 + r) < 2^40, and
+    the client reads near. The reference's blinds for its own t: the blind
+    distance wraps mod 2^40 and the client reads far (the reference's fault,
+    left as it is)."""
+    xa, ya, xb, yb = PAIRS[0]
+    ckw, skw = _cfgs("tpu", *PAIRS[0])
+    del skw["plain_modulus_bits"]
+    t = 1 << SMALL["plain_modulus_bits"]
+    client_fn = lambda ch: netmain.run_client_protocol(  # noqa: E731
+        ch, ProtocolConfig(**ckw), verbose=False, device="cpu")
+    if port_server:
+        server_fn = lambda ch: netmain.run_server_protocol(  # noqa: E731
+            ch, ProtocolConfig(**skw), verbose=False, device="cpu")
+    else:
+        server_fn = lambda ch: rnetmain.run_server_protocol(  # noqa: E731
+            ch, RProtocolConfig(**skw), verbose=False)
+    client, server, _, _ = run_pair(client_fn, server_fn,
+                                    server_cls=Channel if port_server else RChannel)
+    bl, d2 = server.blinding, (xa - xb) ** 2 + (ya - yb) ** 2
+    assert client.blind_distance == bl.s * (d2 + bl.r) % t
+    assert (bl.s * (d2 + bl.r) < t) == port_server
+    assert client.is_near == port_server
+
+
 # -- the transport (tests/test_network.py:135-165, on the port's Channel) --
 
 
@@ -279,9 +307,8 @@ def _run_cli(server_argv, client_argv):
 
 
 def test_cli_client_server_over_tcp(monkeypatch, capsys):
-    """``client`` and ``server`` over TCP, at the client's default t = 2^56:
-    the server CLI has no -b and blinds for its own default t, as the
-    reference's does, so a client at another t would get a wrong verdict."""
+    """``client`` and ``server`` over TCP, at the client's default t = 2^56
+    (the server CLI has no -b; it blinds for the t the client sends)."""
     monkeypatch.setattr(netmain, "connect_to_server", _patient_connect(netmain.connect_to_server))
     port = str(_free_port())
     common = ["-p", port, "-r", "32", "--profile", "tpu", "--device", "cpu"]
