@@ -1257,26 +1257,6 @@ def phase_network(dev):
 
 
 
-def _dgk_products(e: int) -> int:
-    """Montgomery products of a left-to-right exponentiation by ``e`` from
-    its top bit: a square per lower bit, a product per lower set bit."""
-    return e.bit_length() + bin(e).count("1") - 2 if e else 0
-
-
-def _dgk_bound(W: int, products: int, words: int) -> dict:
-    """A DGK kernel's bound: ``products`` Montgomery products of 2 W^2 + W
-    32 x 32 -> 64-bit multiplies each, every multiply one of the card's
-    32-bit multiply slots (``MULS_PER_S``; whether IMAD.WIDE takes one or
-    two is open), against ``words`` 32-bit words read or written once
-    (3.35 TB/s)."""
-    from pplp_tpu_torch.measure_multiply import BYTES_PER_S, MULS_PER_S
-
-    t_ops = products * (2 * W * W + W) / MULS_PER_S * 1e3
-    t_bytes = 4 * words / BYTES_PER_S * 1e3
-    return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes
-            else "bytes", "products": products}
-
-
 def _dgk_sweep(dev, tmp):
     """``dgk_sweep_main`` over r = 16..4096 with its defaults (keys of
     ``DGK_KEYS`` from seed 0, made anew per radius; the reference's
@@ -1338,10 +1318,13 @@ def phase_dgk(dev):
 
     from pplp_tpu_torch.dgk import dgk_encrypt, dgk_gen_keys
     from pplp_tpu_torch.dgk.batched import DGKBatch
-    from pplp_tpu_torch.dgk.dgk import dgk_random_num
     from pplp_tpu_torch.dgk.modexp import from_digits, to_digits
     from pplp_tpu_torch.ops import dgk_cuda
 
+    import pplp_tpu_torch.measure_dgk as md
+
+    assert (DGK_KEYS, DGK_SEED, DGK_XB, DGK_YB, DGK_S) == (
+        md.DGK_KEYS, md.DGK_SEED, md.DGK_XB, md.DGK_YB, md.DGK_S), "measure_dgk's inputs differ"
     t_phase = time.perf_counter()
 
     def say(*args):  # each line with the phase's elapsed seconds
@@ -1399,17 +1382,11 @@ def phase_dgk(dev):
         f"bit-exact {err}")
 
     # 2. BASELINE config[2] at full width: real protocol ciphertexts from
-    # random coordinates, randomness of 2.5 t bits.
+    # random coordinates, randomness of 2.5 t bits (the inputs measure_dgk
+    # times).
     B, rbits = DGK_B, int(2.5 * t)
-    xa = [DGK_XB + rng.randrange(-300, 301) for _ in range(B)]
-    ya = [DGK_YB + rng.randrange(-300, 301) for _ in range(B)]
-    r_blind = dgk_random_num(l, rng)
-    msgs = [[(x * x + y * y) % u for x, y in zip(xa, ya)], [(-2 * x) % u for x in xa],
-            [(-2 * y) % u for y in ya], [DGK_S * (DGK_XB ** 2 + DGK_YB ** 2) % u] * B,
-            [DGK_S * r_blind % u] * B]
-    rands = [[dgk_random_num(rbits, rng) for _ in range(B)] for _ in msgs]
-    want = [DGK_S * ((x - DGK_XB) ** 2 + (y - DGK_YB) ** 2 + r_blind) % u
-            for x, y in zip(xa, ya)]
+    inp = md.comparison_inputs(pub, t, l, B)
+    msgs, rands, want = inp["msgs"], inp["rands"], inp["want"]
 
     def comparisons():
         cts = [db.encrypt_batch(m, r) for m, r in zip(msgs, rands)]
@@ -1465,14 +1442,15 @@ def phase_dgk(dev):
             lambda: dgk_cuda.blind_distance_plain(mc, *cts[:3], DGK_XB, DGK_YB, DGK_S,
                                                   *cts[3:])),
     }
-    lane_products = sum(2 + _dgk_products(e) for e in rands[0])
+    dgk_bound, dgk_products = md.dgk_bound, md.dgk_products
+    lane_products = sum(2 + dgk_products(e) for e in rands[0])
     ew = (max(e.bit_length() for e in rands[0]) + 31) // 32
     bounds = {
-        "dgk_mulmod": _dgk_bound(W, 2 * B, 3 * B * W),
-        "dgk_powmod_lanes": _dgk_bound(W, lane_products, W + B * ew + B * W),
-        "dgk_powmod_shared": _dgk_bound(W, B * (2 + _dgk_products(priv.vpq)), 2 * B * W),
-        "dgk_blind_distance": _dgk_bound(
-            W, B * (10 + sum(_dgk_products(e) for e in (DGK_XB, DGK_YB, DGK_S))), 6 * B * W),
+        "dgk_mulmod": dgk_bound(W, 2 * B, 3 * B * W),
+        "dgk_powmod_lanes": dgk_bound(W, lane_products, W + B * ew + B * W),
+        "dgk_powmod_shared": dgk_bound(W, B * (2 + dgk_products(priv.vpq)), 2 * B * W),
+        "dgk_blind_distance": dgk_bound(
+            W, B * (10 + sum(dgk_products(e) for e in (DGK_XB, DGK_YB, DGK_S))), 6 * B * W),
     }
     rows = {}
     for name, (fn, plain) in kernel_fns.items():

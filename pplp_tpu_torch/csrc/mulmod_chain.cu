@@ -12,6 +12,13 @@
 // per step against 16 bytes of int64 traffic per residue, the chain sits
 // near the balance point of the H100's integer pipes and its memory; more
 // steps make it compute-bound, which is what the probe is for.
+//
+// pplp_mad_probe, beside it, measures the multiply slot of a 32 x 32 -> 64
+// bit multiply-add, the unit the DGK bounds count: every thread runs
+// kMadChains independent chains acc <- lo(acc) c + acc, either as one
+// mad.wide.u32 (SASS IMAD.WIDE.U32) or as the pair mad.lo.u32 +
+// mad.hi.u32 (IMAD + IMAD.HI.U32) on the two halves, `steps` times; no
+// memory traffic but one word a thread at the end.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -35,6 +42,41 @@ __global__ void mulmod_chain_kernel(const int64_t* __restrict__ x,
   }
 }
 
+constexpr int kMadChains = 8;
+
+template <bool kWide>
+__global__ void __launch_bounds__(256) mad_probe_kernel(uint32_t* __restrict__ out, int steps,
+                                                        uint32_t c) {
+  uint32_t lo[kMadChains], hi[kMadChains];
+#pragma unroll
+  for (int k = 0; k < kMadChains; ++k) {
+    lo[k] = blockIdx.x * blockDim.x + threadIdx.x + k;
+    hi[k] = k;
+  }
+#pragma unroll 1
+  for (int s = 0; s < steps; ++s) {
+#pragma unroll
+    for (int k = 0; k < kMadChains; ++k) {
+      if (kWide) {
+        uint64_t acc = (static_cast<uint64_t>(hi[k]) << 32) | lo[k];
+        asm volatile("mad.wide.u32 %0, %1, %2, %0;" : "+l"(acc) : "r"(lo[k]), "r"(c));
+        lo[k] = static_cast<uint32_t>(acc);
+        hi[k] = static_cast<uint32_t>(acc >> 32);
+      } else {
+        uint32_t l2, h2;
+        asm volatile("mad.lo.u32 %0, %1, %2, %3;" : "=r"(l2) : "r"(lo[k]), "r"(c), "r"(lo[k]));
+        asm volatile("mad.hi.u32 %0, %1, %2, %3;" : "=r"(h2) : "r"(lo[k]), "r"(c), "r"(hi[k]));
+        lo[k] = l2;
+        hi[k] = h2;
+      }
+    }
+  }
+  uint32_t x = 0;
+#pragma unroll
+  for (int k = 0; k < kMadChains; ++k) x ^= lo[k] ^ hi[k];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = x;
+}
+
 }  // namespace
 
 extern "C" {
@@ -54,6 +96,19 @@ int pplp_mulmod_chain(const void* x, void* y, long long count, unsigned w,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(x), static_cast<int64_t*>(y), count, w, w_shoup, q,
       steps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out: int32 [blocks * 256] on the device; wide 1: mad.wide.u32, 0: the
+// lo/hi pair. Each thread runs 8 chains of `steps` multiply-adds.
+int pplp_mad_probe(void* out, int wide, int steps, int blocks, void* stream) {
+  if (steps < 1 || blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  auto* o = static_cast<uint32_t*>(out);
+  if (wide)
+    mad_probe_kernel<true><<<blocks, 256, 0, s>>>(o, steps, 0x9E3779B1u);
+  else
+    mad_probe_kernel<false><<<blocks, 256, 0, s>>>(o, steps, 0x9E3779B1u);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,6 +15,7 @@ probe are plain torch on both.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
@@ -44,12 +45,21 @@ class DGKBatch:
     def _dig(self, ints):
         return to_digits(ints, self.mc.D, self.device)
 
+    @functools.cached_property
+    def _bases(self):
+        """g and h as digit rows on the device, made once: a copy from the
+        host would wait for the kernels queued before it."""
+        return self._dig([self.pub.g]), self._dig([self.pub.h])
+
     def encrypt_batch(self, ms, rs):
         """[B] messages (< u) + randomness -> [B, D] ciphertext digits:
         c = g^m h^r mod n, each exponentiation with per-lane exponents on a
         shared base."""
-        gm = dgk_cuda.powmod(self.mc, self._dig([self.pub.g]), ms)
-        hr = dgk_cuda.powmod(self.mc, self._dig([self.pub.h]), rs)
+        # h^r first: packing its wide exponents is the long host step, and
+        # packing g^m's then overlaps h^r's kernel.
+        g, h = self._bases
+        hr = dgk_cuda.powmod(self.mc, h, rs)
+        gm = dgk_cuda.powmod(self.mc, g, ms)
         return dgk_cuda.mulmod(self.mc, gm, hr)
 
     def decrypt_batch(self, priv: DGKPrivateKey, cts) -> list[int]:

@@ -19,7 +19,11 @@ tensors holding the u32 bits) in the standard domain, and converting is
 this module's job. W is 17 (moduli of 497-528 bits, the tests' k = 512) or
 65 (2033-2064 bits, k = 2048); any other width raises. The modulus'
 constants and the shared exponents (at most 2048 bits) are packed here on
-the host and go to the kernel by value.
+the host and go to the kernel by value. ``mulmod`` and ``blind_distance``
+run one thread a lane at R' = 2^(32 W); the two exponentiations run a
+group of G threads a number at R' = 2^(32 W'), W' = G L, with a fixed
+window, so their constants are made at the W' the library reports
+(``group``).
 
 Each function takes CUDA tensors; the dispatchers (``mulmod``, ``powmod``,
 ``powmod_shared_exp``, ``blind_distance``) send a CPU tensor to the plain
@@ -31,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from itertools import repeat
 
 import numpy as np
 import torch
@@ -41,7 +46,7 @@ from . import cuda_build
 __all__ = ["mulmod", "powmod", "powmod_shared_exp", "blind_distance", "powmod_plain",
            "blind_distance_plain",
            "mulmod_cuda", "powmod_cuda", "powmod_shared_exp_cuda", "blind_distance_cuda",
-           "limbs", "WIDTHS", "launches_by_kernel", "reset_launches"]
+           "limbs", "WIDTHS", "group", "launches_by_kernel", "reset_launches"]
 
 SOURCE = cuda_build.CSRC / "dgk_mont.cu"
 WIDTHS = (17, 65)  # the widths dgk_mont.cu is compiled for
@@ -66,8 +71,9 @@ def _declare(lib):
     lib.pplp_dgk_powmod_lanes.argtypes = [vp, ll, vp, i, i, vp, i, i, vp, vp]
     lib.pplp_dgk_powmod_shared.argtypes = [vp, vp, i, i, vp, vp, vp, vp]
     lib.pplp_dgk_blind_distance.argtypes = [vp, vp, vp, vp, vp, vp, i, i, vp, vp, vp, vp]
+    lib.pplp_dgk_group.argtypes = [i, vp]
     for fn in (lib.pplp_dgk_mulmod, lib.pplp_dgk_powmod_lanes, lib.pplp_dgk_powmod_shared,
-               lib.pplp_dgk_blind_distance):
+               lib.pplp_dgk_blind_distance, lib.pplp_dgk_group):
         fn.restype = ctypes.c_int
 
 
@@ -87,6 +93,15 @@ def _width(mc: MontgomeryCtx) -> int:
         raise ValueError(f"the DGK kernels take {WIDTHS} 32-bit limbs (moduli of 497-528 or "
                          f"2033-2064 bits); n has {mc.n_int.bit_length()} bits, W = {W}")
     return W
+
+
+@functools.lru_cache(maxsize=None)
+def group(W: int) -> tuple[int, int, int]:
+    """The group kernels' geometry at width W, as the library was built:
+    (G threads a number, L limbs a thread, window bits); W' = G L."""
+    lib, geometry = load(), (ctypes.c_int * 3)()
+    cuda_build.check(lib.pplp_dgk_group(W, geometry), lib, "dgk_group")
+    return tuple(geometry)
 
 
 def _words(v: int, W: int) -> np.ndarray:
@@ -112,6 +127,25 @@ def _shared_exponents(exps) -> tuple[np.ndarray, np.ndarray]:
         words[k] = _words(e, EXP_WORDS)
         bits[k] = e.bit_length()
     return words, bits
+
+
+def _pack_exponents(exps, pin: bool = False) -> tuple[torch.Tensor, int, int]:
+    """Per-lane exponents -> (int32 [B * ew] host tensor of their u32 words,
+    ew words a lane, little-endian; ew; the widest exponent's bits), in one
+    pass of ``int.to_bytes`` into one buffer, page-locked if ``pin``: PyTorch
+    waits for the stream's queued kernels before a copy from pageable
+    memory returns, and not before a non-blocking one from page-locked
+    memory (whose block the caching host allocator keeps until the copy is
+    done)."""
+    exps = list(map(int, exps))
+    if exps and min(exps) < 0:
+        raise ValueError("exponents must be non-negative")
+    bits = max(map(int.bit_length, exps), default=0)
+    ew = max(1, (bits + 31) // 32)
+    raw = b"".join(map(int.to_bytes, exps, repeat(4 * ew), repeat("little")))
+    host = torch.empty(len(exps) * ew, dtype=torch.int32, pin_memory=pin)
+    host.numpy()[:] = np.frombuffer(raw, "<i4")
+    return host, ew, bits
 
 
 def _to_words(digs: torch.Tensor, W: int) -> torch.Tensor:
@@ -173,22 +207,18 @@ def powmod_cuda(mc: MontgomeryCtx, base: torch.Tensor, exps) -> torch.Tensor:
     """base^e mod n for per-lane Python-int exponents ``exps`` (B of them):
     base [B, D] or [1, D] (one for every lane) -> [B, D]."""
     W = _check(mc, base)
-    exps = [int(e) for e in exps]
-    B = len(exps)
+    host, ew, bits = _pack_exponents(exps, pin=True)
+    B = host.numel() // ew
     if base.shape[0] not in (1, B):
         raise ValueError(f"base has {base.shape[0]} rows for {B} exponents")
-    if any(e < 0 for e in exps):
-        raise ValueError("exponents must be non-negative")
-    bits = max((e.bit_length() for e in exps), default=0)
-    ew = max(1, (bits + 31) // 32)
-    host = np.frombuffer(b"".join(e.to_bytes(4 * ew, "little") for e in exps), "<u4")
-    ebuf = torch.from_numpy(host.view(np.int32).copy()).to(base.device)
+    ebuf = host.to(base.device, non_blocking=True)
     bw = _to_words(base, W)
     out = torch.empty((B, W), dtype=torch.int32, device=base.device)
     if B:
+        G, L, _ = group(W)
         _launch("dgk_powmod_lanes", load().pplp_dgk_powmod_lanes, bw.data_ptr(),
                 W if base.shape[0] == B else 0, ebuf.data_ptr(), ew, bits, out.data_ptr(), B,
-                W, _consts(mc.n_int, W).ctypes.data, _stream(base))
+                W, _consts(mc.n_int, G * L).ctypes.data, _stream(base))
     return _to_digits(out, mc.D)
 
 
@@ -199,8 +229,9 @@ def powmod_shared_exp_cuda(mc: MontgomeryCtx, base: torch.Tensor, exp: int) -> t
     bw = _to_words(base, W)
     out = torch.empty_like(bw)
     if base.shape[0]:
+        G, L, _ = group(W)
         _launch("dgk_powmod_shared", load().pplp_dgk_powmod_shared, bw.data_ptr(),
-                out.data_ptr(), base.shape[0], W, _consts(mc.n_int, W).ctypes.data,
+                out.data_ptr(), base.shape[0], W, _consts(mc.n_int, G * L).ctypes.data,
                 words.ctypes.data, bits.ctypes.data, _stream(base))
     return _to_digits(out, mc.D)
 

@@ -6,6 +6,11 @@ tensor (the reference probes u32 [256, 4, 4096] with 16 steps).
 ``chain_plain`` is the plain torch version; ``chain`` sends a CUDA tensor to
 the hand-written kernel ``csrc/mulmod_chain.cu`` and a CPU tensor to
 ``chain_plain``. ``launches`` counts kernel launches.
+
+``mad_probe`` runs the source's second probe: independent chains of
+32 x 32 -> 64-bit multiply-adds, as IMAD.WIDE.U32 or as IMAD + IMAD.HI
+pairs, whose rate settles how many 32-bit multiply slots one such
+multiply-add takes (``measure_dgk``).
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ from . import cuda_build
 from .modmath import m31
 
 __all__ = ["Q", "W", "WS", "STEPS", "chain", "chain_plain", "chain_cuda",
-           "launches", "reset_launches"]
+           "launches", "reset_launches", "mad_probe", "MAD_CHAINS", "MAD_THREADS"]
 
 SOURCE = cuda_build.CSRC / "mulmod_chain.cu"
 # The reference probe's constants (gated_profile.py:101-103).
@@ -26,6 +31,9 @@ Q = (1 << 30) - (1 << 18) + 1
 W = 123456789
 WS = (W << 32) // Q
 STEPS = 16
+
+MAD_CHAINS = 8  # independent chains a thread of the multiply-add probe
+MAD_THREADS = 256  # threads a block of it
 
 launches = 0
 
@@ -40,6 +48,8 @@ def _declare(lib):
     lib.pplp_mulmod_chain.argtypes = [vp, vp, ctypes.c_longlong, ctypes.c_uint,
                                       ctypes.c_uint, ctypes.c_uint, ctypes.c_int, vp]
     lib.pplp_mulmod_chain.restype = ctypes.c_int
+    lib.pplp_mad_probe.argtypes = [vp, ctypes.c_int, ctypes.c_int, ctypes.c_int, vp]
+    lib.pplp_mad_probe.restype = ctypes.c_int
 
 
 def load():
@@ -92,3 +102,19 @@ def chain(x: torch.Tensor, w: int = W, ws: int = WS, q: int = Q,
     if x.device.type != "cpu":
         raise ValueError(f"no mulmod chain for device {x.device}")
     return chain_plain(x, w, ws, q, steps)
+
+
+def mad_probe(device, wide: bool, steps: int, blocks: int) -> torch.Tensor:
+    """One launch of the multiply-add probe on ``device`` (a CUDA device):
+    blocks x MAD_THREADS threads, each MAD_CHAINS chains of ``steps``
+    multiply-adds, IMAD.WIDE.U32 (``wide``) or IMAD + IMAD.HI pairs. Returns
+    its output words (one a thread), which only keep the chains live."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the multiply-add probe runs on a CUDA device, got {device}")
+    out = torch.empty(blocks * MAD_THREADS, dtype=torch.int32, device=device)
+    lib = load()
+    code = lib.pplp_mad_probe(out.data_ptr(), int(wide), steps, blocks,
+                              torch.cuda.current_stream(device).cuda_stream)
+    cuda_build.check(code, lib, "mad_probe")
+    return out

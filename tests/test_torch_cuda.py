@@ -17,6 +17,8 @@ Comparisons are bit-exact (tolerance 0): all arithmetic is exact integer
 arithmetic.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -941,6 +943,54 @@ def test_dgk_kernels_match_plain(dev, dgk_keys):
     after = dgk_cuda.launches_by_kernel
     assert {k: after[k] - before[k] for k in after} == {
         "dgk_mulmod": 2, "dgk_powmod_lanes": 2, "dgk_powmod_shared": 5, "dgk_blind_distance": 3}
+
+
+def test_dgk_group_geometry_is_the_models(dev):
+    """The library's group geometry (G, L, window bits) at each width is the
+    one the host model checks (tests/test_torch_dgk_host.py GEOMETRY)."""
+    from pplp_tpu_torch.ops import dgk_cuda
+
+    assert {W: dgk_cuda.group(W) for W in dgk_cuda.WIDTHS} == {17: (4, 5, 3), 65: (5, 13, 3)}
+    lib, geometry = dgk_cuda.load(), (ctypes.c_int * 3)()
+    assert lib.pplp_dgk_group(13, geometry) != 0  # a width not built
+
+
+@pytest.mark.parametrize("batch", [1, 5, 13, 67])
+def test_dgk_group_kernels_at_batch_sizes(dev, dgk_keys, batch):
+    """The group kernels (G threads a number) at a batch of one group, part
+    of a warp, one group past a full block (13 at G = 5: 12 numbers a
+    block) and several blocks with a partial last group: per-lane and
+    shared bases against the plain versions (exponents up to 64 bits, the
+    plain version runs ~100 launches a product) and 800- and 640-bit
+    exponents against pow."""
+    import random
+
+    from pplp_tpu_torch.dgk.batched import DGKBatch
+    from pplp_tpu_torch.dgk.modexp import from_digits
+    from pplp_tpu_torch.ops import dgk_cuda
+
+    priv, pub = dgk_keys
+    mc = DGKBatch.build(pub, device=dev).mc
+    vals, A = _dgk_operands(mc, dev, 11)
+    vals, A = vals[:batch], A[:batch]
+    rng, n = random.Random(batch), pub.n
+    short = ([0, 1, (1 << 64) - 1] + [rng.getrandbits(rng.choice([3, 20, 64]))
+                                      for _ in range(batch)])[:batch]
+    wide = ([0, 1, (1 << 800) - 1] + [rng.getrandbits(800) for _ in range(batch)])[:batch]
+    before = dict(dgk_cuda.launches_by_kernel)
+    for base, bv in ((A, vals), (A[:1], vals[:1] * batch)):
+        assert torch.equal(dgk_cuda.powmod(mc, base, short),
+                           dgk_cuda.powmod_plain(mc, base, short))
+        got = from_digits(dgk_cuda.powmod(mc, base, wide))
+        assert got == [pow(x, e, n) for x, e in zip(bv, wide)]
+    for e in (0, 1, 37):
+        assert torch.equal(dgk_cuda.powmod_shared_exp(mc, A, e), mc.powmod_shared_exp(A, e))
+    for e in (priv.vpq, (1 << 640) - 1):
+        got = from_digits(dgk_cuda.powmod_shared_exp(mc, A, e))
+        assert got == [pow(x, e, n) for x in vals]
+    after = dgk_cuda.launches_by_kernel
+    assert after["dgk_powmod_lanes"] - before["dgk_powmod_lanes"] == 4
+    assert after["dgk_powmod_shared"] - before["dgk_powmod_shared"] == 5
 
 
 def test_dgk_batch_on_card_runs_the_kernels_only(dev, dgk_keys, monkeypatch):
