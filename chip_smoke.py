@@ -108,17 +108,21 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
                the server's setBF, homoCalc and sendBF stages;
 11. dgk     -- the DGK back-end (BASELINE config[2]) at (k, t, l) =
                (2048, 320, 16), keys from seed 5 (bench.py): each kernel of
-               ``csrc/dgk_mont.cu`` (mulmod, per-lane and shared-exponent
-               powmod, the blind-distance chain) bit-exact against its plain
-               version at 67 lanes with 0, 1, 2, n - 1, n - 2 among them and
-               exponents 0 and 1; then B = 10,000 comparisons through
+               ``csrc/dgk_mont.cu`` (mulmod in both forms, per-lane and
+               shared-exponent powmod, the blind-distance chain) bit-exact
+               against its plain version at 67 lanes with 0, 1, 2, n - 1,
+               n - 2 among them and exponents 0 and 1, and so at random odd
+               moduli of every other compiled width (and a 384-bit one, run
+               at the next width up); then B = 10,000 comparisons through
                ``DGKBatch``: five ``encrypt_batch`` (800-bit randomness),
                ``blind_distance_batch`` (123321, 123654, s = 37, as bench.py),
                ``decrypt_batch_device``; every lane equals s(d^2 + r) mod u,
                every ciphertext decrypts to its message, 256 lanes of each
                equal Python's pow, and the BSGS decrypt agrees on 1,000 lanes;
                the kernels' device times (profiler) beside their bounds and
-               the plain versions' times on the same inputs, the calls' times,
+               the plain versions' times on the same inputs, the BSGS giant
+               step's one-product form and the BSGS call's split (giant
+               steps, c^vpq, table probe and select, host), the calls' times,
                comparisons/s eval-only and full, and peak memory; last
                ``dgk_sweep_main`` over r = 16..4096 with its Bloom filter on
                the card: the reference's CSV, and every verdict the mod-u
@@ -181,6 +185,9 @@ DGK_POW_LANES = 256  # lanes of each ciphertext recomputed with Python's pow
 DGK_XB, DGK_YB, DGK_S = 123321, 123654, 37  # bench.py:171
 DGK_TPU = "pplp_tpu/dgk/modexp.py:111"  # the XLA CIOS: no TPU kernel
 DGK_SWEEP_RADII = [16 << i for i in range(9)]  # dgk_sweep_main's default, main.cc:300
+# Random odd moduli of the other widths, at the small batch: 384 bits
+# (W = 13, run at 17), then W = 17, 33, 97 and 129.
+DGK_OTHER_BITS = (384, 520, 1035, 3081, 4105)
 NTT_TPU = "pplp_tpu/ops/ntt_vmem.py:272"
 BEHZ_TPU = "pplp_tpu/bfv/behz_fused.py:257"
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
@@ -1308,6 +1315,42 @@ def _dgk_sweep(dev, tmp):
         f"{false_pos or 'none'}")
 
 
+def _dgk_pairs(mc, dev, rng, count, exps3, shared, lane_bits, const):
+    """Each DGK kernel and its plain version on ``count`` numbers below n
+    (0, 1, 2, n - 1, n - 2 among them): {kernel: [(kernel's, plain's)]}."""
+    from pplp_tpu_torch.dgk.modexp import to_digits
+    from pplp_tpu_torch.ops import dgk_cuda
+
+    n = mc.n_int
+
+    def numbers():
+        vals = [0, 1, 2, n - 1, n - 2] + [rng.randrange(n) for _ in range(count - 5)]
+        rng.shuffle(vals)
+        return vals, to_digits(vals, mc.D, dev)
+
+    (a, A), (b, Bd) = numbers(), numbers()
+    cs = [numbers()[1] for _ in range(5)]
+    short = [0, 1] + [rng.getrandbits(lane_bits) for _ in range(count - 2)]
+    return a, b, A, {
+        "dgk_mulmod": [(dgk_cuda.mulmod(mc, A, Bd), mc.mulmod(A, Bd)),
+                       (dgk_cuda.mulmod(mc, A, Bd[3:4]), mc.mulmod(A, Bd[3:4])),
+                       (dgk_cuda.mulmod_const(mc, A, const),
+                        dgk_cuda.mulmod_const_plain(mc, A, const))],
+        "dgk_powmod_lanes": [(dgk_cuda.powmod(mc, A[:1], short),
+                              dgk_cuda.powmod_plain(mc, A[:1], short)),
+                             (dgk_cuda.powmod(mc, A, short), dgk_cuda.powmod_plain(mc, A, short))],
+        "dgk_powmod_shared": [(dgk_cuda.powmod_shared_exp(mc, A, e), mc.powmod_shared_exp(A, e))
+                              for e in shared],
+        "dgk_blind_distance": [
+            (dgk_cuda.blind_distance(mc, *cs[:3], *ex, *cs[3:]),
+             dgk_cuda.blind_distance_plain(mc, *cs[:3], *ex, *cs[3:])) for ex in exps3],
+    }
+
+
+def _max_errs(pairs) -> dict:
+    return {name: max(int((x - y).abs().max()) for x, y in p) for name, p in pairs.items()}
+
+
 def phase_dgk(dev):
     """The DGK back-end (BASELINE config[2]) on the card; returns the rows
     of its four kernels."""
@@ -1318,7 +1361,7 @@ def phase_dgk(dev):
 
     from pplp_tpu_torch.dgk import dgk_encrypt, dgk_gen_keys
     from pplp_tpu_torch.dgk.batched import DGKBatch
-    from pplp_tpu_torch.dgk.modexp import from_digits, to_digits
+    from pplp_tpu_torch.dgk.modexp import MontgomeryCtx, from_digits, to_digits
     from pplp_tpu_torch.ops import dgk_cuda
 
     import pplp_tpu_torch.measure_dgk as md
@@ -1348,38 +1391,39 @@ def phase_dgk(dev):
         f"{btab.size} slots)")
 
     # 1. Each kernel against its plain version, bit for bit, at a small batch
-    # with the edge cases (not counted).
+    # with the edge cases (not counted): at k = 2048, then at random odd
+    # moduli of the other widths.
     rng = random.Random(2048)
-
-    def numbers(count):
-        vals = [0, 1, 2, n - 1, n - 2] + [rng.randrange(n) for _ in range(count - 5)]
-        return vals, to_digits(vals, mc.D, dev)
-
     cb = DGK_CHECK_B + 3  # not a multiple of the 64-thread block
-    (a, A), (b, Bd) = numbers(cb), numbers(cb)
-    cs = [numbers(cb)[1] for _ in range(5)]
-    short = [0, 1] + [rng.getrandbits(l) for _ in range(cb - 2)]
-    g = to_digits([pub.g], mc.D, dev)
-    pairs = {
-        "dgk_mulmod": [(dgk_cuda.mulmod(mc, A, Bd), mc.mulmod(A, Bd)),
-                       (dgk_cuda.mulmod(mc, A, Bd[3:4]), mc.mulmod(A, Bd[3:4]))],
-        "dgk_powmod_lanes": [(dgk_cuda.powmod(mc, g, short), dgk_cuda.powmod_plain(mc, g, short)),
-                             (dgk_cuda.powmod(mc, A, short), dgk_cuda.powmod_plain(mc, A, short))],
-        "dgk_powmod_shared": [(dgk_cuda.powmod_shared_exp(mc, A, e), mc.powmod_shared_exp(A, e))
-                              for e in (0, 1, DGK_S, priv.vpq)],
-        "dgk_blind_distance": [
-            (dgk_cuda.blind_distance(mc, *cs[:3], *ex, *cs[3:]),
-             dgk_cuda.blind_distance_plain(mc, *cs[:3], *ex, *cs[3:]))
-            for ex in ((DGK_XB, DGK_YB, DGK_S), (0, 1, 0))],
-    }
+    m_steps = math.isqrt(u) + 1
+    giant = pow(pow(priv.g, priv.vpq, n), -m_steps, n)  # the BSGS giant step's G^-m
+    exps3 = ((DGK_XB, DGK_YB, DGK_S), (0, 1, 0))
+    a, b, A, pairs = _dgk_pairs(mc, dev, rng, cb, exps3, (0, 1, DGK_S, priv.vpq), l, giant)
     torch.cuda.synchronize()
-    err = {name: max(int((x - y).abs().max()) for x, y in p) for name, p in pairs.items()}
+    err = _max_errs(pairs)
     assert all(e == 0 for e in err.values()), f"a DGK kernel differs from plain: {err}"
     assert from_digits(pairs["dgk_mulmod"][0][0]) == [x * y % n for x, y in zip(a, b)]
+    assert from_digits(pairs["dgk_mulmod"][2][0]) == [x * giant % n for x in a]
     say(f"kernels against their plain versions at {cb} lanes (0, 1, 2, n - 1, n - 2 "
-        f"among them; per-lane exponents 0, 1 and {l}-bit ones; shared exponents 0, 1, "
-        f"{DGK_S} and vpq; blind distance at ({DGK_XB}, {DGK_YB}, {DGK_S}) and (0, 1, 0)): "
-        f"bit-exact {err}")
+        f"among them; products per lane, by one row and by the giant step's G^-m in its "
+        f"one-product form; per-lane exponents 0, 1 and {l}-bit ones; shared exponents 0, "
+        f"1, {DGK_S} and vpq; blind distance at ({DGK_XB}, {DGK_YB}, {DGK_S}) and "
+        f"(0, 1, 0)): bit-exact {err}")
+    for bits in DGK_OTHER_BITS:
+        n_w = rng.getrandbits(bits) | (1 << (bits - 1)) | 1
+        mc_w = MontgomeryCtx.build(n_w, device=dev)
+        c_w = rng.randrange(n_w)
+        a_w, _, A_w, pairs_w = _dgk_pairs(mc_w, dev, rng, cb, exps3, (0, 1, DGK_S,
+                                                                      (1 << 64) - 1), l, c_w)
+        torch.cuda.synchronize()
+        err_w = _max_errs(pairs_w)
+        assert all(e == 0 for e in err_w.values()), f"{bits}-bit modulus: {err_w}"
+        assert from_digits(pairs_w["dgk_powmod_shared"][2][0]) == [pow(x, DGK_S, n_w)
+                                                                   for x in a_w]
+        say(f"a random odd {bits}-bit modulus (W = {dgk_cuda.limbs(mc_w)}, run at "
+            f"{dgk_cuda.width(mc_w)}, geometry (G, L, window) "
+            f"{dgk_cuda.group(dgk_cuda.width(mc_w))}): every kernel bit-exact against its "
+            f"plain version at {cb} lanes {err_w}")
 
     # 2. BASELINE config[2] at full width: real protocol ciphertexts from
     # random coordinates, randomness of 2.5 t bits (the inputs measure_dgk
@@ -1420,7 +1464,7 @@ def phase_dgk(dev):
         f"{DGK_BSGS_B} lanes agrees; launches {launches}; peak device memory {peak} B")
 
     # 3. Times: calls (CUDA events, median of windows) and kernels (profiler).
-    h = to_digits([pub.h], mc.D, dev)
+    g, h = to_digits([pub.g], mc.D, dev), to_digits([pub.h], mc.D, dev)
     gm, hr = dgk_cuda.powmod(mc, g, msgs[0]), dgk_cuda.powmod(mc, h, rands[0])
     calls = {
         "encrypt_batch": _median_ms(lambda: db.encrypt_batch(msgs[0], rands[0]), 3, 1),
@@ -1442,16 +1486,8 @@ def phase_dgk(dev):
             lambda: dgk_cuda.blind_distance_plain(mc, *cts[:3], DGK_XB, DGK_YB, DGK_S,
                                                   *cts[3:])),
     }
-    dgk_bound, dgk_products = md.dgk_bound, md.dgk_products
-    lane_products = sum(2 + dgk_products(e) for e in rands[0])
-    ew = (max(e.bit_length() for e in rands[0]) + 31) // 32
-    bounds = {
-        "dgk_mulmod": dgk_bound(W, 2 * B, 3 * B * W),
-        "dgk_powmod_lanes": dgk_bound(W, lane_products, W + B * ew + B * W),
-        "dgk_powmod_shared": dgk_bound(W, B * (2 + dgk_products(priv.vpq)), 2 * B * W),
-        "dgk_blind_distance": dgk_bound(
-            W, B * (10 + sum(dgk_products(e) for e in (DGK_XB, DGK_YB, DGK_S))), 6 * B * W),
-    }
+    bounds = md.kernel_bounds(W, mc.D, B, priv.vpq)
+    bounds["dgk_powmod_lanes"] = md.lanes_bound(W, rands[0])
     rows = {}
     for name, (fn, plain) in kernel_fns.items():
         prof = _profile_with(fn, [name], calls=2)
@@ -1472,19 +1508,42 @@ def phase_dgk(dev):
         rows[name] = {"launches": launches[name], "max_abs_err": full_err,
                       "max_abs_err_edge_cases": err[name], "ms": ms,
                       "ms_source": source, "plain_ms": plain_ms,
-                      "bound_ms": c["bound_ms"], "bound_by": c["bound_by"]}
+                      "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                      "reference_bound_ms": c["reference_bound_ms"]}
         say(f"{name} at B = {B}: bit-exact against plain on these inputs (max abs err "
             f"{full_err}); {ms:.4f} ms per launch ({source}), "
-            f"{c['products']} Montgomery products ({c['products'] / B:.1f} a lane), bound "
-            f"{c['bound_ms']:.4f} ms ({c['bound_by']}), {100 * c['bound_ms'] / ms:.1f}% of "
-            f"bound; plain {plain_ms:.1f} ms (one call) [{card}]")
+            f"{c['products']} Montgomery products needed ({c['products'] / B:.1f} a lane), "
+            f"bound {c['bound_ms']:.4f} ms ({c['bound_by']}), {100 * c['bound_ms'] / ms:.1f}% "
+            f"of bound ({100 * c['reference_bound_ms'] / ms:.1f}% of the older count's "
+            f"{c['reference_products'] / B:.1f} a lane); plain {plain_ms:.1f} ms (one call) "
+            f"[{card}]")
+    # The BSGS giant step's one-product form on the BSGS lanes' own inputs,
+    # and the BSGS call's split.
+    zb = out[:DGK_BSGS_B]
+    prof = _profile_with(lambda: dgk_cuda.mulmod_const(mc, zb, giant), ["dgk_mulmod"], calls=5)
+    giant_ms = prof["dgk_mulmod"]["ms_per_call"] / prof["dgk_mulmod"]["launches_per_call"]
+    giant_bound = md.kernel_bounds(W, mc.D, DGK_BSGS_B, priv.vpq)["giant step"]
+    got = dgk_cuda.mulmod_const(mc, zb, giant)
+    want = dgk_cuda.mulmod_const_plain(mc, zb, giant)
+    assert torch.equal(got, want), "the giant step differs from plain"
+    rows["dgk_mulmod"].update({
+        "giant_step_ms": giant_ms, "giant_step_bound_ms": giant_bound["bound_ms"],
+        "giant_step_max_abs_err": int((got - want).abs().max())})
+    say(f"dgk_mulmod, the BSGS giant step at B = {DGK_BSGS_B} (one product a lane by G^-m R' "
+        f"mod n): bit-exact against plain; {giant_ms:.4f} ms per launch (profiler), bound "
+        f"{giant_bound['bound_ms']:.4f} ms ({giant_bound['bound_by']}), "
+        f"{100 * giant_bound['bound_ms'] / giant_ms:.1f}% of bound [{card}]")
+    say(f"decrypt_batch_device_bsgs at B = {DGK_BSGS_B}: "
+        f"{md.bsgs_text(md.bsgs_split(db, priv, btab, zb))} [{card}]")
     for name, ms in calls.items():
         say(f"{name}: {ms:.4f} ms per call (CUDA events, median) [{card}]")
     eval_rate = B / (calls["blind_distance_batch"] / 1e3)
     full_rate = B / (calls["full (5 encrypt + eval + decrypt)"] / 1e3)
-    eval_bound = B / (bounds["dgk_blind_distance"]["bound_ms"] / 1e3)
+    eval_bound, eval_ref = (B / (bounds["dgk_blind_distance"][key] / 1e3)
+                            for key in ("bound_ms", "reference_bound_ms"))
     say(f"comparisons/s at B = {B}, k = {k}: eval-only {eval_rate:.1f} (as bench.py "
-        f"counts them; bound {eval_bound:.1f}), full {full_rate:.1f} (encrypt c1..c3, cz, cr + "
+        f"counts them; bound {eval_bound:.1f}, {eval_ref:.1f} by the older count), full "
+        f"{full_rate:.1f} (encrypt c1..c3, cz, cr + "
         f"eval + device decrypt) [{card}]")
 
     # 4. The sweep, with its Bloom filter on the card.

@@ -9,8 +9,8 @@ distance for 10k+ parallel checks (BASELINE.md config[2]). Numbers are
 On a CUDA device every exponentiation and product goes to the hand-written
 kernel (``ops/dgk_cuda.py``: ``encrypt_batch`` is three launches,
 ``blind_distance_batch`` one, a decrypt's c^vpq one, a BSGS giant step
-one); on the CPU to the plain version. The fingerprint fold and the table
-probe are plain torch on both.
+one of one Montgomery product a lane); on the CPU to the plain version.
+The fingerprint fold and the table probe are plain torch on both.
 """
 
 from __future__ import annotations
@@ -88,12 +88,13 @@ class DGKBatch:
 
     def decrypt_batch_device_bsgs(self, priv: DGKPrivateKey, btab: "DGKDeviceTable", cts):
         """Device decrypt by baby-step/giant-step with an O(sqrt(u)) table:
-        each giant step probes the table and multiplies by G^-m
-        (``ph.cc``'s compute_dlog_bsgs on B lanes)."""
+        each giant step probes the table and multiplies by G^-m, one
+        Montgomery product a lane by G^-m in the Montgomery domain, as the
+        reference runs it (``ph.cc``'s compute_dlog_bsgs on B lanes)."""
         u = self.pub.u
         m_steps = math.isqrt(u) + 1
         G = pow(priv.g, priv.vpq, priv.n)
-        giant = self._dig([pow(G, -m_steps, priv.n)])
+        giant = pow(G, -m_steps, priv.n)
         z = dgk_cuda.powmod_shared_exp(self.mc, cts, priv.vpq)
         miss = DGKDeviceTable.MISS
         out = torch.full((z.shape[0],), miss, dtype=torch.int64, device=z.device)
@@ -101,7 +102,7 @@ class DGKBatch:
             j = btab.lookup(z)
             hit = (j != miss) & (out == miss)
             out = torch.where(hit, i * m_steps + j, out)
-            z = dgk_cuda.mulmod(self.mc, z, giant)
+            z = dgk_cuda.mulmod_const(self.mc, z, giant)
         return out
 
     # -- the comparison/proximity pipeline ------------------------------

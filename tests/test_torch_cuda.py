@@ -928,6 +928,9 @@ def test_dgk_kernels_match_plain(dev, dgk_keys):
     assert torch.equal(got, mc.mulmod(A, Bd))
     assert from_digits(got) == [x * y % n for x, y in zip(a, b)]
     assert torch.equal(dgk_cuda.mulmod(mc, A, Bd[3:4]), mc.mulmod(A, Bd[3:4]))
+    got = dgk_cuda.mulmod_const(mc, A, b[7])  # the giant step's one-product form
+    assert torch.equal(got, dgk_cuda.mulmod_const_plain(mc, A, b[7]))
+    assert from_digits(got) == [x * b[7] % n for x in a]
     exps = [0, 1, 2] + [rng.getrandbits(rng.choice([5, 20, 33])) for _ in range(_DGK_LANES - 3)]
     for base in (A, A[:1]):  # per-lane and shared bases
         got = dgk_cuda.powmod(mc, base, exps)
@@ -942,7 +945,7 @@ def test_dgk_kernels_match_plain(dev, dgk_keys):
         assert torch.equal(got, dgk_cuda.blind_distance_plain(mc, *cs[:3], xb, yb, s, *cs[3:]))
     after = dgk_cuda.launches_by_kernel
     assert {k: after[k] - before[k] for k in after} == {
-        "dgk_mulmod": 2, "dgk_powmod_lanes": 2, "dgk_powmod_shared": 5, "dgk_blind_distance": 3}
+        "dgk_mulmod": 3, "dgk_powmod_lanes": 2, "dgk_powmod_shared": 5, "dgk_blind_distance": 3}
 
 
 def test_dgk_group_geometry_is_the_models(dev):
@@ -950,7 +953,8 @@ def test_dgk_group_geometry_is_the_models(dev):
     one the host model checks (tests/test_torch_dgk_host.py GEOMETRY)."""
     from pplp_tpu_torch.ops import dgk_cuda
 
-    assert {W: dgk_cuda.group(W) for W in dgk_cuda.WIDTHS} == {17: (4, 5, 3), 65: (5, 13, 3)}
+    assert {W: dgk_cuda.group(W) for W in dgk_cuda.WIDTHS} == {
+        17: (4, 5, 3), 33: (3, 11, 3), 65: (5, 13, 3), 97: (8, 13, 3), 129: (10, 13, 3)}
     lib, geometry = dgk_cuda.load(), (ctypes.c_int * 3)()
     assert lib.pplp_dgk_group(13, geometry) != 0  # a width not built
 
@@ -1028,12 +1032,21 @@ def test_dgk_batch_on_card_runs_the_kernels_only(dev, dgk_keys, monkeypatch):
 
 
 def test_dgk_wrappers_refuse_what_the_kernels_do_not_take(dev):
-    from pplp_tpu_torch.dgk.modexp import MontgomeryCtx, to_digits
+    """A modulus of a width not compiled (W = 13) runs at the next one up;
+    one wider than the widest (W = 130) is refused by name, as are CPU
+    operands, other types, row counts and exponents past 2048 bits."""
+    from pplp_tpu_torch.dgk.modexp import MontgomeryCtx, from_digits, to_digits
     from pplp_tpu_torch.ops import dgk_cuda
 
-    mc = MontgomeryCtx.build((1 << 383) | 12345, device=dev)  # W = 13
+    n = (1 << 383) | 12345
+    mc = MontgomeryCtx.build(n, device=dev)  # W = 13, run at 17
+    x = to_digits([1, 2, n - 1], mc.D, dev)
+    assert from_digits(dgk_cuda.mulmod(mc, x, x)) == [1, 4, 1]
+    assert torch.equal(dgk_cuda.blind_distance(mc, x, x, x, 3, 2, 5, x, x),
+                       dgk_cuda.blind_distance_plain(mc, x, x, x, 3, 2, 5, x, x))
+    mc = MontgomeryCtx.build((1 << 4112) | 12345, device=dev)  # W = 130
     x = to_digits([1, 2], mc.D, dev)
-    with pytest.raises(ValueError, match="W = 13"):
+    with pytest.raises(ValueError, match="at most 129 32-bit limbs .* W = 130"):
         dgk_cuda.mulmod(mc, x, x)
     mc = MontgomeryCtx.build((1 << 511) | 12345, device=dev)  # W = 17
     x = to_digits([1, 2], mc.D, dev)
@@ -1045,6 +1058,75 @@ def test_dgk_wrappers_refuse_what_the_kernels_do_not_take(dev):
         dgk_cuda.powmod_cuda(mc, x, [1, 2, 3])
     with pytest.raises(ValueError, match="shared exponent"):
         dgk_cuda.powmod_shared_exp(mc, x, 1 << 2048)
+
+
+@pytest.mark.parametrize("bits", [1040, 3081, 4105])
+def test_dgk_kernels_at_the_other_widths(dev, bits):
+    """Random odd moduli at W = 33, 97 and 129: each kernel against its
+    plain version and pow, at a batch not a multiple of a block, with the
+    edge cases among the operands."""
+    import random
+
+    from pplp_tpu_torch.dgk.modexp import MontgomeryCtx, from_digits, to_digits
+    from pplp_tpu_torch.ops import dgk_cuda
+
+    rng = random.Random(bits)
+    n = rng.getrandbits(bits) | (1 << (bits - 1)) | 1
+    mc = MontgomeryCtx.build(n, device=dev)
+    B = 23
+    vals = [[0, 1, 2, n - 1, n - 2] + [rng.randrange(n) for _ in range(B - 5)]
+            for _ in range(5)]
+    for v in vals:
+        rng.shuffle(v)
+    cs = [to_digits(v, mc.D, dev) for v in vals]
+    A, a = cs[0], vals[0]
+    got = dgk_cuda.mulmod(mc, A, cs[1])
+    assert torch.equal(got, mc.mulmod(A, cs[1]))
+    assert from_digits(got) == [x * y % n for x, y in zip(a, vals[1])]
+    assert torch.equal(dgk_cuda.mulmod_const(mc, A, vals[1][0]),
+                       dgk_cuda.mulmod_const_plain(mc, A, vals[1][0]))
+    exps = [0, 1] + [rng.getrandbits(16) for _ in range(B - 2)]
+    assert torch.equal(dgk_cuda.powmod(mc, A, exps), dgk_cuda.powmod_plain(mc, A, exps))
+    assert from_digits(dgk_cuda.powmod_shared_exp(mc, A, 37)) == [pow(x, 37, n) for x in a]
+    for xb, yb, s in ((123321, 123654, 37), (0, 1, 0)):
+        got = dgk_cuda.blind_distance(mc, *cs[:3], xb, yb, s, *cs[3:])
+        assert torch.equal(got, dgk_cuda.blind_distance_plain(mc, *cs[:3], xb, yb, s, *cs[3:]))
+        assert from_digits(got) == [
+            pow(c1 * pow(c2, xb, n) * pow(c3, yb, n) % n, s, n) * cz * cr % n
+            for c1, c2, c3, cz, cr in zip(*vals)]
+
+
+def test_dgk_batch_at_k1024_on_card(dev):
+    """DGKBatch at real k = 1024 keys (t = 160, l = 16; W = 33), which the
+    card path refused before it ran every width: encrypt, blind distance
+    and the device decrypt through the kernels, every lane equal to
+    s(d^2 + r) mod u."""
+    import random
+
+    from pplp_tpu_torch.dgk import dgk_encrypt, dgk_gen_keys
+    from pplp_tpu_torch.dgk.batched import DGKBatch
+    from pplp_tpu_torch.dgk.modexp import to_digits
+    from pplp_tpu_torch.ops import dgk_cuda
+
+    priv, pub = dgk_gen_keys(1024, 160, 16, seed=3)
+    db = DGKBatch.build(pub, device=dev)
+    assert dgk_cuda.width(db.mc) == 33
+    u, rng, B = pub.u, random.Random(6), 200
+    xa, ya = [rng.randrange(300) for _ in range(B)], [rng.randrange(300) for _ in range(B)]
+    xb, yb, s, r = 123, 45, rng.randrange(1, u), rng.randrange(u)
+    rnd = int(2.5 * pub.t)
+    dgk_cuda.reset_launches()
+    ms = [(x * x + y * y) % u for x, y in zip(xa, ya)]
+    c1 = db.encrypt_batch(ms, [rng.getrandbits(rnd) for _ in range(B)])
+    c2, c3, cz, cr = (to_digits([dgk_encrypt(pub, m, rng.getrandbits(rnd)) for m in row],
+                                db.mc.D, dev)
+                      for row in ([(-2 * x) % u for x in xa], [(-2 * y) % u for y in ya],
+                                  [s * (xb * xb + yb * yb) % u] * B, [s * r % u] * B))
+    out = db.blind_distance_batch(c1, c2, c3, xb, yb, s, cz, cr)
+    want = [s * ((x - xb) ** 2 + (y - yb) ** 2 + r) % u for x, y in zip(xa, ya)]
+    assert db.decrypt_batch_device(priv, db.build_device_table(priv), out).tolist() == want
+    assert db.decrypt_batch(priv, c1) == ms
+    assert all(v > 0 for v in dgk_cuda.launches_by_kernel.values())
 
 
 @pytest.mark.parametrize("radius,coords,near", [(44, (100, 100, 140, 110), True),

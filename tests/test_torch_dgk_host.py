@@ -1,20 +1,22 @@
 """The port's DGK host code against the reference's, and a model of the
-DGK kernel's arithmetic, on the CPU.
+DGK kernels' arithmetic, on the CPU.
 
 * the copies ``maurer``, ``gdsa``, ``ph`` and ``dgk``: the same seed gives
   the same primes, keys and decryption table, ``save_dgk_keys`` the same
   bytes, and the number-theory helpers the same answers;
-* a Python model of ``csrc/dgk_mont.cu``: the one-thread CIOS on 32-bit
-  limbs (``dgk_mulmod``, ``dgk_blind_distance``) with its carries, final
-  subtraction and square-and-multiply order, limb for limb on Python ints;
-  and the group product of ``dgk_powmod_lanes``/``dgk_powmod_shared``, op
-  for op (G threads a number, its shuffles, deferred carries, ballots and
-  look-ahead), with their windowed exponent walks and product counts.
-  Both against ``pow`` at both compiled widths (W = 17 and 65, at the
-  built G and W' and the other group sizes weighed) with the edge cases
-  (0, 1, 2, n - 1, n - 2, 2^(bits - 1); exponents 0, 1, all ones, 800
-  bits). A carry mistake in a kernel's scheme shows here before a chip
-  call; change model and kernel together.
+* a numpy model of ``csrc/dgk_mont.cu``: the group product of every
+  kernel, op for op (G threads a number, its shuffles, deferred carries,
+  ballots and look-ahead), and on it each kernel's product sequence:
+  ``dgk_mulmod`` in both forms (two products, or one by c R' mod n),
+  ``dgk_powmod_lanes``/``dgk_powmod_shared`` with their windowed walks,
+  ``dgk_blind_distance`` with its joint walk over xb and yb and the
+  conversions folded into the chain; their product counts; and the
+  groups' cover of a batch. Against ``pow`` at every compiled width
+  (W = 17, 33, 65, 97, 129, at the built G and W' and the other group
+  sizes weighed) with the edge cases (0, 1, 2, n - 1, n - 2,
+  2^(bits - 1); exponents 0, 1, all ones, 800 bits). A carry mistake in a
+  kernel's scheme shows here before a chip call; change model and kernel
+  together.
 
 Bit-exact throughout (tolerance 0): all arithmetic is exact integers.
 """
@@ -38,7 +40,8 @@ K, T, L = 512, 64, 12
 # window bits), as dgk_mont.cu builds it (PPLP_DGK_GROUPS, kWindow);
 # tests/test_torch_cuda.py holds the library's report (dgk_cuda.group)
 # to it on the card.
-GEOMETRY = {17: (4, 5, 3), 65: (5, 13, 3)}
+GEOMETRY = {17: (4, 5, 3), 33: (3, 11, 3), 65: (5, 13, 3), 97: (8, 13, 3), 129: (10, 13, 3)}
+KERNEL_BLOCK = 64  # threads a block (kGroupThreads)
 
 
 @pytest.mark.parametrize("bits", [16, 24, 48, 80, 160])
@@ -120,123 +123,62 @@ def _value(limbs):
     return sum(x << (32 * j) for j, x in enumerate(limbs))
 
 
-def cios(acc, a, n, n0inv):
-    """dgk_mont.cu's mont_mul, limb for limb: acc <- a acc R'^-1 mod n."""
-    W = len(n)
-    t = [0] * (W + 1)
-    for i in range(W):
-        c = 0
-        for j in range(W):  # t += a_i acc
-            s = a[i] * acc[j] + t[j] + c
-            assert s <= (1 << 64) - 1
-            t[j], c = s & M32, s >> 32
-        s = t[W] + c
-        t[W], top = s & M32, s >> 32
-        q = (t[0] * n0inv) & M32
-        s = q * n[0] + t[0]
-        assert s & M32 == 0
-        c = s >> 32
-        for j in range(1, W):  # t <- (t + q n) / 2^32
-            s = q * n[j] + t[j] + c
-            t[j - 1], c = s & M32, s >> 32
-        s = t[W] + c
-        t[W - 1] = s & M32
-        t[W] = top + (s >> 32)
-        assert t[W] <= M32
-    borrow = 0
-    for j in range(W):
-        d = (t[j] - n[j] - borrow) & ((1 << 64) - 1)
-        borrow = (d >> 32) & 1
-    keep = 0 if (t[W] == 0 and borrow) else M32
-    out, borrow = [], 0
-    for j in range(W):
-        d = (t[j] - (n[j] & keep) - borrow) & ((1 << 64) - 1)
-        out.append(d & M32)
-        borrow = (d >> 32) & 1
-    return out
+def _width(bits):
+    """The compiled width a modulus of ``bits`` bits runs at (``dgk_cuda.width``)."""
+    W = ((bits + 15) // 16 + 2) // 2
+    return min(Wc for Wc in GEOMETRY if Wc >= W)
 
 
-class Kernel:
-    """The one-thread kernels (``dgk_mulmod``, ``dgk_blind_distance``) on
-    the model, with dgk_cuda's constants; ``powmod_shared`` is the blind
-    distance's exponentiation order."""
-
-    def __init__(self, n, W):
-        words = dgk_cuda._consts(n, W).tolist()
-        self.n, self.r2, self.one, self.unit = (words[k * W:(k + 1) * W] for k in range(4))
-        self.n0inv, self.W = words[4 * W], W
-
-    def mul(self, acc, a):
-        return cios(acc, a, self.n, self.n0inv)
-
-    def pow_shared(self, x, e):
-        if e == 0:
-            return list(self.one)
-        base = x
-        for bit in bin(e)[3:]:
-            x = self.mul(x, list(x))
-            if bit == "1":
-                x = self.mul(x, base)
-        return x
-
-    def mulmod(self, a, b):
-        x = _limbs(a, self.W)
-        for op in (self.r2, _limbs(b, self.W)):
-            x = self.mul(x, op)
-        return _value(x)
-
-    def powmod_shared(self, base, e):
-        x = self.pow_shared(self.mul(_limbs(base, self.W), self.r2), e)
-        return _value(self.mul(x, self.unit))
-
-    def blind_distance(self, c1, c2, c3, cz, cr, xb, yb, s):
-        kept = [self.mul(_limbs(c, self.W), self.r2) for c in (c1, cz, cr)]
-        t2 = self.pow_shared(self.mul(_limbs(c2, self.W), self.r2), xb)
-        x = self.pow_shared(self.mul(_limbs(c3, self.W), self.r2), yb)
-        for op in (t2, kept[0]):
-            x = self.mul(x, op)
-        x = self.pow_shared(x, s)
-        for op in (kept[1], kept[2], self.unit):
-            x = self.mul(x, op)
-        return _value(x)
-
-
-@pytest.mark.parametrize("bits", [497, 514, 528, 2033, 2057, 2064])
+@pytest.mark.parametrize("bits", [497, 514, 528, 1033, 2033, 2057, 2064, 3081, 4105])
 def test_kernel_model_against_pow(bits):
-    """The widths are those a k = 512 or 2048 key gives (W = 17, 65)."""
+    """The widths a k = 512, 1024, 2048, 3072 or 4096 key gives (W = 17, 33,
+    65, 97, 129): the products in both forms, the per-lane and the
+    shared-exponent walks and the blind distance on the group model, per
+    lane, against Python's."""
     rng = random.Random(bits)
     n = rng.getrandbits(bits) | (1 << (bits - 1)) | 1
-    D = (bits + 15) // 16 + 1
-    W = (D + 1) // 2
-    assert W in dgk_cuda.WIDTHS
-    k = Kernel(n, W)
+    k = GroupKernel(n, _width(bits))
     edge = [0, 1, 2, n - 1, n - 2, (1 << (bits - 1)), rng.randrange(n)]
-    for a in edge:
-        for b in (n - 1, 1, 0, rng.randrange(n)):
-            assert k.mulmod(a, b) == a * b % n
-    # Fewer cases at W = 65, where a product is 8,515 Python multiplies.
-    exps = [0, 1, 37, (1 << 17) - 1] if W > 32 else [0, 1, 2, 37, rng.getrandbits(20),
-                                                     (1 << 33) - 1]
-    group = GroupKernel(n, W)
-    for a in edge[1:5:2] if W > 32 else edge[:5]:
-        assert group.powmod_lanes([a] * len(exps), exps) == [pow(a, e, n) for e in exps]
-        for e in exps:
-            assert k.powmod_shared(a, e) == pow(a, e, n)
-    c = [rng.randrange(n) for _ in range(5)]
+    b = [n - 1, 1, 0, rng.randrange(n)]
+    a = [x for x in edge for _ in b]
+    bb = b * len(edge)
+    assert k.mulmod(a, bb) == [x * y % n for x, y in zip(a, bb)]
+    for c in b:
+        assert k.mulmod_const(edge, c) == [x * c % n for x in edge]
+    exps = [0, 1, 37, (1 << 17) - 1] if k.W > 32 else [0, 1, 2, 37, rng.getrandbits(20),
+                                                        (1 << 33) - 1]
+    for a in edge[1:5:2] if k.W > 32 else edge[:5]:
+        assert k.powmod_lanes([a] * len(exps), exps) == [pow(a, e, n) for e in exps]
+    for e in exps:
+        assert k.powmod_shared(edge[:5], e) == [pow(x, e, n) for x in edge[:5]]
+    c = [[rng.randrange(n) for _ in range(3)] for _ in range(5)]
     for xb, yb, s in ((123321, 123654, 37), (0, 5, 0), (1, 0, 65535)):
-        want = pow(c[0] * pow(c[1], xb, n) * pow(c[2], yb, n) % n, s, n) * c[3] * c[4] % n
-        assert k.blind_distance(*c, xb, yb, s) == want
+        want = [pow(c1 * pow(c2, xb, n) * pow(c3, yb, n) % n, s, n) * cz * cr % n
+                for c1, c2, c3, cz, cr in zip(*c)]
+        assert k.blind_distance(*c, xb, yb, s)[0] == want
 
 
 def test_kernel_model_at_a_full_decrypt_exponent():
-    """c^vpq at k = 512 (vpq of 128 bits) and W = 17 in the one-thread
-    model's order (the blind distance's) lands in the decryption table."""
+    """c^vpq at k = 512 (vpq of 128 bits) and W = 17 on the group model,
+    then the BSGS giant steps in their one-product form (``mulmod_const``
+    by G^-m): each ciphertext's message is found in the baby-step table."""
+    import math
+
     priv, pub = dgk.dgk_gen_keys(K, T, L, seed=7)
-    D = (pub.n.bit_length() + 15) // 16 + 1
-    k = Kernel(pub.n, (D + 1) // 2)
-    for m in (0, 1, pub.u - 1):
-        c = dgk.dgk_encrypt(pub, m, 99991)
-        assert priv.rtab[k.powmod_shared(c, priv.vpq)] == m
+    k = GroupKernel(pub.n, _width(pub.n.bit_length()))
+    m_steps = math.isqrt(pub.u) + 1
+    G = pow(priv.g, priv.vpq, priv.n)
+    baby = {pow(G, j, priv.n): j for j in range(m_steps)}
+    giant = pow(G, -m_steps, priv.n)
+    want = [0, 1, pub.u - 1]
+    z = k.powmod_shared([dgk.dgk_encrypt(pub, m, 99991) for m in want], priv.vpq)
+    found = [None] * len(want)
+    for i in range((pub.u + m_steps - 1) // m_steps + 1):
+        for lane, v in enumerate(z):
+            if found[lane] is None and v in baby:
+                found[lane] = i * m_steps + baby[v]
+        z = k.mulmod_const(z, giant)
+    assert found == want
 
 
 # -- a model of the group kernels (dgk_powmod_lanes, dgk_powmod_shared) -----
@@ -352,10 +294,60 @@ class GroupKernel:
         words = dgk_cuda._consts(n, Wp).tolist()
         self.n, self.r2, self.one = (np.array(words[j * Wp:(j + 1) * Wp], np.uint64)
                                      .reshape(self.G, self.L) for j in range(3))
-        self.n0inv, self.W = words[4 * Wp], W
+        self.n0inv, self.W, self.n_int = words[3 * Wp], W, n
+        self.count = 0  # products run since construction
 
     def mul(self, a, b):
-        return group_cios(a, b, self.n, self.n0inv)
+        self.count += 1
+        return group_cios(a, np.broadcast_to(b, a.shape), self.n, self.n0inv)
+
+    def _sl(self, vals):
+        return _slices(vals, self.G, self.L)
+
+    def mulmod(self, a, b):
+        """dgk_mulmod, two products a lane: a R', then by b."""
+        return _slice_values(self.mul(self.mul(self._sl(a), self.r2), self._sl(b)))
+
+    def mulmod_const(self, a, c):
+        """dgk_mulmod's one-product form: by c R' mod n, made as the wrapper
+        makes it."""
+        Wp = self.G * self.L
+        cm = np.array(dgk_cuda._mont_words(self.n_int, c, Wp).tolist(), np.uint64)
+        return _slice_values(self.mul(self._sl(a), cm.reshape(self.G, self.L)))
+
+    def _walk(self, tab, e1, e2):
+        """A shared-exponent walk of dgk_blind_distance (Walk): left to right
+        from the top bit of e1 and e2 together, x from the entry the top bit
+        pair selects (R' mod n if both are 0), then per lower bit a squaring
+        and, where the pair p is not 0, a product by entry p - 1."""
+        top = max(e1.bit_length(), e2.bit_length())
+        if top == 0:
+            return np.broadcast_to(self.one, tab[0].shape).copy()
+
+        def pair(i):
+            return ((e1 >> i) & 1) | (((e2 >> i) & 1) << 1)
+
+        x = tab[pair(top - 1) - 1]
+        for i in range(top - 2, -1, -1):
+            x = self.mul(x, x)
+            if pair(i):
+                x = self.mul(x, tab[pair(i) - 1])
+        return x
+
+    def blind_distance(self, c1, c2, c3, cz, cr, xb, yb, s):
+        """dgk_blind_distance's steps (BlindStep), one product each; returns
+        (the values, the products a lane)."""
+        start = self.count
+        tab = [self.mul(self._sl(c2), self.r2)]               # kC2Mont: c2 R'
+        tab.append(self.mul(self._sl(c3), self.r2))           # kC3Mont: c3 R'
+        tab.append(self.mul(tab[1], tab[0]))                  # kC23: c2 c3 R'
+        x = self._walk(tab, xb, yb)                           # kJoint: T R'
+        x = self.mul(self.mul(x, self._sl(c1)), self.r2)      # kC1, kC1Mont: c1 T R'
+        tab[0] = x
+        x = self._walk(tab, s, 0)                             # kWalkS: A R'
+        x = self.mul(self.mul(x, self._sl(cz)), self.r2)      # kCz, kCzMont: A cz R'
+        x = self.mul(x, self._sl(cr))                         # kCr: A cz cr
+        return _slice_values(x), self.count - start
 
     def _pow(self, x, words, exp_bits):
         """pow_window: a table base^0 .. base^(2^k - 1) per number, then k
@@ -406,14 +398,15 @@ def _modulus(bits, rng):
     return rng.getrandbits(bits) | (1 << (bits - 1)) | 1
 
 
-@pytest.mark.parametrize("bits", [497, 528, 2033, 2064])
+@pytest.mark.parametrize("bits", [497, 528, 1033, 1040, 2033, 2064, 3081, 4105])
 def test_group_product_against_pow(bits):
     """group_cios at the built (G, L) on the edge cases, per lane, against
-    Python's products; at W = 65 also the other group sizes weighed."""
+    Python's products, at every compiled width; at W = 17, 33 and 65 also
+    the other group sizes weighed."""
     rng = random.Random(bits)
     n = _modulus(bits, rng)
-    W = ((bits + 15) // 16 + 2) // 2
-    shapes = [GEOMETRY[W][:2]] + ([(4, 17), (8, 9)] if W == 65 else [(2, 9)])
+    W = _width(bits)
+    shapes = [GEOMETRY[W][:2]] + {17: [(2, 9)], 33: [(4, 9)], 65: [(4, 17), (8, 9)]}.get(W, [])
     edge = [0, 1, 2, n - 1, n - 2, 1 << (bits - 1), rng.randrange(n)]
     a = edge * len(edge)
     b = [y for y in edge for _ in edge]
@@ -463,6 +456,51 @@ def test_group_shared_kernel_at_640_bits():
         assert k.powmod_shared(edge, e) == [pow(x, e, n) for x in edge]
 
 
+@pytest.mark.parametrize("bits", [384, 528, 1040, 2064, 3088, 4112])
+def test_group_blind_distance_against_pow(bits):
+    """dgk_blind_distance's product sequence on the group model at every
+    compiled width, each at its widest modulus, and a 384-bit one (W = 13)
+    at W = 17: ciphertexts 0, 1, 2, n - 1, n - 2, 2^(bits - 1) and random
+    ones, exponents with 0 and 1 among them and bench.py's, against pow;
+    the products a lane as ``measure_dgk.blind_distance_products`` counts
+    them, no more than the reference chain's."""
+    from pplp_tpu_torch.measure_dgk import blind_distance_products, dgk_products
+
+    rng = random.Random(bits + 2)
+    n = _modulus(bits, rng)
+    k = GroupKernel(n, _width(bits))
+    edge = [0, 1, 2, n - 1, n - 2, 1 << (bits - 1), rng.randrange(n)]
+    cs = [edge[j:] + edge[:j] for j in range(5)]  # every lane a mix of the edge cases
+    for xb, yb, s in ((0, 1, 0), (0, 5, 0), (1, 0, 65535), (6, 3, 2), (123321, 123654, 37)):
+        got, products = k.blind_distance(*cs, xb, yb, s)
+        assert got == [pow(c1 * pow(c2, xb, n) * pow(c3, yb, n) % n, s, n) * cz * cr % n
+                       for c1, c2, c3, cz, cr in zip(*cs)], (xb, yb, s)
+        assert products == blind_distance_products(xb, yb, s), (xb, yb, s)
+        assert products <= 10 + sum(map(dgk_products, (xb, yb, s))), (xb, yb, s)
+    assert blind_distance_products(123321, 123654, 37) == 43
+
+
+@pytest.mark.parametrize("W", sorted(GEOMETRY))
+def test_groups_cover_a_batch(W):
+    """The kernels' Group and group_grid: at each geometry and batches of
+    one number, part of a warp, a block and one past it, and B = 10,000,
+    the active groups own every number below the batch once, with all G
+    ranks, and nothing above it."""
+    G = GEOMETRY[W][0]
+    per_warp, warps = 32 // G, KERNEL_BLOCK // 32
+    for batch in (1, 5, per_warp * warps, per_warp * warps + 1, 67, 10_000):
+        ranks = {}
+        for block in range(-(-batch // (per_warp * warps))):
+            for t in range(KERNEL_BLOCK):
+                lane = t & 31
+                group, first = lane // G, lane // G * G
+                num = (block * warps + (t >> 5)) * per_warp + group
+                if group < per_warp and num < batch:
+                    ranks.setdefault(num, []).append(lane - first)
+        assert sorted(ranks) == list(range(batch)), (G, batch)
+        assert all(sorted(r) == list(range(G)) for r in ranks.values()), (G, batch)
+
+
 def test_group_model_at_a_full_decrypt_exponent():
     """c^vpq at k = 512 on the group model lands in the decryption table."""
     priv, pub = dgk.dgk_gen_keys(K, T, L, seed=7)
@@ -487,15 +525,23 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_other_widths():
     assert dgk_cuda.limbs(mc) == 17
     x = to_digits([1, 2], mc.D)
     for call in (lambda: dgk_cuda.mulmod_cuda(mc, x, x), lambda: dgk_cuda.powmod_cuda(mc, x, [1, 2]),
+                 lambda: dgk_cuda.mulmod_const_cuda(mc, x, 5),
                  lambda: dgk_cuda.powmod_shared_exp_cuda(mc, x, 3),
                  lambda: dgk_cuda.blind_distance_cuda(mc, x, x, x, 1, 2, 3, x, x)):
         with pytest.raises(ValueError, match="CUDA tensors"):
             call()
     with pytest.raises(ValueError, match="no DGK"):
         dgk_cuda.mulmod(mc, x.to("meta"), x.to("meta"))
-    n384 = (1 << 383) | 12345
-    with pytest.raises(ValueError, match="W = 13"):
-        dgk_cuda._width(MontgomeryCtx.build(n384, device="cpu"))
+    # A modulus of a width not compiled runs at the next one up; only one
+    # wider than the widest (129 limbs, 4,112 bits) is refused, by name.
+    for bits, Wc in ((384, 17), (528, 17), (529, 33), (1040, 33), (2057, 65), (3088, 97),
+                     (3089, 129), (4112, 129)):
+        assert dgk_cuda.width(MontgomeryCtx.build((1 << (bits - 1)) | 12345, device="cpu")) == Wc
+    with pytest.raises(ValueError, match="at most 129 32-bit limbs .* W = 130"):
+        dgk_cuda.width(MontgomeryCtx.build((1 << 4112) | 12345, device="cpu"))
+    y = to_digits([3, pub.n - 1], mc.D)
+    for c in (0, 1, 77, pub.n - 1):
+        assert torch.equal(dgk_cuda.mulmod_const(mc, y, c), mc.mulmod(y, to_digits([c], mc.D)))
     with pytest.raises(ValueError, match="shared exponent"):
         dgk_cuda._shared_exponents([1 << 2048])
     words, bits = dgk_cuda._shared_exponents([0, 5, (1 << 640) - 1])
@@ -539,7 +585,7 @@ def test_dgk_bound_counts_the_binary_method_at_two_slots():
     """measure_dgk's bound, which chip_smoke.py's kernels line reads: the
     binary method's products (a square per bit below the top one, a product
     per set bit below it), 2 W^2 + W multiply-adds each at two 32-bit
-    multiply slots, against the words moved; the longer of the two binds."""
+    multiply slots, against the bytes moved; the longer of the two binds."""
     from pplp_tpu_torch import measure_dgk
     from pplp_tpu_torch.measure_multiply import BYTES_PER_S, MULS_PER_S
 
@@ -547,8 +593,43 @@ def test_dgk_bound_counts_the_binary_method_at_two_slots():
         want = 0 if e == 0 else (e.bit_length() - 1) + (bin(e).count("1") - 1)
         assert measure_dgk.dgk_products(e) == want, e
     assert measure_dgk.MAD_SLOTS == 2
-    assert measure_dgk.dgk_bound(65, 1000, 10) == {
+    assert measure_dgk.dgk_bound(65, 1000, 40) == {
         "bound_ms": 1000 * 8515 * 2 / MULS_PER_S * 1e3, "bound_by": "operations",
         "products": 1000}
-    c = measure_dgk.dgk_bound(17, 1, 10 ** 9)
+    c = measure_dgk.dgk_bound(17, 1, 4 * 10 ** 9)
     assert c["bound_by"] == "bytes" and c["bound_ms"] == 4 * 10 ** 9 / BYTES_PER_S * 1e3
+
+
+def test_kernel_bounds_count_the_products_the_functions_need():
+    """The bounds count what each function needs on its exponents: an
+    exponentiation the fewer of the binary method's products and the
+    window's (as the group model runs them), the blind distance the joint
+    walk's 43 a lane at bench.py's exponents (the reference chain's 65 stand
+    beside it), the product 2 and the giant step 1; bytes as the kernels'
+    rows: int64 digits for the product, the giant step and the blind
+    distance, u32 limbs for the exponentiations."""
+    from pplp_tpu_torch import measure_dgk as md
+    from pplp_tpu_torch.measure_multiply import BYTES_PER_S
+
+    k = GroupKernel(_modulus(497, random.Random(1)), 17)
+    assert md.WINDOW == k.k
+    for bits in (0, 1, 3, 4, 16, 640, 800):
+        assert md.window_products(bits) == k.products(bits), bits
+    for e, want in ((0, 2), (1, 2), (37, 9), ((1 << 16) - 1, 28), (1 << 799, 801),
+                    ((1 << 800) - 1, 1072)):
+        assert md.exp_products(e) == want == min(2 + md.dgk_products(e),
+                                                 md.window_products(e.bit_length())), e
+    b = md.kernel_bounds(65, 130, 10, (1 << 640) - 1)
+    assert {name: (c["products"], c["reference_products"]) for name, c in b.items()} == {
+        "dgk_mulmod": (20, 20), "giant step": (10, 10), "dgk_powmod_shared": (8600, 12800),
+        "dgk_blind_distance": (430, 650)}
+    assert all(c["bound_by"] == "operations" for c in b.values())
+    assert b["dgk_blind_distance"]["reference_bound_ms"] == md.dgk_bound(65, 650, 1)["bound_ms"]
+    wide = md.kernel_bounds(1, 10 ** 6, 10, 3)  # one limb of n, rows of 10^6 digits: bytes
+    for name, rows in (("dgk_mulmod", 3), ("giant step", 2), ("dgk_blind_distance", 6)):
+        assert wide[name]["bound_by"] == "bytes"
+        assert wide[name]["bound_ms"] == rows * 8 * 10 ** 6 * 10 / BYTES_PER_S * 1e3, name
+    exps = [0, 37, (1 << 800) - 1]
+    c = md.lanes_bound(65, exps)
+    assert (c["products"], c["reference_products"]) == (2 + 9 + 1072, 2 + 9 + 1600)
+    assert md.lanes_bound(10 ** 6, exps)["products"] == c["products"]
