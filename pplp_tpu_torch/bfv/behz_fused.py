@@ -19,7 +19,19 @@ from .behz import KSwitchKeys, _check_pair, multiplier, relinearize
 from .ciphertext import Ciphertext
 from .context import BFVContext
 
-__all__ = ["FusedMultiplier"]
+__all__ = ["FusedMultiplier", "kernel_module"]
+
+
+def kernel_module(ctx: BFVContext):
+    """The BEHZ kernel module of the context's profile: ``behz64_cuda`` on
+    m62, ``behz_cuda`` on m31."""
+    if ctx.tables.profile == "m62":
+        from ..ops import behz64_cuda
+
+        return behz64_cuda
+    from ..ops import behz_cuda
+
+    return behz_cuda
 
 
 class FusedMultiplier:
@@ -32,16 +44,6 @@ class FusedMultiplier:
     def on_card(self) -> bool:
         return self.ctx.device.type == "cuda"
 
-    def _kernels(self):
-        """The kernel module of the context's profile."""
-        if self.ctx.tables.profile == "m62":
-            from ..ops import behz64_cuda
-
-            return behz64_cuda
-        from ..ops import behz_cuda
-
-        return behz_cuda
-
     def _keys(self) -> KSwitchKeys:
         if self.rlk is None:
             raise ValueError("this FusedMultiplier was built without relinearization keys")
@@ -52,7 +54,7 @@ class FusedMultiplier:
         _check_pair(ct1, ct2)
         if not self.on_card:
             return self.mul.multiply(ct1, ct2)
-        out = self._kernels().multiply(*ct1.polys, *ct2.polys, self.mul)
+        out = kernel_module(self.ctx).multiply(*ct1.polys, *ct2.polys, self.mul)
         return Ciphertext(tuple(out.unbind(0)), "coeff")
 
     def relinearize(self, ct: Ciphertext) -> Ciphertext:
@@ -62,7 +64,7 @@ class FusedMultiplier:
             return relinearize(self.ctx, ct, rlk)
         if ct.size != 3 or ct.domain != "coeff":
             raise ValueError("relinearize takes a size-3 coefficient-domain ciphertext")
-        out = self._kernels().relinearize(*ct.polys, self.ctx, rlk)
+        out = kernel_module(self.ctx).relinearize(*ct.polys, self.ctx, rlk)
         return Ciphertext(tuple(out.unbind(0)), "coeff")
 
     def multiply_relinearize(self, ct1: Ciphertext, ct2: Ciphertext) -> Ciphertext:

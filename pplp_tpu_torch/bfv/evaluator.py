@@ -10,7 +10,8 @@ Every op runs on both residue profiles (through ``ctx.prof``).
 ``multiply``, ``relinearize`` and ``multiply_relinearize`` run the BEHZ
 multiply with RNS-gadget keys (``bfv.behz``): on a CUDA context through the
 hand-written kernels of its profile (``bfv.behz_fused.FusedMultiplier``),
-on a CPU context through the plain version.
+on a CPU context through the plain version. ``relinearize`` with
+special-prime keys goes to ``keyswitch.sp_relinearize``.
 """
 
 from __future__ import annotations
@@ -84,7 +85,12 @@ class Evaluator:
         return fused.multiply(a, b)
 
     def relinearize(self, ct: Ciphertext, keys) -> Ciphertext:
-        """Size 3 -> size 2 with RNS-gadget keys (``behz.KSwitchKeys``)."""
+        """Size 3 -> size 2, dispatched on the key type: RNS-gadget keys
+        (``behz.KSwitchKeys``) or special-prime ones (``keyswitch.SPKeys``)."""
+        from .keyswitch import SPKeys, sp_relinearize
+
+        if isinstance(keys, SPKeys):
+            return sp_relinearize(self.ctx, ct, keys)
         return self._multiplier(keys).relinearize(ct)
 
     def multiply_relinearize(self, a: Ciphertext, b: Ciphertext, keys) -> Ciphertext:

@@ -59,20 +59,52 @@ def make_keys(ctx: BFVContext, s: torch.Tensor, a_ntt: torch.Tensor,
 
 
 class KeyGenerator:
-    """Keys drawn from an explicit ``torch.Generator`` on the context's device."""
+    """Keys drawn from an explicit ``torch.Generator`` on the context's device.
 
-    def __init__(self, ctx: BFVContext, generator: torch.Generator):
+    The secret's ternary words [n] are kept (``secret_words``): they do not
+    depend on the chain, so the special-prime keys lift the same secret
+    onto the extended basis with ``sampling.ternary_poly_from_bits``, as the
+    reference resamples it from its PRNG key."""
+
+    def __init__(self, ctx: BFVContext, generator: torch.Generator | None):
         self.ctx = ctx
         self.generator = generator
+        self._words: tuple | None = None
         self._keys: tuple[SecretKey, PublicKey] | None = None
+
+    @classmethod
+    def from_bits(cls, ctx: BFVContext, s_bits, a_bits, e_bits) -> "KeyGenerator":
+        """The known-answer hook: the words the reference's keygen drew
+        (ternary [n], uniform [2|4, L, n], CBD [2, n])."""
+        kg = cls(ctx, None)
+        as_words = lambda b: torch.as_tensor(np.asarray(b, dtype=np.int64),  # noqa: E731
+                                             device=ctx.device)
+        kg._words = tuple(as_words(b) for b in (s_bits, a_bits, e_bits))
+        return kg
+
+    def _draw(self) -> tuple:
+        """The keygen's words, drawn once in the order secret, a, e."""
+        if self._words is None:
+            ctx, g = self.ctx, self.generator
+            self._words = (
+                sampling.words(g, (ctx.n,), ctx.device),
+                sampling.words(g, (ctx.prof.uniform_words, ctx.L, ctx.n), ctx.device),
+                sampling.words(g, (2, ctx.n), ctx.device),
+            )
+        return self._words
+
+    @property
+    def secret_words(self) -> torch.Tensor:
+        """The secret's ternary words [n] (int64 holding u32)."""
+        return self._draw()[0]
 
     def _make(self):
         if self._keys is None:
-            ctx, g = self.ctx, self.generator
-            s = sampling.ternary_poly(g, ctx)
-            a_ntt = sampling.uniform_rq(g, ctx)
-            e = sampling.cbd_poly(g, ctx)
-            self._keys = make_keys(ctx, s, a_ntt, e)
+            ctx = self.ctx
+            s_bits, a_bits, e_bits = self._draw()
+            self._keys = make_keys(ctx, sampling.ternary_poly_from_bits(s_bits, ctx),
+                                   sampling.uniform_rq_from_bits(a_bits, ctx),
+                                   sampling.cbd_poly_from_bits(e_bits, ctx))
         return self._keys
 
     def secret_key(self) -> SecretKey:

@@ -18,12 +18,14 @@ import numpy as np
 import torch
 
 __all__ = ["uniform_rq", "ternary_poly", "cbd_poly", "uniform_rq_from_bits",
-           "ternary_poly_from_bits", "cbd_poly_from_bits", "lift_small", "lift_signed"]
+           "ternary_poly_from_bits", "cbd_poly_from_bits", "lift_small", "lift_signed",
+           "words"]
 
 _CBD_MASK = (1 << 21) - 1  # CBD(21): sigma = sqrt(21/2) ~ 3.24
 
 
-def _words(generator: torch.Generator, shape, device) -> torch.Tensor:
+def words(generator: torch.Generator, shape, device) -> torch.Tensor:
+    """Uniform 32-bit words (int64) of ``shape``: what every sampler draws."""
     return torch.randint(0, 1 << 32, tuple(shape), generator=generator,
                          device=device, dtype=torch.int64)
 
@@ -77,17 +79,17 @@ def cbd_poly_from_bits(bits, ctx) -> torch.Tensor:
 def uniform_rq(generator: torch.Generator, ctx, batch=()) -> torch.Tensor:
     """Uniform element of R_q: independent residues [*batch, L, n]."""
     return uniform_rq_from_bits(
-        _words(generator, tuple(batch) + (ctx.prof.uniform_words, ctx.L, ctx.n),
+        words(generator, tuple(batch) + (ctx.prof.uniform_words, ctx.L, ctx.n),
                ctx.device), ctx)
 
 
 def ternary_poly(generator: torch.Generator, ctx, batch=()) -> torch.Tensor:
     """Uniform ternary polynomial, lifted to all limbs."""
     return ternary_poly_from_bits(
-        _words(generator, tuple(batch) + (ctx.n,), ctx.device), ctx)
+        words(generator, tuple(batch) + (ctx.n,), ctx.device), ctx)
 
 
 def cbd_poly(generator: torch.Generator, ctx, batch=()) -> torch.Tensor:
     """Centered binomial noise CBD(21), lifted to all limbs."""
     return cbd_poly_from_bits(
-        _words(generator, tuple(batch) + (2, ctx.n), ctx.device), ctx)
+        words(generator, tuple(batch) + (2, ctx.n), ctx.device), ctx)

@@ -24,13 +24,14 @@ from .params import SCHEME_BFV, EncryptionParameters
 
 __all__ = ["save_parms", "load_parms", "save_ciphertext", "load_ciphertext",
            "save_public_key", "load_public_key", "save_secret_key", "load_secret_key",
-           "save_kswitch_keys", "load_kswitch_keys"]
+           "save_kswitch_keys", "load_kswitch_keys", "save_sp_keys", "load_sp_keys"]
 
 _MAGIC_PARMS = b"PPLPprm1"
 _MAGIC_CT = b"PPLPctx1"
 _MAGIC_PK = b"PPLPpub1"
 _MAGIC_SK = b"PPLPsec1"
 _MAGIC_KSW = b"PPLPksw1"
+_MAGIC_SPK = b"PPLPspk1"
 
 
 def save_parms(parms: EncryptionParameters) -> bytes:
@@ -175,3 +176,23 @@ def load_kswitch_keys(buf: bytes, ctx: BFVContext) -> KSwitchKeys:
     spec, sh = _load_spectra(buf, off, 2 * k, ctx)
     return KSwitchKeys(k0=spec[:k], k0_shoup=sh[:k], k1=spec[k:], k1_shoup=sh[k:],
                        groups=_digit_groups(L, (L + k - 1) // k))
+
+
+def save_sp_keys(spk, ctx: BFVContext) -> bytes:
+    """Special-prime keys: n, L, k, P, then the k digit rows of k0 and then
+    of k1, each in coefficient order over Q ∪ {P}."""
+    k = spk.k0.shape[0]
+    blobs = _save_spectra(torch.cat([spk.k0, spk.k1]), spk.ctx_qp)
+    return b"".join([_MAGIC_SPK, struct.pack("<QHHQ", ctx.n, ctx.L, k, spk.P), *blobs])
+
+
+def load_sp_keys(buf: bytes, ctx: BFVContext):
+    """Special-prime keys over ``ctx`` extended by the P the bytes name."""
+    from .keyswitch import SPKeys
+
+    (_, _, k, P), off = _header(buf, _MAGIC_SPK, "<QHHQ", ctx, "sp keys")
+    ctx_qp = BFVContext.build(
+        ctx.parms.with_coeff_modulus(tuple(m.value for m in ctx.moduli) + (P,)), ctx.device)
+    spec, sh = _load_spectra(buf, off, 2 * k, ctx_qp)
+    return SPKeys(ctx_qp=ctx_qp, P=P, k0=spec[:k], k0_shoup=sh[:k], k1=spec[k:],
+                  k1_shoup=sh[k:])

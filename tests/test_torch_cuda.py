@@ -1139,3 +1139,213 @@ def test_pplp_dgk_on_card(dev, radius, coords, near):
     res = pplp_dgk(radius, xa=xa, ya=ya, xb=xb, yb=yb, k=512, t=64, l=12, seed=8,
                    keys=dgk_gen_keys(512, 64, 12, seed=7))
     assert res.is_near == near
+
+
+# ---------------------------------------------------------------------------
+# Special-prime key switching, Galois rotations, the batch encoder and CKKS
+# ---------------------------------------------------------------------------
+
+SURFACE_STEPS = {"+1": 1, "-1": -1, "columns": None}
+
+
+def _surface_setup(profile, dev, batch=(3,)):
+    """A context with a batching t at n = 4096 on ``profile``'s chain, its
+    CPU twin, keys (SP and gadget Galois keys for each step, SP and width-1
+    relinearization keys) and two ciphertexts of random residues."""
+    from pplp_tpu_torch.bfv import galois, keyswitch
+
+    n = 4096
+    t = get_primes(20, 1, n)[0]
+    parms = bfv.EncryptionParameters.bfv(n, t, profile=profile)
+    ctx, cpu = bfv.BFVContext.build(parms, dev), bfv.BFVContext.build(parms, "cpu")
+    g = torch.Generator(device=dev).manual_seed(17)
+    kg = bfv.KeyGenerator(ctx, g)
+    sk = kg.secret_key()
+    keys = {}
+    for name, step in SURFACE_STEPS.items():
+        elt = 2 * n - 1 if step is None else galois.galois_elt_from_step(step, n)
+        keys["sp", name] = (elt, keyswitch.create_sp_galois_keys(ctx, kg, elt, g))
+        keys["gadget", name] = (elt, galois.create_galois_keys(ctx, sk, elt, g))
+    keys["relin", "sp"] = keyswitch.create_sp_relin_keys(ctx, kg, g)
+    keys["relin", "w1"] = behz.create_relin_keys(ctx, sk, g, width=1)
+    ct1, ct2 = _cts(ctx, batch, 23)
+    return ctx, cpu, keys, ct1, ct2
+
+
+def _to_cpu(keys, cpu):
+    from pplp_tpu_torch.bfv import keyswitch
+
+    leaves = [x.cpu() for x in (keys.k0, keys.k0_shoup, keys.k1, keys.k1_shoup)]
+    if isinstance(keys, keyswitch.SPKeys):
+        return keyswitch.SPKeys(keyswitch.build_ctx_qp(cpu)[0], keys.P, *leaves)
+    return behz.KSwitchKeys(*leaves, groups=keys.groups)
+
+
+def _cpu_ct(ct):
+    return bfv.Ciphertext(tuple(p.cpu() for p in ct.polys), ct.domain)
+
+
+def _same_cpu(card, cpu_ct):
+    return card.size == cpu_ct.size and all(
+        torch.equal(x.cpu(), y) for x, y in zip(card.polys, cpu_ct.polys))
+
+
+@pytest.mark.parametrize("profile", ["tpu", "seal"])
+def test_sp_relinearize_and_rotations_match_cpu(dev, profile):
+    from pplp_tpu_torch.bfv import galois, keyswitch
+
+    ctx, cpu, keys, ct1, ct2 = _surface_setup(profile, dev)
+    for (kind, name), (elt, gk) in ((k, v) for k, v in keys.items() if k[0] != "relin"):
+        got = galois.apply_galois(ctx, ct1, elt, gk)
+        assert _same_cpu(got, galois.apply_galois(cpu, _cpu_ct(ct1), elt, _to_cpu(gk, cpu))), (
+            kind, name)
+    ct3 = bfv.Evaluator(ctx).multiply(ct1, ct2)
+    cpu3 = bfv.Evaluator(cpu).multiply(_cpu_ct(ct1), _cpu_ct(ct2))
+    assert _same_cpu(ct3, cpu3)
+    spk = keys["relin", "sp"]
+    assert _same_cpu(keyswitch.sp_relinearize(ctx, ct3, spk),
+                     keyswitch.sp_relinearize(cpu, cpu3, _to_cpu(spk, cpu)))
+
+
+@pytest.mark.parametrize("profile", ["tpu", "seal"])
+def test_sp_keys_bytes_on_card(dev, profile):
+    from pplp_tpu_torch.bfv import serialize
+
+    ctx, cpu, keys, _, _ = _surface_setup(profile, dev, batch=(1,))
+    spk = keys["relin", "sp"]
+    blob = serialize.save_sp_keys(spk, ctx)
+    assert blob == serialize.save_sp_keys(_to_cpu(spk, cpu), cpu)
+    back = serialize.load_sp_keys(blob, ctx)
+    assert back.k0.device == spk.k0.device
+    assert all(torch.equal(a, b) for a, b in zip((back.k0, back.k0_shoup, back.k1, back.k1_shoup),
+                                                 (spk.k0, spk.k0_shoup, spk.k1, spk.k1_shoup)))
+
+
+@pytest.mark.parametrize("rows", [(1,), (64,)])
+def test_u64_ntt_on_the_61_bit_special_prime(dev, rows):
+    """The QP tables of the CLI's seal chain at n = 8192: five 43-44-bit
+    primes and the 61-bit special prime, whose lazy values reach 4P."""
+    from pplp_tpu_torch.bfv import keyswitch
+
+    ctx_qp, P = keyswitch.build_ctx_qp(_seal_ctx(8192, 20, dev))
+    assert P.bit_length() == 61 and ctx_qp.L == 6
+    tb = ctx_qp.tables
+    x = _residues(tb, rows, 61)
+    x[..., :3] = tb.q_b(1) - 1
+    before = dict(ntt_cuda.launches_by_kernel)
+    spec = ntt.forward(x, tb)
+    back = ntt.inverse(spec, tb)
+    torch.cuda.synchronize()
+    assert torch.equal(spec, ntt.forward_plain(x, tb))
+    assert torch.equal(back, ntt.inverse_plain(spec, tb))
+    assert torch.equal(back, x)
+    assert ntt_cuda.launches_by_kernel["ntt_forward_u64"] == before["ntt_forward_u64"] + 1
+
+
+def test_gadget_rotation_is_one_relinearization_launch(dev):
+    from pplp_tpu_torch.bfv import galois
+
+    ctx, _, keys, ct1, _ = _surface_setup("tpu", dev)
+    elt, gk = keys["gadget", "+1"]
+    behz_cuda.reset_launches()
+    ntt_cuda.reset_launches()
+    galois.apply_galois(ctx, ct1, elt, gk)
+    assert {k: v for k, v in behz_cuda.launches_by_kernel.items() if v} == {"behz_relin_ntt": 1}
+    assert ntt_cuda.launches == 0
+
+
+def test_surface_on_card_runs_no_plain_version(dev, monkeypatch):
+    """Rotations with both key kinds, sp_relinearize and ckks_multiply (SP
+    and gadget keys) on the card with the plain transforms and the plain
+    key switch made to fail; the NTT and relinearization kernels counted."""
+    from pplp_tpu_torch.bfv import galois, keyswitch
+    from pplp_tpu_torch.ckks import ckks
+
+    results = {}
+    for profile in ("tpu", "seal"):
+        ctx, cpu, keys, ct1, ct2 = _surface_setup(profile, dev)
+        ct3 = bfv.Evaluator(ctx).multiply(ct1, ct2)
+        results[profile] = ctx, cpu, keys, ct1, ct3
+    cctx = ckks.CKKSContext.build(n=4096, scale=float(1 << 26),
+                                  coeff_modulus=get_primes(28, 4, 4096), device=dev)
+    cpu_cctx = ckks.CKKSContext.build(n=4096, scale=float(1 << 26),
+                                      coeff_modulus=get_primes(28, 4, 4096), device="cpu")
+    g = torch.Generator(device=dev).manual_seed(4)
+    ckg = bfv.KeyGenerator(cctx.base, g)
+    csk, cpk = ckg.secret_key(), ckg.create_public_key()
+    ckeys = {"sp": keyswitch.create_sp_relin_keys(cctx.base, ckg, g),
+             "gadget": ckks.ckks_create_relin_keys(cctx, csk, g)}
+    enc = ckks.CKKSEncoder(cctx)
+    ca, cb = (ckks.ckks_encrypt(cctx, cpk, enc.coeffs_to_rns(np.stack([enc.encode(v)] * 2)), g)
+              for v in ([1.5, -2.0], [4.0, 0.25]))
+    want = {kind: ckks.ckks_multiply(cpu_cctx, _cpu_ct(ca), _cpu_ct(cb),
+                                     rlk=_to_cpu(k, cpu_cctx.base))
+            for kind, k in ckeys.items()}
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    for owner, name in ((ntt, "forward_plain"), (ntt, "inverse_plain"),
+                        (behz, "keyswitch_contributions"),
+                        (behz, "keyswitch_contributions_grouped"), (behz, "relinearize")):
+        monkeypatch.setattr(owner, name, refuse)
+    for mod in (ntt_cuda, behz_cuda, behz64_cuda):
+        mod.reset_launches()
+    outs = []
+    for profile, (ctx, cpu, keys, ct1, ct3) in results.items():
+        for (kind, name), (elt, gk) in ((k, v) for k, v in keys.items() if k[0] != "relin"):
+            outs.append((profile, kind, name, galois.apply_galois(ctx, ct1, elt, gk)))
+        outs.append((profile, "relin", "sp", keyswitch.sp_relinearize(ctx, ct3,
+                                                                      keys["relin", "sp"])))
+    prods = {kind: ckks.ckks_multiply(cctx, ca, cb, rlk=k) for kind, k in ckeys.items()}
+    torch.cuda.synchronize()
+    counts = {**ntt_cuda.launches_by_kernel, **behz_cuda.launches_by_kernel,
+              **behz64_cuda.launches_by_kernel}
+    monkeypatch.undo()
+    # tpu: 3 SP rotations + sp_relinearize, 2 transforms each; CKKS: 1 forward
+    # and 1 inverse per multiply, 2 more with SP keys. seal: the same on u64.
+    assert counts["ntt_forward"] == 4 + 2 + 1 and counts["ntt_inverse"] == 4 + 2 + 1
+    assert counts["ntt_forward_u64"] >= 4 and counts["ntt_inverse_u64"] >= 4
+    assert counts["behz_relin_ntt"] == 3 + 1  # gadget rotations, CKKS gadget relinearize
+    assert counts["behz64_keyprod"] == 3
+    for profile, kind, name, got in outs:
+        ctx, cpu, keys, ct1, ct3 = results[profile]
+        if kind == "relin":
+            want_ct = keyswitch.sp_relinearize(cpu, _cpu_ct(ct3),
+                                               _to_cpu(keys["relin", "sp"], cpu))
+        else:
+            elt, gk = keys[kind, name]
+            want_ct = galois.apply_galois(cpu, _cpu_ct(ct1), elt, _to_cpu(gk, cpu))
+        assert _same_cpu(got, want_ct), (profile, kind, name)
+    for kind, got in prods.items():
+        assert _same_cpu(got, want[kind]), kind
+
+
+@pytest.mark.parametrize("profile", ["tpu", "seal"])
+def test_batch_encoder_on_card(dev, profile):
+    ctx = bfv.BFVContext.build(bfv.EncryptionParameters.bfv(
+        4096, get_primes(20, 1, 4096)[0], profile=profile), dev)
+    cpu = bfv.BFVContext.build(ctx.parms, "cpu")
+    rows = np.random.default_rng(5).integers(0, ctx.t, size=(4, 4096))
+    be, cpu_be = bfv.BatchEncoder(ctx), bfv.BatchEncoder(cpu)
+    ntt_cuda.reset_launches()
+    coeffs = be.encode_rows(rows)
+    assert np.array_equal(coeffs, cpu_be.encode_rows(rows))
+    assert np.array_equal(be.decode_rows(coeffs), rows)
+    assert ntt_cuda.launches_by_kernel["ntt_inverse"] == 1
+    assert ntt_cuda.launches_by_kernel["ntt_forward"] == 1
+
+
+def test_ckks_demo_and_rescale_on_card(dev):
+    from pplp_tpu_torch.ckks import ckks
+    from pplp_tpu_torch.ckks.demo import run_aggregation_demo
+
+    assert run_aggregation_demo(verbose=False, device=dev).abs_error < 1e-2
+    chain = get_primes(28, 4, 8192)
+    ctx = ckks.CKKSContext.build(n=8192, scale=float(1 << 26), coeff_modulus=chain, device=dev)
+    cpu = ckks.CKKSContext.build(n=8192, scale=float(1 << 26), coeff_modulus=chain,
+                                 device="cpu")
+    ct = bfv.Ciphertext(tuple(_residues(ctx.base.tables, (2,), 90 + i) for i in range(2)))
+    _, got = ckks.ckks_rescale(ctx, ct)
+    _, want = ckks.ckks_rescale(cpu, _cpu_ct(ct))
+    assert _same_cpu(got, want)

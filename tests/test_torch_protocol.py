@@ -191,7 +191,8 @@ def test_import_loads_no_jax():
         "pplp_tpu_torch.benchmark.sweep, pplp_tpu_torch.utils.profiling, "
         "pplp_tpu_torch.utils.csvwriter, pplp_tpu_torch.dgk, pplp_tpu_torch.dgk.batched, "
         "pplp_tpu_torch.dgk.protocol, pplp_tpu_torch.ops.dgk_cuda, "
-        "pplp_tpu_torch.measure_dgk\n"
+        "pplp_tpu_torch.measure_dgk, pplp_tpu_torch.bfv.keyswitch, pplp_tpu_torch.bfv.galois, "
+        "pplp_tpu_torch.bfv.batch_encoder, pplp_tpu_torch.ckks, pplp_tpu_torch.ckks.netmain\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'pplp_tpu' or m.startswith('pplp_tpu.')]\n"
         "assert not bad, bad\n"
