@@ -171,7 +171,27 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
                -r 0`` and ``-r 1`` as processes at the defaults (circle,
                yao, --otp-bits 2048, --device cuda): README's pair at r =
                300 CLOSE, at r = 100 FAR, a point inside and one outside the
-               square (``--circuit poly``), on both sides.
+               square (``--circuit poly``), on both sides;
+14. multidevice -- the sharded paths (``parallel/``) in gloo ranks that
+               share the one card (``parallel/multiproc_smoke.py``: one fresh
+               process a rank, the kernels built before they start; a rank
+               that fails or outlives its limit ends the run non-zero):
+               ``DistMultiplier`` at n = 32768 (31 primes, |B_sk| = 33,
+               batch 2, width 2) on coeff = 2 and coeff = 4, and at n = 4096
+               (4 primes), t = 2^16, batch 256, widths 1 and 2 on dp 2 x
+               coeff 2, each bit-exact against the single-process kernels
+               (``Evaluator`` on the separate route, ``FusedMultiplier``);
+               the distributed NTT on [2, 31, 32768] at coeff = 4 (rows,
+               round trip, product); the sharded ``build_packed_pipeline_bf``
+               on dp 2 x coeff 2, all 102,400 gathered verdicts equal to the
+               pipeline phase's host oracle. Every separate-route kernel and
+               transform must have been launched by the ranks (their counts
+               go into the kernels line). Times per rank and their max
+               (CUDA events around a call, median of 5), the same call's
+               split into its exchanges (timed where they happen, the
+               card synchronized around each) and the rest, bytes a rank
+               sends a call, and the same code at S = 1 in one process:
+               ranks sharing one card, never a scaling figure.
 
 The last lines are a JSON object with one entry per kernel (launches on
 the main paths, max error, ms and plain ms as measured here, ``ms_source``:
@@ -1301,7 +1321,8 @@ def phase_pipeline(dev):
         f"{prof['busy_ms'] / PIPE_PROFILE_STEPS:.4f} ms per step, "
         f"{100 * prof['busy_share']:.1f}% of the window; {per_step:.0f} kernels per "
         f"step; largest: {top}")
-    return launches
+    # The inputs and the host oracle's verdicts, for the sharded step.
+    return launches, {"ctx": ctx, "sk": sk, "cts": cts, "want": want}
 
 
 def _free_port() -> int:
@@ -2161,6 +2182,163 @@ def phase_twopc(dev):
         _twopc_cli(say, tmp)
     log(f"[twopc] phase done in {time.perf_counter() - t_phase:.1f} s")
 
+# The multidevice phase: ranks share the one card over gloo.
+MD_SEP = (32768, 2, 2)  # n, batch, gadget width: BASELINE.md:31's n, the separate phase's shape
+MD_BENCH = (4096, 256, (1, 2))  # n, batch, widths (bench.py:103), dp 2 x coeff 2
+MD_NTT_ROWS = 2  # rows of the distributed NTT at n = 32768, 31 limbs, coeff 4
+MD_ITERS = 5  # timed calls a rank (median)
+MD_TIMEOUT_S = 300  # a launch's limit; every rank is killed past it
+MD_KERNELS = ("ntt_forward_u32", "ntt_inverse_u32", "behz_to_bsk", "behz_tensor",
+              "behz_floor_sk", "behz_lift", "behz_keyprod", "behz_add")
+MD_NTT = ("ntt_forward", "ntt_inverse")  # the distributed NTT's and the pipeline's
+
+
+def _md_assemble(outs, shape):
+    """The whole [2, B, L, n] product from the ranks' blocks."""
+    import torch
+
+    got = torch.full(shape, -1, dtype=torch.int64)
+    for out in outs:
+        got[:, slice(*out["batch"]), :, slice(*out["coeffs"])] = out["out"]
+    return got
+
+
+def phase_multidevice(dev, pipe):
+    """The sharded paths in gloo ranks on the one card: DistMultiplier at
+    n = 32768 on 2 and 4 ranks and at the bench shape on dp 2 x coeff 2, the
+    distributed NTT, the sharded packed pipeline; every rank's block against
+    the single-process kernels (or the host oracle), the ranks' launches."""
+    import torch
+
+    from pplp_tpu_torch import bfv
+    from pplp_tpu_torch.bfv.behz_fused import FusedMultiplier
+    from pplp_tpu_torch.device import smi_line
+    from pplp_tpu_torch.ops import ntt
+    from pplp_tpu_torch.parallel import mesh as pmesh
+    from pplp_tpu_torch.parallel.behz_dist import DistMultiplier
+    from pplp_tpu_torch.parallel.multiproc_smoke import launch, median_s, seeded_case
+
+    t_phase = time.perf_counter()
+    label = f"ranks sharing one card over gloo, not scaling [{smi_line()}]"
+
+    def tpu(n, t_bits):
+        return bfv.BFVContext.build(bfv.EncryptionParameters.bfv(n, 1 << t_bits, profile="tpu"),
+                                    dev)
+
+    # The single-process results on the card, and the same code at S = 1.
+    n, B, width = MD_SEP
+    ctx = tpu(n, 16)
+    rlk, ct1, ct2 = seeded_case(ctx, 1, B, width)
+    want_sep = torch.stack(bfv.Evaluator(ctx).multiply_relinearize(ct1, ct2, rlk).polys).cpu()
+    one = DistMultiplier(ctx, rlk, pmesh.make_mesh(1))
+    assert torch.equal(torch.stack(one.multiply_relinearize(ct1, ct2).polys).cpu(), want_sep)
+    s1_sep = 1e3 * median_s(dev, None, lambda: one.multiply_relinearize(ct1, ct2), MD_ITERS)
+    del one, rlk, ct1, ct2
+    nb, Bb, widths = MD_BENCH
+    ctx_b = tpu(nb, 16)
+    want_b, s1_b = {}, None
+    for w in widths:
+        rlk, c1, c2 = seeded_case(ctx_b, 2 + w, Bb, w)
+        want_b[w] = torch.stack(FusedMultiplier(ctx_b, rlk).multiply_relinearize(c1, c2).polys
+                                ).cpu()
+        if w == widths[-1]:
+            one = DistMultiplier(ctx_b, rlk, pmesh.make_mesh(1))
+            s1_b = 1e3 * median_s(dev, None, lambda: one.multiply_relinearize(c1, c2), MD_ITERS)
+        del rlk, c1, c2
+    g = torch.Generator(device=dev).manual_seed(7)
+    x, y = (torch.randint(0, 1 << 62, (MD_NTT_ROWS, ctx.L, n), generator=g, device=dev,
+                          dtype=torch.int64) % ctx.q2 for _ in range(2))
+    spec_ref = ntt.forward(x, ctx.tables).cpu()
+    prod_ref = ntt.negacyclic_polymul(x, y, ctx.tables).cpu()
+    log(f"[multidevice] single-process references on the card: separate route n={n} "
+        f"L={ctx.L} batch {B} width {width}, S = 1 DistMultiplier bit-exact; fused n={nb} "
+        f"batch {Bb} widths {widths}; NTT [{MD_NTT_ROWS}, {ctx.L}, {n}]")
+
+    moduli = [m.value for m in ctx.moduli]
+    sep = dict(kind="behz", n=n, t=1 << 16, moduli=moduli, seed=1, batch=B, width=width,
+               time_iters=MD_ITERS)
+    bench = [dict(kind="behz", mesh=(2, 1, 2), n=nb, t=1 << 16,
+                  moduli=[m.value for m in ctx_b.moduli], seed=2 + w, batch=Bb, width=w,
+                  batch_axis="dp", time_iters=MD_ITERS if w == widths[-1] else 0)
+             for w in widths]
+    pctx, psk = pipe["ctx"], pipe["sk"]
+    jobs4 = [dict(sep, mesh=(1, 1, 4)), *bench,
+             dict(kind="ntt", mesh=(1, 1, 4), n=n, moduli=moduli, x=x.cpu(), y=y.cpu(),
+                  time_iters=MD_ITERS),
+             dict(kind="pipeline", mesh=(2, 1, 2), n=pctx.n, t=pctx.t,
+                  moduli=[m.value for m in pctx.moduli], s_ntt=psk.s_ntt.cpu(),
+                  s_shoup=psk.s_shoup.cpu(), point=[PIPE_XB, PIPE_YB, PIPE_S, PIPE_R],
+                  cts=[[p.cpu() for p in pair] for pair in pipe["cts"]], bf=True, w=PIPE_W)]
+    t0 = time.perf_counter()
+    res2 = launch({"device": "cuda", "jobs": [dict(sep, mesh=(1, 1, 2))]}, 2, MD_TIMEOUT_S)
+    t2 = time.perf_counter() - t0
+    res4 = launch({"device": "cuda", "jobs": jobs4}, 4, MD_TIMEOUT_S)
+    t4 = time.perf_counter() - t0 - t2
+    log(f"[multidevice] launches: 2 ranks {t2:.1f} s, 4 ranks {t4:.1f} s (start, contexts, "
+        f"keys, jobs)")
+
+    def runs(res, j):
+        return [r["results"][j] for r in res]
+
+    # (a) n = 32768 on coeff = 2 and coeff = 4, (b) the bench shape.
+    for name, outs in (("coeff=2", runs(res2, 0)), ("coeff=4", runs(res4, 0))):
+        got = _md_assemble(outs, want_sep.shape)
+        assert torch.equal(got, want_sep), f"DistMultiplier n={n} {name} differs"
+    for j, w in enumerate(widths, start=1):
+        got = _md_assemble(runs(res4, j), want_b[w].shape)
+        assert torch.equal(got, want_b[w]), f"DistMultiplier n={nb} width {w} differs"
+    log(f"[multidevice] DistMultiplier n={n} (L={ctx.L}, batch {B}, width {width}) on "
+        f"coeff = 2 and coeff = 4, and n={nb} batch {Bb} widths {widths} on dp 2 x coeff 2: "
+        f"bit-exact against the single-process kernels")
+    # (c) the distributed NTT.
+    for out in runs(res4, 1 + len(widths)):
+        b, limbs, cs = (slice(*out[k]) for k in ("batch", "limbs", "coeffs"))
+        assert torch.equal(out["spec"], spec_ref[b, limbs]), "distributed NTT rows differ"
+        assert torch.equal(out["back"], x.cpu()[b, :, cs]), "round trip differs"
+        assert torch.equal(out["prod"], prod_ref[b, :, cs]), "distributed product differs"
+    log(f"[multidevice] distributed NTT [{MD_NTT_ROWS}, {ctx.L}, {n}] on coeff = 4: rows "
+        f"equal the single-process transform, round trip and product bit-exact")
+    # (d) BASELINE config[3] sharded.
+    want = pipe["want"].reshape(PIPE_ROWS, PIPE_N)
+    for out in runs(res4, 2 + len(widths)):
+        assert (out["near"].numpy() == want).all(), "sharded verdicts differ from the oracle"
+    log(f"[multidevice] sharded build_packed_pipeline_bf on dp 2 x coeff 2: all "
+        f"{want.size} gathered verdicts equal the host oracle on every rank")
+
+    counts = {}
+    for res in (res2, res4):
+        for r in res:
+            for out in r["results"]:
+                for k, v in out["launches"].items():
+                    counts[k] = counts.get(k, 0) + v
+    missing = [k for k in MD_KERNELS + MD_NTT if not counts.get(k)]
+    assert not missing, f"kernels the ranks never launched: {missing}"
+    log(f"[multidevice] the ranks' launches: {counts}")
+
+    # (e) Times: CUDA events around a call (median of MD_ITERS), the ranks
+    # of a group starting together; then as many calls with each exchange
+    # timed where it happens (ntt_dist.exchanges, the card synchronized
+    # around it), split into the exchanges and the rest of the same call.
+    def report(what, outs, s1=None):
+        def each(key):
+            vals = [o[key] for o in outs]
+            return f"{', '.join(f'{v:.4f}' for v in vals)} ms (max {max(vals):.4f})"
+
+        log(f"[multidevice] {what}: a call {each('ms')} per rank; with its exchanges timed "
+            f"{each('timed_ms')}, of it the exchanges {each('exchange_ms')} and the rest "
+            f"(kernels, packing) {each('rest_ms')}; bytes sent a rank a call "
+            f"{[o['call_bytes'] for o in outs]}"
+            + ("" if s1 is None else f"; S = 1 in one process {s1:.4f} ms") + f" ({label})")
+
+    report(f"DistMultiplier n={n} batch {B} coeff = 2", runs(res2, 0), s1_sep)
+    report(f"DistMultiplier n={n} batch {B} coeff = 4", runs(res4, 0), s1_sep)
+    report(f"DistMultiplier n={nb} batch {Bb} width {widths[-1]} dp 2 x coeff 2",
+           runs(res4, len(widths)), s1_b)
+    report(f"distributed NTT forward + inverse [{MD_NTT_ROWS}, {ctx.L}, {n}] coeff = 4",
+           runs(res4, 1 + len(widths)))
+    log(f"[multidevice] phase done in {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
 
 def main() -> int:
     import torch
@@ -2189,7 +2367,7 @@ def main() -> int:
     rows, mult_ntt = phase_multiply(dev)
     done("multiply")
     rows["mulmod_chain"] = phase_probe(dev)
-    pipe_ntt = phase_pipeline(dev)
+    pipe_ntt, pipe_case = phase_pipeline(dev)
     done("probe, pipeline")
     sep_rows, sep_ntt = phase_separate(dev)
     rows.update(sep_rows)
@@ -2208,6 +2386,11 @@ def main() -> int:
     done("dgk")
     phase_twopc(dev)
     done("twopc")
+    md_counts = phase_multidevice(dev, pipe_case)
+    for name in MD_KERNELS:
+        if name in rows:  # the BEHZ rows; the NTT rows are summed below
+            rows[name]["launches"] += md_counts[name]
+    done("multidevice")
     n = 1 << DEMO_N_BITS
     main_shapes = {prof: (6, len(_chain(prof, n)), n) for prof in PROFILE_NTT}
     u32_shape = (ROWS_PER_LIMB, len(_chain("tpu", 32768)), 32768)
@@ -2217,7 +2400,7 @@ def main() -> int:
             ms, plain_ms = times[prof, shape][name]
             rows[name] = {"launches": sum(c[name] for c in (launches, mult_ntt, pipe_ntt,
                                                             sep_ntt, seal_ntt, surface,
-                                                            net_ntt)),
+                                                            net_ntt, md_counts)),
                           "max_abs_err": err[name], "ms": ms, "ms_source": "profiler",
                           "plain_ms": plain_ms,
                           **_ntt_bound(name, shape)}

@@ -451,11 +451,14 @@ def lift_digit_grouped(ctx: BFVContext, poly: torch.Tensor, group) -> torch.Tens
     return p.add(r0 % q2, p.mulmod_shoup(t, col(w), col(ws), q2), q2)
 
 
-def key_products(ctx: BFVContext, d_ntt: torch.Tensor, keys: KSwitchKeys) -> torch.Tensor:
+def key_products(ctx: BFVContext, d_ntt: torch.Tensor, keys: KSwitchKeys,
+                 tables=None) -> torch.Tensor:
     """sum_j d_ntt[j] * (k0[j], k1[j]) mod q of digit spectra [D, ..., L, n]
-    -> spectra [2, ..., L, n]. The sum is reduced after every term: two m62
-    residues already come near 2^63."""
-    p, q2 = ctx.prof, ctx.q2
+    -> spectra [2, ..., L, n]. ``tables``: the limbs d_ntt and the keys'
+    rows cover (``NttTables.limbs`` of ``ctx.tables``); default all. The
+    sum is reduced after every term: two m62 residues already come near
+    2^63."""
+    p, q2 = (ctx.prof, ctx.q2) if tables is None else (tables.prof, tables.q_b(1))
     lead = (d_ntt.shape[0],) + (1,) * (d_ntt.dim() - 3) + tuple(d_ntt.shape[-2:])
 
     def acc(key, key_s):

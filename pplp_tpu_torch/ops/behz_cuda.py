@@ -60,8 +60,8 @@ launches_by_kernel = {"behz_to_bsk": 0, "behz_tensor_ntt": 0, "behz_floor_sk": 0
                       "behz_relin_ntt": 0, "behz_tensor": 0, "behz_lift": 0,
                       "behz_keyprod": 0, "behz_add": 0}
 
-# multiplier -> (device constants, host scalars); keys -> {(moduli, device):
-# (lift buffer, packed keys)}
+# multiplier -> (device constants, host scalars); keys -> {("lift" | "keys",
+# moduli, device): the lift buffer or the packed keys of those limbs}
 _mul_buffers: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 _key_buffers: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 
@@ -165,18 +165,25 @@ def _constants(mul):
     return bufs
 
 
-def _key_buffers_of(ctx, rlk) -> tuple[torch.Tensor, torch.Tensor]:
-    """(lift buffer, keys packed as u32 (k0, k0', k1, k1') per coefficient
-    [D, L, n, 4]) of ``rlk`` on ``ctx``."""
+def _lift_buffer(ctx, rlk) -> torch.Tensor:
+    """The lift records of ``rlk``'s digit groups over ``ctx``'s chain."""
     per_keys = _key_buffers.setdefault(rlk, {})
-    key = (tuple(m.value for m in ctx.moduli), ctx.device)
-    bufs = per_keys.get(key)
-    if bufs is None:
-        lift = cuda_build.u32_buffer(_pack_lift(ctx, rlk.digit_groups(ctx.L)), ctx.device)
-        keys = cuda_build.u32_buffer(
+    key = ("lift", tuple(m.value for m in ctx.moduli), ctx.device)
+    if key not in per_keys:
+        per_keys[key] = cuda_build.u32_buffer(_pack_lift(ctx, rlk.digit_groups(ctx.L)),
+                                              ctx.device)
+    return per_keys[key]
+
+
+def _packed_keys(ctx, rlk, tables=None) -> torch.Tensor:
+    """``rlk`` packed as u32 (k0, k0', k1, k1') per coefficient [D, L', n, 4],
+    its rows covering the limbs of ``tables`` (default ``ctx.tables``)."""
+    per_keys = _key_buffers.setdefault(rlk, {})
+    key = ("keys", tuple(m.value for m in (tables or ctx.tables).moduli), ctx.device)
+    if key not in per_keys:
+        per_keys[key] = cuda_build.u32_buffer(
             torch.stack([rlk.k0, rlk.k0_shoup, rlk.k1, rlk.k1_shoup], -1), ctx.device)
-        bufs = per_keys[key] = (lift, keys)
-    return bufs
+    return per_keys[key]
 
 
 def _base(tbx):
@@ -186,11 +193,23 @@ def _base(tbx):
                                    ("q", "tw", "itw", "n_inv", "n_inv_s", "mu")))
 
 
-def _validate(polys, ctx) -> int:
+def _logn(ctx, n) -> int:
+    """log2 of the row length ``n`` (default ``ctx.n``): a coefficient-wise
+    kernel also takes a slice of n / S coefficients of every limb (the C
+    layout of ``parallel.ntt_dist``), at least 64 wide, a power of two."""
+    n = ctx.n if n is None else n
+    logn = n.bit_length() - 1
+    if 1 << logn != n or not 6 <= logn <= 15:
+        raise ValueError(f"rows of {n} outside the kernels' range: powers of two in "
+                         f"[64, 32768]")
+    return logn
+
+
+def _validate(polys, ctx, n=None) -> int:
     """Every residue tensor: CUDA, int64, contiguous, 16-byte aligned,
-    [..., L, n] of one shape on the context's device. Returns the flattened
-    batch B."""
-    L, n = ctx.L, ctx.n
+    [..., L, n] of one shape on the context's device (n: ``ctx.n`` or the
+    slice given). Returns the flattened batch B."""
+    L, n = ctx.L, 1 << _logn(ctx, n)
     shape = polys[0].shape
     for x in polys:
         if not x.is_cuda:
@@ -205,8 +224,6 @@ def _validate(polys, ctx) -> int:
             raise ValueError("residue tensor must be contiguous")
         if x.data_ptr() % 16:
             raise ValueError("residue tensor must start on a 16-byte boundary")
-    if not 6 <= ctx.tables.logn <= 15:
-        raise ValueError(f"n = {n} outside the kernels' range [64, 32768]")
     return polys[0].numel() // (L * n)
 
 
@@ -230,12 +247,14 @@ def _check_bounds(mul):
                          f"({MAX_L}, {MAX_K})")
 
 
-def to_bsk(c0, c1, d0, d1, mul) -> torch.Tensor:
-    """Base extension of the four inputs [..., L, n] -> xb u32 [4, B, K, n]."""
+def to_bsk(c0, c1, d0, d1, mul, n=None) -> torch.Tensor:
+    """Base extension of the four inputs [..., L, n] -> xb u32 [4, B, K, n]
+    (``n``: a coefficient slice's width, default ``ctx.n``)."""
     ctx = mul.ctx
-    B = _validate((c0, c1, d0, d1), ctx)
+    B = _validate((c0, c1, d0, d1), ctx, n)
+    logn = _logn(ctx, n)
     _check_bounds(mul)
-    xb = _u32(4, B, mul.K, ctx.n, device=c0.device)
+    xb = _u32(4, B, mul.K, 1 << logn, device=c0.device)
     if B == 0:
         return xb
     lib = load()
@@ -244,7 +263,7 @@ def to_bsk(c0, c1, d0, d1, mul) -> torch.Tensor:
             xb.data_ptr(), consts.data_ptr(), scalars.ctypes.data,
             ntt_cuda.table_buffers(ctx.tables)["mu"].data_ptr(),
             ntt_cuda.table_buffers(mul.bsk_tables)["mu"].data_ptr(), B, ctx.L, mul.K,
-            ctx.tables.logn, _stream(c0.device))
+            logn, _stream(c0.device))
     return xb
 
 
@@ -300,11 +319,13 @@ def tensor_spectra(spec, tbx) -> torch.Tensor:
     return prod
 
 
-def floor_sk(eq, eb, mul) -> torch.Tensor:
-    """Fast floor + Shenoy-Kumaresan of the products -> int64 [3, B, L, n]."""
+def floor_sk(eq, eb, mul, n=None) -> torch.Tensor:
+    """Fast floor + Shenoy-Kumaresan of the products -> int64 [3, B, L, n]
+    (``n``: a coefficient slice's width, default ``ctx.n``)."""
     ctx = mul.ctx
     _check_bounds(mul)
-    L, K, n = ctx.L, mul.K, ctx.n
+    logn = _logn(ctx, n)
+    L, K, n = ctx.L, mul.K, 1 << logn
     B = eq.shape[1]
     _check_u32(eq, (3, B, L, n), "eq")
     _check_u32(eb, (3, B, K, n), "eb")
@@ -317,7 +338,7 @@ def floor_sk(eq, eb, mul) -> torch.Tensor:
             consts.data_ptr(), scalars.ctypes.data,
             ntt_cuda.table_buffers(ctx.tables)["mu"].data_ptr(),
             ntt_cuda.table_buffers(mul.bsk_tables)["mu"].data_ptr(), B, L, K,
-            ctx.tables.logn, _stream(eq.device))
+            logn, _stream(eq.device))
     return out
 
 
@@ -329,9 +350,11 @@ def multiply(c0, c1, d0, d1, mul) -> torch.Tensor:
     return floor_sk(eq, eb, mul).reshape((3,) + batch + (mul.ctx.L, mul.ctx.n))
 
 
-def _check_keys(ctx, rlk) -> int:
-    """The keys' digit count D after checking their tensors and L."""
-    L, n, D = ctx.L, ctx.n, len(rlk.digit_groups(ctx.L))
+def _check_keys(ctx, rlk, L=None) -> int:
+    """The keys' digit count D after checking their tensors: [D, L, n]
+    (``L``: the key rows' limbs, default ``ctx.L``)."""
+    L = ctx.L if L is None else L
+    n, D = ctx.n, len(rlk.digit_groups(ctx.L))
     if L > MAX_L:
         raise ValueError(f"L = {L} exceeds the kernel's bound {MAX_L}")
     for k in (rlk.k0, rlk.k0_shoup, rlk.k1, rlk.k1_shoup):
@@ -358,55 +381,63 @@ def relinearize(c0, c1, c2, ctx, rlk) -> torch.Tensor:
         d = ntt_cuda.inverse_u32(key_products(dn, ctx, rlk), ctx.tables)
         return add_switched(c0, c1, d, ctx).reshape(shape)
     out = torch.empty(shape, dtype=torch.int64, device=c0.device)
-    lift, keys = _key_buffers_of(ctx, rlk)
+    lift, keys = _lift_buffer(ctx, rlk), _packed_keys(ctx, rlk)
     _launch(load(), "behz_relin_ntt", c0.data_ptr(), c1.data_ptr(), c2.data_ptr(),
             out.data_ptr(), lift.data_ptr(), keys.data_ptr(), _base(ctx.tables), B, L, D,
             ctx.tables.logn, _stream(c0.device))
     return out
 
 
-def lift_digits(c2, ctx, rlk) -> torch.Tensor:
+def lift_digits(c2, ctx, rlk, n=None) -> torch.Tensor:
     """The gadget digits of c2 [..., L, n] (int64) lifted into every limb
-    -> u32 [D, B, L, n] (``behz_lift``)."""
-    B = _validate((c2,), ctx)
-    D = _check_keys(ctx, rlk)
-    dig = _u32(D, B, ctx.L, ctx.n, device=c2.device)
+    -> u32 [D, B, L, n] (``behz_lift``; ``n``: a coefficient slice's width,
+    default ``ctx.n``). Reads ``rlk``'s digit groups only."""
+    B = _validate((c2,), ctx, n)
+    logn = _logn(ctx, n)
+    D = len(rlk.digit_groups(ctx.L))
+    dig = _u32(D, B, ctx.L, 1 << logn, device=c2.device)
     if B == 0:
         return dig
-    lift, _ = _key_buffers_of(ctx, rlk)
-    _launch(load(), "behz_lift", c2.data_ptr(), dig.data_ptr(), lift.data_ptr(),
+    _launch(load(), "behz_lift", c2.data_ptr(), dig.data_ptr(), _lift_buffer(ctx, rlk).data_ptr(),
             ntt_cuda.table_buffers(ctx.tables)["mu"].data_ptr(), B, ctx.L, D,
-            ctx.tables.logn, _stream(c2.device))
+            logn, _stream(c2.device))
     return dig
 
 
-def key_products(dn, ctx, rlk) -> torch.Tensor:
+def key_products(dn, ctx, rlk, tables=None) -> torch.Tensor:
     """sum_g dn[g] * (k0[g], k1[g]) mod q of the digit spectra dn u32
-    [D, B, L, n] -> u32 [2, B, L, n] (``behz_keyprod``)."""
-    D = _check_keys(ctx, rlk)
+    [D, B, L, n] -> u32 [2, B, L, n] (``behz_keyprod``). ``tables``: the
+    limbs dn and the keys' rows cover (``ntt.NttTables.limbs`` of
+    ``ctx.tables``, the R layout of ``parallel.ntt_dist``); default all."""
+    tables = ctx.tables if tables is None else tables
+    L = tables.L
+    D = _check_keys(ctx, rlk, L)
     if dn.dim() != 4:
-        raise ValueError(f"digit spectra must be [{D}, B, {ctx.L}, {ctx.n}]")
+        raise ValueError(f"digit spectra must be [{D}, B, {L}, {ctx.n}]")
     B = dn.shape[1]
-    _check_u32(dn, (D, B, ctx.L, ctx.n), "digit spectra")
-    acc = _u32(2, B, ctx.L, ctx.n, device=dn.device)
+    _check_u32(dn, (D, B, L, ctx.n), "digit spectra")
+    acc = _u32(2, B, L, ctx.n, device=dn.device)
     if B == 0:
         return acc
-    _, keys = _key_buffers_of(ctx, rlk)
-    _launch(load(), "behz_keyprod", dn.data_ptr(), keys.data_ptr(), acc.data_ptr(),
-            ntt_cuda.table_buffers(ctx.tables)["q"].data_ptr(), B, ctx.L, D, ctx.tables.logn,
+    _launch(load(), "behz_keyprod", dn.data_ptr(), _packed_keys(ctx, rlk, tables).data_ptr(),
+            acc.data_ptr(),
+            ntt_cuda.table_buffers(tables)["q"].data_ptr(), B, L, D, ctx.tables.logn,
             _stream(dn.device))
     return acc
 
 
-def add_switched(c0, c1, d, ctx) -> torch.Tensor:
+def add_switched(c0, c1, d, ctx, n=None) -> torch.Tensor:
     """(c0 + d[0], c1 + d[1]) mod q: c0, c1 int64 [..., L, n], d u32
-    [2, B, L, n] -> int64 [2, B, L, n] (``behz_add``)."""
-    B = _validate((c0, c1), ctx)
-    _check_u32(d, (2, B, ctx.L, ctx.n), "d")
-    out = torch.empty((2, B, ctx.L, ctx.n), dtype=torch.int64, device=c0.device)
+    [2, B, L, n] -> int64 [2, B, L, n] (``behz_add``; ``n``: a coefficient
+    slice's width, default ``ctx.n``)."""
+    B = _validate((c0, c1), ctx, n)
+    logn = _logn(ctx, n)
+    n = 1 << logn
+    _check_u32(d, (2, B, ctx.L, n), "d")
+    out = torch.empty((2, B, ctx.L, n), dtype=torch.int64, device=c0.device)
     if B == 0:
         return out
     _launch(load(), "behz_add", c0.data_ptr(), c1.data_ptr(), d.data_ptr(), out.data_ptr(),
-            ntt_cuda.table_buffers(ctx.tables)["q"].data_ptr(), B, ctx.L, ctx.tables.logn,
+            ntt_cuda.table_buffers(ctx.tables)["q"].data_ptr(), B, ctx.L, logn,
             _stream(c0.device))
     return out

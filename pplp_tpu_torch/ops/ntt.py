@@ -106,6 +106,21 @@ class NttTables:
         """q shaped [L, 1, ...] to broadcast against [..., L, <extra_dims>]."""
         return self.q.reshape((self.L,) + (1,) * extra_dims)
 
+    def limbs(self, part: slice) -> NttTables:
+        """The tables of the limbs ``part`` (a non-empty slice) alone."""
+        moduli = self.moduli[part]
+        if not moduli:
+            raise ValueError(f"no limb of {self.L} in {part}")
+
+        def cut(t):
+            return t[part].contiguous()
+
+        return NttTables(n=self.n, logn=self.logn, profile=self.profile, moduli=moduli,
+                         device=self.device, q=cut(self.q), w=cut(self.w), ws=cut(self.ws),
+                         iw=cut(self.iw), iws=cut(self.iws), n_inv=cut(self.n_inv),
+                         n_inv_s=cut(self.n_inv_s),
+                         mu=None if self.mu is None else self.mu[:, part].contiguous())
+
 
 def build_tables(moduli: Sequence[Modulus], n: int, device) -> NttTables:
     """Forward/inverse twiddle tables for a chain of NTT-friendly primes."""

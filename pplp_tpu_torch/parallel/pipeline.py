@@ -18,7 +18,16 @@ combines them with the plaintext spectra and the secret key in the NTT
 domain, and returns through one inverse NTT: the same residues as the
 reference's op-by-op chain, bit for bit. ``make_packed_inputs`` encrypts
 the three messages of every query in one batched encryption (one NTT launch
-per direction). Not ported: meshes, shardings and multi-device runs.
+per direction).
+
+Sharded (``mesh=``, counterpart of the reference's step under ``jax.jit``
+with ``ct_sharding``): every op of the step is limb-local, so on a dp x limb
+mesh a rank runs it on its block with its rows of the plaintext spectra and
+the secret key, without communication; a ``coeff`` axis adds the C -> R
+exchange before the forward transform and R -> C after the inverse
+(``parallel.ntt_dist``). The packed step decodes and probes in C (every limb
+of a coefficient slice, so the mesh has no ``limb`` axis) against a
+replicated filter and gathers the verdicts.
 """
 
 from __future__ import annotations
@@ -33,6 +42,8 @@ from ..ops import ntt
 from ..ops.modmath import M32
 from ..primitives.bloom import BloomFilter, BloomParameters, probe
 from ..utils.hexcodec import uint64_to_hex_string
+from .mesh import gather
+from .ntt_dist import DistNtt
 
 __all__ = [
     "build_batched_pipeline",
@@ -62,19 +73,22 @@ def _plain_pairs(ctx, value: int, full: bool = False):
 
 
 def build_batched_pipeline(ctx, sk, xb: int, yb: int, s_blind: int, r_blind: int,
-                           packed: bool = False):
+                           packed: bool = False, mesh=None):
     """Returns fn(c1_polys, c2_polys, c3_polys) -> residues [B, L, n] of the
     decrypted blind distance, x = c0 + c1 s.
 
     Ciphertext arguments are the (c0, c1) pairs of coefficient-domain
     ciphertexts with [B, L, n] polynomials. packed=True makes the additive
-    terms (z, s*r) reach every coefficient slot."""
+    terms (z, s*r) reach every coefficient slot. With ``mesh``, the
+    arguments and the result are this rank's blocks (``mesh.shard``)."""
     p, q2, tb = ctx.prof, ctx.q2, ctx.tables
     z = ctx.scale_plain(*_plain_pairs(ctx, xb * xb + yb * yb, full=packed))
     sr = ctx.scale_plain(*_plain_pairs(ctx, s_blind * r_blind, full=packed))
     pairs = [_plain_pairs(ctx, v) for v in (xb, yb, s_blind)]
     m_ntt, m_shoup = Evaluator(ctx).plain_spectrum(
         (np.stack([a for a, _ in pairs]), np.stack([b for _, b in pairs])))
+    if mesh is not None:
+        return _sharded_step(ctx, sk, z, sr, m_ntt, m_shoup, mesh)
 
     def times(x, i):  # x * (xb, yb, s)[i] in the NTT domain
         return p.mulmod_shoup(x, m_ntt[i], m_shoup[i], q2)
@@ -92,15 +106,50 @@ def build_batched_pipeline(ctx, sk, xb: int, yb: int, s_blind: int, r_blind: int
     return step
 
 
-def build_packed_pipeline(ctx, sk, xb: int, yb: int, s_blind: int, r_blind: int):
+def _sharded_step(ctx, sk, z, sr, m_ntt, m_shoup, mesh):
+    """``build_batched_pipeline``'s step on this rank's block of a
+    dp x limb x coeff mesh: C block in, C block out."""
+    dn = DistNtt(ctx.tables, mesh, "coeff", "dp", "limb")
+    if dn.limb_block.stop == dn.limb_block.start:
+        raise ValueError(f"a limb axis of {mesh.size('limb')} over {ctx.L} limbs")
+    blk, rows, tr = dn.limb_block, dn.limbs, dn.tables
+    pc, qc = ctx.tables.limbs(blk).prof, ctx.q2[blk]
+    z, sr = z[blk, dn.coeffs], sr[blk, dn.coeffs]
+    if tr is not None:
+        pr, qr = tr.prof, tr.q_b(1)
+        m_ntt, m_shoup = m_ntt[:, rows], m_shoup[:, rows]
+        s_ntt, s_shoup = sk.s_ntt[rows], sk.s_shoup[rows]
+
+    def times(x, i):
+        return pr.mulmod_shoup(x, m_ntt[i], m_shoup[i], qr)
+
+    def step(c1_polys, c2_polys, c3_polys):
+        c1_0 = pc.add(c1_polys[0], z, qc)
+        spec = dn.forward(torch.stack([c1_0, c1_polys[1], *c2_polys, *c3_polys]))
+        if tr is None:  # no rows here: pass the empty block on
+            return pc.add(dn.inverse(spec[0]), sr, qc)
+        acc0 = pr.sub(spec[0], pr.add(times(spec[2], 0), times(spec[4], 1), qr), qr)
+        acc1 = pr.sub(spec[1], pr.add(times(spec[3], 0), times(spec[5], 1), qr), qr)
+        val = pr.add(times(acc0, 2), pr.mulmod_shoup(times(acc1, 2), s_ntt, s_shoup, qr), qr)
+        return pc.add(dn.inverse(val), sr, qc)
+
+    return step
+
+
+def build_packed_pipeline(ctx, sk, xb: int, yb: int, s_blind: int, r_blind: int, mesh=None):
     """Coefficient-packed pipeline: n proximity checks per ciphertext row.
 
     Every coefficient j of the plaintext carries one client's (u_j, 2xa_j,
     2ya_j); the server's ops are scalar plain multiplies and adds, which act
     coefficient-wise, so one [B, L, n] ciphertext batch evaluates B*n
     independent checks. Returns fn(c1, c2, c3 polys) -> blind distances
-    [B, n] mod t (device decode; requires t < 2^30)."""
-    step = build_batched_pipeline(ctx, sk, xb, yb, s_blind, r_blind, packed=True)
+    [B, n] mod t (device decode; requires t < 2^30). With ``mesh`` (no
+    ``limb`` axis: the decode reads every limb), blocks in and out."""
+    if mesh is not None and mesh.size("limb") != 1:
+        raise ValueError("the packed step decodes every limb of a coefficient: "
+                         "shard it over dp and coeff only")
+    step = build_batched_pipeline(ctx, sk, xb, yb, s_blind, r_blind, packed=True,
+                                  mesh=mesh)
     decoder = get_decoder(ctx)
 
     def packed(c1_polys, c2_polys, c3_polys):
@@ -146,7 +195,7 @@ def build_pipeline_filter(t: int, s_blind: int, r_blind: int, w: int,
 
 
 def build_packed_pipeline_bf(ctx, sk, xb: int, yb: int, s_blind: int, r_blind: int,
-                             w: int, w_len: int, mixed: bool = True):
+                             w: int, w_len: int, mixed: bool = True, mesh=None):
     """The whole BASELINE config[3] step: homomorphic evaluation, device
     decode, blinded-key formation and the Bloom probe.
 
@@ -155,14 +204,17 @@ def build_packed_pipeline_bf(ctx, sk, xb: int, yb: int, s_blind: int, r_blind: i
     ``fn(c1_polys, c2_polys, c3_polys, bits, salts, table_size) -> bool [B, n]``
     where ``bits``/``salts``/``table_size`` are a ``BloomFilter``'s
     ``bits_device``, ``_salts_device()`` and ``table_size``. Requires
-    t < 2^30 and 0 < w_len < 32."""
+    t < 2^30 and 0 < w_len < 32. With ``mesh`` (dp x coeff), the
+    ciphertexts are this rank's blocks, every rank holds the whole filter,
+    and every rank gets all [B, n] verdicts."""
     if not 0 < w_len < 32:
         raise ValueError(f"w_len must be in (0, 32), got {w_len}")
-    step = build_packed_pipeline(ctx, sk, xb, yb, s_blind, r_blind)
+    step = build_packed_pipeline(ctx, sk, xb, yb, s_blind, r_blind, mesh=mesh)
 
     def fn(c1_polys, c2_polys, c3_polys, bits, salts, table_size):
         bd = step(c1_polys, c2_polys, c3_polys)
-        return bf_probe(bd, w, w_len, bits, salts, table_size, mixed)
+        near = bf_probe(bd, w, w_len, bits, salts, table_size, mixed)
+        return near if mesh is None else gather(near, mesh, ("dp", "coeff"))
 
     return fn
 

@@ -4,8 +4,10 @@ the BEHZ multiply + relinearization on the fused and the separate routes,
 the seal (m62) multiply on the u64 route and its steps, the u64 NTT on the
 60-bit B_sk tables, the mulmod chain, the DGK Montgomery kernels), the seal
 real product and mod switch, the demo on both profiles, the packed pipeline,
-the networked entry points, the DGK batch path and protocol, and the 2PC
-predicates (``secure2pc``: in process and a networked party pair).
+the networked entry points, the DGK batch path and protocol, the 2PC
+predicates (``secure2pc``: in process and a networked party pair), and the
+distributed multiply and the coefficient/row exchange in two gloo ranks
+that share the card, and an NCCL group of one rank.
 
 Every test here is marked ``cuda`` and skips without a card. This file
 imports neither jax nor the JAX package, so it also runs where jax is not
@@ -1443,3 +1445,96 @@ def test_2pc_refuses_a_missing_card(dev, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         circuits.circle_predicate_2pc([1], [2], [3], [4], 9, device="cuda")
+
+
+# ---------------------------------------------------------------------------
+# Multi-device: gloo ranks sharing the card (parallel/multiproc_smoke.py)
+# ---------------------------------------------------------------------------
+
+
+def _built():
+    """Every kernel library built in this process: ranks only load them."""
+    from pplp_tpu_torch.ops import cuda_build
+
+    cuda_build.build(sorted(cuda_build.CSRC.glob("*.cu")))
+
+
+def test_dist_multiplier_two_ranks_on_card(dev):
+    """DistMultiplier on coeff = 2 at n = 4096, batch 8, width 2: the
+    separate-route kernels on each rank's blocks, bit-exact against the
+    single-process FusedMultiplier (the fused kernels)."""
+    from pplp_tpu_torch.parallel.multiproc_smoke import launch, seeded_case
+
+    ctx = bfv.BFVContext.build(bfv.EncryptionParameters.bfv(4096, 1 << 16, profile="tpu"), dev)
+    rlk, c1, c2 = seeded_case(ctx, 5, 8, 2)
+    want = torch.stack(FusedMultiplier(ctx, rlk).multiply_relinearize(c1, c2).polys).cpu()
+    _built()
+    res = launch({"device": "cuda", "jobs": [dict(
+        kind="behz", mesh=(1, 1, 2), n=4096, t=1 << 16, moduli=[m.value for m in ctx.moduli],
+        seed=5, batch=8, width=2)]}, 2, timeout_s=300)
+    got = torch.full(want.shape, -1, dtype=torch.int64)
+    for r in res:
+        out = r["results"][0]
+        got[:, slice(*out["batch"]), :, slice(*out["coeffs"])] = out["out"]
+        launches = out["launches"]
+        assert all(launches[k] > 0 for k in ("behz_to_bsk", "behz_tensor", "behz_floor_sk",
+                                             "behz_lift", "behz_keyprod", "behz_add",
+                                             "ntt_forward_u32", "ntt_inverse_u32"))
+        assert launches["behz_tensor_ntt"] == launches["behz_relin_ntt"] == 0
+    assert torch.equal(got, want)
+
+
+def test_exchange_round_trip_on_card(dev):
+    """The C -> R -> C exchange of CUDA tensors between two ranks (gloo
+    takes them as they are), around the rank's NTT kernels: 3 limbs split
+    2 + 1; rows, round trip and product against the single-process kernels."""
+    from pplp_tpu_torch.parallel.multiproc_smoke import launch
+
+    n = 4096
+    tb = ntt.build_tables([Modulus(q) for q in tpu_default(n)[:3]], n, dev)
+    x, y = _residues(tb, (2,), 1), _residues(tb, (2,), 2)
+    spec = ntt.forward(x, tb).cpu()
+    prod = ntt.negacyclic_polymul(x, y, tb).cpu()
+    _built()
+    res = launch({"device": "cuda", "jobs": [dict(
+        kind="ntt", mesh=(1, 1, 2), n=n, moduli=[m.value for m in tb.moduli], x=x.cpu(),
+        y=y.cpu())]}, 2, timeout_s=300)
+    assert [r["results"][0]["limbs"] for r in res] == [[0, 2], [2, 3]]
+    for r in res:
+        out = r["results"][0]
+        limbs, cs = slice(*out["limbs"]), slice(*out["coeffs"])
+        assert torch.equal(out["spec"], spec[:, limbs])
+        assert torch.equal(out["back"], x.cpu()[:, :, cs])
+        assert torch.equal(out["prod"], prod[:, :, cs])
+        assert out["launches"]["ntt_forward"] > 0 and out["launches"]["ntt_inverse"] > 0
+
+
+def test_nccl_group_of_one_rank_on_card(dev, tmp_path):
+    """The NCCL branch of ``initialize_multihost``, ``mesh.transport`` and
+    the exchange, in a group of one rank on card 0 (NCCL takes one rank a
+    card): a CPU tensor goes to the card for the collective and comes back
+    where it was, and the exchange counts itself."""
+    import torch.distributed as dist
+
+    from pplp_tpu_torch.parallel import ntt_dist
+    from pplp_tpu_torch.parallel.distributed import initialize_multihost
+    from pplp_tpu_torch.parallel.mesh import transport
+
+    initialize_multihost("file://" + str(tmp_path / "store"), 1, 0, backend="nccl",
+                         timeout_s=120)
+    try:
+        assert dist.get_backend() == "nccl"
+        x = torch.arange(2 * 3 * 64, dtype=torch.int64)
+        assert transport(x).is_cuda and transport(x.to(dev)).is_cuda
+        parts = [torch.empty_like(transport(x))]
+        dist.all_gather(parts, transport(x))
+        assert torch.equal(parts[0].cpu(), x)
+        ntt_dist.reset_exchanges(timed=True)
+        for t in (x, x.to(dev)):
+            back = ntt_dist._all_to_all(t, [t.numel()], [t.numel()], dist.group.WORLD)
+            assert back.device == t.device and torch.equal(back.cpu(), x)
+        assert ntt_dist.exchanges.calls == 2 and ntt_dist.exchanges.bytes_sent == 0
+        assert ntt_dist.exchanges.seconds > 0
+    finally:
+        ntt_dist.reset_exchanges()
+        dist.destroy_process_group()

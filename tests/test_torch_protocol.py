@@ -194,7 +194,10 @@ def test_import_loads_no_jax():
         "pplp_tpu_torch.measure_dgk, pplp_tpu_torch.bfv.keyswitch, pplp_tpu_torch.bfv.galois, "
         "pplp_tpu_torch.bfv.batch_encoder, pplp_tpu_torch.ckks, pplp_tpu_torch.ckks.netmain, "
         "pplp_tpu_torch.secure2pc, pplp_tpu_torch.secure2pc.networked, "
-        "pplp_tpu_torch.secure2pc.climain, pplp_tpu_torch.secure2pc.yao\n"
+        "pplp_tpu_torch.secure2pc.climain, pplp_tpu_torch.secure2pc.yao, "
+        "pplp_tpu_torch.parallel.mesh, pplp_tpu_torch.parallel.distributed, "
+        "pplp_tpu_torch.parallel.ntt_dist, pplp_tpu_torch.parallel.behz_dist, "
+        "pplp_tpu_torch.parallel.multiproc_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'pplp_tpu' or m.startswith('pplp_tpu.')]\n"
         "assert not bad, bad\n"
