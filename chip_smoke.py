@@ -23,13 +23,27 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
                kernels' device times (torch.profiler: at the demo's shapes a
                transform is shorter than its host launch path) and the plain
                versions' CUDA-event times;
-4. slice    -- the local proximity demo (``run_local_demo``) at -d 13 -b 56,
+4. bloom    -- every Bloom filter of the main paths built twice on the card,
+               with the kernels (``csrc/bloom.cu``: a packed table of u32
+               words) and with the plain version (the unpacked table,
+               ``index_fill_``): the demo's filter at r = 4096 and 8192 (fpp
+               1e-12, ``mixed`` as the CLI runs it and the reference's
+               indexing), the client/server filter at r = 4096 (fpp 1e-4),
+               BASELINE config[3]'s (r = 99, ``mixed``, probed from blind
+               distances) and a ``CompressibleBloomFilter`` compressed twice;
+               ``serialize()`` equal byte for byte and the probe verdicts
+               equal on 100,000 inserted and 100,000 outside keys; the
+               kernels' CUDA-event times beside their bounds
+               (``measure_bloom``) and the plain versions' times;
+5. slice    -- the local proximity demo (``run_local_demo``) at -d 13 -b 56,
                on the seal profile (the CLI's default) and on the tpu profile:
-               r = 4096 with a near pair and r = 128 with a far pair. Each
+               r = 4096 with a near pair and r = 128 with a far pair, then on
+               seal at the reference's r = 8192 a near and a far pair. Each
                verdict must equal the clear oracle, the blind distance must
-               equal s(d^2 + r) mod t, the profile's NTT kernel must have been
-               launched and the Bloom filter must live on the card;
-5. multiply -- the BFV ct x ct multiply at n = 4096 on the tpu chain
+               equal s(d^2 + r) mod t, the profile's NTT kernel and the Bloom
+               insert kernel (once) must have been launched and the filter
+               must live on the card; stage times and peak device memory;
+6. multiply -- the BFV ct x ct multiply at n = 4096 on the tpu chain
                (4 primes, |B_sk| = 6), t = 2^16, batch 256, through
                ``Evaluator``: multiply + relinearize with width-2 (default)
                and width-1 keys, multiply alone, relinearize alone, and one
@@ -39,10 +53,10 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
                must have been launched. Each kernel's wrapper step is then
                held bit-exact against its plain version (the plain version
                runs the plain NTTs) and timed with CUDA events beside it;
-6. probe    -- the mulmod chain (16 Shoup products) on [256, 4, 4096],
+7. probe    -- the mulmod chain (16 Shoup products) on [256, 4, 4096],
                bit-exact against its plain version, with times and mulmods/s,
                and its rate at 256 steps, where it is bound by integer work;
-7. pipeline -- BASELINE config[3], ``build_packed_pipeline_bf``: 102,400
+8. pipeline -- BASELINE config[3], ``build_packed_pipeline_bf``: 102,400
                coefficient-packed checks (25 rows at n = 4096, tpu chain,
                t = 2^20, s = 501, r = 99, w = 0xA5A5, a filter of r^2 keys at
                fpp 1e-4, half the points near). Every result must equal the
@@ -53,7 +67,7 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
                (homomorphic evaluation / decode / probe), checks/s, peak
                memory, and the device's busy share and largest kernels
                under ``torch.profiler``;
-8. separate -- the multiply + relinearization at n = 32768 (31 primes,
+9. separate -- the multiply + relinearization at n = 32768 (31 primes,
                |B_sk| = 33, batch 2, width 2) through ``Evaluator``, where the
                fused kernels' rows do not fit in shared memory: the u32
                transforms around behz_tensor, behz_lift, behz_keyprod and
@@ -63,7 +77,7 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
                device time per call (torch.profiler) beside the plain step's.
                It runs after the pipeline, so that its context does not
                count in the pipeline's peak memory;
-9. seal_multiply -- the seal (m62) multiply + relinearization through
+10. seal_multiply -- the seal (m62) multiply + relinearization through
                ``Evaluator`` on the u64 route (``csrc/behz64.cu`` around the
                u64 transforms) on three seal chains: n = 4096 (3 primes,
                |B_sk| = 5), t = 2^16, batch 256, widths 1 (default) and 2;
@@ -83,7 +97,7 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
                decrypting to the plaintext with the restricted key. After
                the pipeline, so that none of its contexts counts in the
                pipeline's peak;
-10. seal_surface -- special-prime key switching, Galois rotations, the
+11. seal_surface -- special-prime key switching, Galois rotations, the
                batch encoder and CKKS. On the seal chain of the CLI's -d 13
                (n = 8192, 5 primes, a 61-bit special prime P), batch 64, and
                on the multiply phase's tpu chain (n = 4096, 4 primes, a
@@ -108,7 +122,7 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
                ``ckks_rescale`` at n = 8192 on four 28-bit primes, scale
                2^26, batch 64, bit-exact against the CPU copy and decoding
                within 1e-2 of the clear product. Peak memory;
-11. network -- the networked entry points at the CLI's -d 13 -b 56, with
+12. network -- the networked entry points at the CLI's -d 13 -b 56, with
                fpp 1e-4 as the client and server use it. In process, over TCP
                on 127.0.0.1 (``run_server_protocol`` on
                ``connect_to_client`` in a thread, ``run_client_protocol`` on
@@ -131,7 +145,7 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
                radius's server left on the card after it (ts's device
                memory lines). Per radius it prints the client's totals and
                the server's setBF, homoCalc and sendBF stages;
-12. dgk     -- the DGK back-end (BASELINE config[2]) at (k, t, l) =
+13. dgk     -- the DGK back-end (BASELINE config[2]) at (k, t, l) =
                (2048, 320, 16), keys from seed 5 (bench.py): each kernel of
                ``csrc/dgk_mont.cu`` (mulmod in both forms, per-lane and
                shared-exponent powmod, the blind-distance chain) bit-exact
@@ -153,7 +167,7 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
                nine default radii) with its Bloom filter on
                the card: the reference's CSV, and every verdict the mod-u
                oracle calls near read near;
-13. twopc   -- the 2PC predicates (``secure2pc``; plain torch on the card,
+14. twopc   -- the 2PC predicates (``secure2pc``; plain torch on the card,
                no kernel of its own). In process: circle (15-bit
                coordinates, r = 5000) and polygon (the reference's square of
                radius 1000, points in [-2000, 2000)) at B = 2^20 and 2^24,
@@ -172,7 +186,7 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
                yao, --otp-bits 2048, --device cuda): README's pair at r =
                300 CLOSE, at r = 100 FAR, a point inside and one outside the
                square (``--circuit poly``), on both sides;
-14. multidevice -- the sharded paths (``parallel/``) in gloo ranks that
+15. multidevice -- the sharded paths (``parallel/``) in gloo ranks that
                share the one card (``parallel/multiproc_smoke.py``: one fresh
                process a rank, the kernels built before they start; a rank
                that fails or outlives its limit ends the run non-zero):
@@ -199,8 +213,12 @@ the main paths, max error, ms and plain ms as measured here, ``ms_source``:
 "events" where it is the CUDA-event time of its wrapper step, the bound:
 the larger of the bytes the kernel's interface moves over 3.35 TB/s and its
 Shoup products over the card's integer-multiply peak,
-``measure_multiply.MULMODS_PER_S``; ``library_ms`` null, since no PyTorch call computes
-a negacyclic modular NTT, the BEHZ multiply or a Shoup chain), the card's
+``measure_multiply.MULMODS_PER_S`` (the Bloom kernels: each input read and
+each output written once, and their indices' 32-bit multiplies at
+``MULS_PER_S``, ``measure_bloom``; beside it ``sector_ms``, one random
+32-byte sector a bit); ``library_ms`` null, since no PyTorch call computes
+a negacyclic modular NTT, the BEHZ multiply, a Shoup chain or a Bloom
+filter's hashed scatter and gather), the card's
 name and power limit, and the result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Imports nothing of JAX.
@@ -228,6 +246,8 @@ DEMO_N_BITS = 13
 DEMO_T_BITS = 56
 # (radius, xa, ya, xb, yb): d^2 = 99,700 is below 4096^2 and above 128^2.
 DEMO_CASES = ((4096, 1234, 1212, 1000, 1000), (128, 1234, 1212, 1000, 1000))
+# The reference's largest radius (seal): d^2 = 99,700 near, 85,311,700 > 8192^2 far.
+DEMO_R8192_CASES = ((8192, 1234, 1212, 1000, 1000), (8192, 10234, 1212, 1000, 1000))
 MUL_N = 4096
 MUL_T_BITS = 16
 MUL_BATCH = 256
@@ -256,6 +276,20 @@ DGK_SWEEP_RADII = [16, 128, 256, 4096]
 # Random odd moduli of the other widths, at the small batch: 384 bits
 # (W = 13, run at 17), then W = 17, 33, 97 and 129.
 DGK_OTHER_BITS = (384, 520, 1035, 3081, 4105)
+BLOOM_T_BITS = 56  # the demo's t: the blinding of the demo's filters
+# The demo's filter (fpp 1e-12, the CLI default ``mixed`` and the reference's
+# indexing), then the client/server filter (fpp 1e-4): (r, mode, fpp).
+BLOOM_FILTERS = ((4096, "mixed", 1e-12), (4096, "reference", 1e-12), (8192, "mixed", 1e-12),
+                 (8192, "reference", 1e-12), (4096, "mixed", 1e-4))
+BLOOM_KEYS = 100_000  # inserted keys probed, and as many outside keys
+BLOOM_COMPRESSED = (200_000, (30.0, 20.0))  # keys, the compressions between thirds
+BLOOM_XLA = {"bf_insert": "pplp_tpu/primitives/bloom.py:200",  # _insert_scan_fn
+             "bf_probe": "pplp_tpu/primitives/bloom.py:224"}  # _contains_fn
+# Launches of the Bloom kernels on the main paths (slice, pipeline, network,
+# dgk and the ranks of multidevice), summed as the phases run.
+BLOOM_MAIN = {"bf_insert": 0, "bf_probe": 0}
+
+
 NTT_TPU = "pplp_tpu/ops/ntt_vmem.py:272"
 BEHZ_TPU = "pplp_tpu/bfv/behz_fused.py:257"
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
@@ -277,6 +311,8 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
         "behz64_add")},
     **{name: ("pplp_tpu_torch/csrc/dgk_mont.cu", DGK_TPU) for name in (
         "dgk_mulmod", "dgk_powmod_lanes", "dgk_powmod_shared", "dgk_blind_distance")},
+    # No TPU kernel: the reference's Bloom filter runs as XLA (and native C++).
+    **{name: ("pplp_tpu_torch/csrc/bloom.cu", xla) for name, xla in BLOOM_XLA.items()},
 }
 FUSED = ("behz_to_bsk", "behz_tensor_ntt", "behz_floor_sk", "behz_relin_ntt")
 SEPARATE = ("behz_tensor", "behz_lift", "behz_keyprod", "behz_add")
@@ -325,12 +361,12 @@ def phase_device():
 
 
 def phase_build():
-    from pplp_tpu_torch.ops import (behz64_cuda, behz_cuda, cuda_build, dgk_cuda, mulmod_chain,
-                                    ntt_cuda)
+    from pplp_tpu_torch.ops import (behz64_cuda, behz_cuda, bloom_cuda, cuda_build, dgk_cuda,
+                                    mulmod_chain, ntt_cuda)
 
     t0 = time.perf_counter()
     paths = cuda_build.build(sorted(cuda_build.CSRC.glob("*.cu")))
-    for mod in (ntt_cuda, behz_cuda, behz64_cuda, mulmod_chain, dgk_cuda):
+    for mod in (ntt_cuda, behz_cuda, behz64_cuda, mulmod_chain, dgk_cuda, bloom_cuda):
         mod.load()
     log(f"[build] {len(paths)} libraries in {time.perf_counter() - t0:.2f} s: "
         + ", ".join(p.name for p in paths.values()))
@@ -429,49 +465,270 @@ def phase_kernels(dev, demo_shapes):
     return err, times
 
 
-def phase_slice(dev):
-    """The demo on each profile; returns the NTT launches of these runs."""
+def _bloom_counted(counts: dict):
+    for k, v in counts.items():
+        BLOOM_MAIN[k] += v
+
+
+def _first_misses(bits, klo, khi, salts, sizes, mixed) -> int:
+    """(key, salt) bits the probe kernel tests: each key's salts up to its
+    first clear bit, all of them for a member."""
     import torch
 
-    from pplp_tpu_torch.ops import ntt_cuda
+    from pplp_tpu_torch.primitives import bloom
+
+    miss = bits[bloom._indices(klo, khi, salts, sizes, mixed)] == 0  # [S, K]
+    first = torch.where(miss.any(0), miss.to(torch.int8).argmax(0) + 1, miss.shape[0])
+    return int(first.sum())
+
+
+def _bloom_check(tag, kbf, plain, inserted, outside, sizes, card):
+    """``kbf`` (kernel filter) against the unpacked ``plain`` table on the
+    card: serialize() bytes, then the probe verdicts of the inserted and the
+    outside keys ((lo, hi) pairs). Returns (max |byte diff|, max |verdict
+    diff|, probe ms, plain probe ms, (key, salt) bits tested)."""
+    import torch
+
+    from pplp_tpu_torch.measure_ntt import device_ms
+    from pplp_tpu_torch.primitives import bloom
+
+    salts, mixed = kbf._salts_device(), kbf.index_mode == "mixed"
+    packed = bloom.pack_bits(plain)
+    kbytes = kbf._packed_device()
+    byte_err = int((kbytes.to(torch.int16) - packed.to(torch.int16)).abs().max())
+    assert byte_err == 0, f"{tag}: the table's bytes differ from the plain table's"
+    wire = kbf.serialize()
+    assert wire == kbf._header_bytes() + packed.cpu().numpy().tobytes() + kbf._tail(), (
+        f"{tag}: serialize() differs from the plain table's bytes")
+    klo = torch.cat([inserted[0], outside[0]])
+    khi = torch.cat([inserted[1], outside[1]])
+    got = kbf.contains_u64_batch(klo, khi)
+    want = bloom.probe_plain(plain, klo, khi, salts, sizes, mixed)
+    torch.cuda.synchronize()
+    verdict_err = int((got.to(torch.int8) - want.to(torch.int8)).abs().max())
+    n_in = inserted[0].numel()
+    assert verdict_err == 0, f"{tag}: probe verdicts differ from the plain version"
+    assert bool(got[:n_in].all()), f"{tag}: an inserted key probes absent"
+    ms = device_ms(lambda: kbf.contains_u64_batch(klo, khi))
+    plain_ms = cuda_ms(lambda: bloom.probe_plain(plain, klo, khi, salts, sizes, mixed), 5, 1)
+    tested = _first_misses(plain, klo, khi, salts, sizes, mixed)
+    log(f"[bloom] {tag}: serialize() == plain bytes ({len(wire)} B); verdicts equal on "
+        f"{n_in} inserted (all present) and {outside[0].numel()} outside keys "
+        f"({int(got[n_in:].sum())} false positives); probe {ms:.4f} ms (profiler; plain "
+        f"{plain_ms:.4f}), "
+        f"{tested} (key, salt) bits tested [{card}]")
+    return byte_err, verdict_err, ms, plain_ms, tested
+
+
+def phase_bloom(dev):
+    """Every filter of the main paths built twice on the card, with the
+    kernels and with the plain version; returns the kernel rows."""
+    import numpy as np
+    import torch
+
+    from pplp_tpu_torch.measure_bloom import insert_bound, probe_bound
+    from pplp_tpu_torch.measure_ntt import device_ms
+    from pplp_tpu_torch.parallel import pipeline
+    from pplp_tpu_torch.primitives import bloom
+    from pplp_tpu_torch.primitives.blinding import (Blinding, blind_distance_keys,
+                                                    blinded_keys, distance_keys)
+
+    t_phase = time.perf_counter()
+    card = torch.cuda.get_device_name(dev)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    err = {"bf_insert": 0, "bf_probe": 0}
+    rows = {}
+
+    def params(count, fpp, mode, cls=bloom.BloomFilter):
+        p = bloom.BloomParameters(projected_element_count=count, false_positive_probability=fpp,
+                                  random_seed=0xA5A5A5A5, index_mode=mode)
+        assert p.compute_optimal_parameters()
+        return cls(p, device=dev)
+
+    def timed_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # 1. The demo's and the client/server filters: r^2 blinded keys made by
+    # the insert kernel against blind_distance_keys + index_fill_.
+    for radius, mode, fpp in BLOOM_FILTERS:
+        sq = radius * radius
+        bl = Blinding.for_protocol(BLOOM_T_BITS, sq, seed=7)
+        kbf = params(sq, fpp, mode)
+        sizes, salts, mixed = kbf._sizes(), kbf._salts_device(), mode == "mixed"
+        t_k = timed_s(lambda: kbf.insert_blind_distances(bl, sq))
+        plain = torch.zeros(kbf.table_size, dtype=torch.uint8, device=dev)
+
+        def plain_insert():
+            for klo, khi, _ in blind_distance_keys(bl, sq, dev):
+                bloom.insert_plain(plain, klo, khi, salts, sizes, mixed)
+
+        klo, khi, _ = next(blind_distance_keys(bl, sq, dev))  # warm the plain ops up
+        bloom.insert_plain(plain, klo, khi, salts, sizes, mixed)
+        t_p = timed_s(plain_insert)
+        di_in = torch.randint(0, sq, (BLOOM_KEYS,), generator=gen, device=dev)
+        di_out = sq + torch.randint(0, 1 << 30, (BLOOM_KEYS,), generator=gen, device=dev)
+        keys = [distance_keys(d, bl.s, bl.r, bl.w, bl.w_len) for d in (di_in, di_out)]
+        tag = f"r={radius} {mode} fpp {fpp:g} ({kbf.table_size} bits, {kbf.salt_count} salts)"
+        b_err, v_err, p_ms, p_plain, tested = _bloom_check(tag, kbf, plain, *keys, sizes, card)
+        err["bf_insert"] = max(err["bf_insert"], b_err)
+        err["bf_probe"] = max(err["bf_probe"], v_err)
+        ms = device_ms(lambda: kbf.insert_blind_distances(bl, sq), 5)
+        ib = insert_bound(sq, kbf.salt_count, kbf.table_size, mixed, key_bytes=0)
+        pb = probe_bound(2 * BLOOM_KEYS, tested, kbf.salt_count, kbf.table_size, mixed)
+        log(f"[bloom] {tag}: insert {ms:.4f} ms (profiler; first call {1e3 * t_k:.1f} ms), "
+            f"plain {1e3 * t_p:.1f} ms; bound {ib['bound_ms']:.4f} ms ({ib['bound_by']}), "
+            f"{100 * ib['bound_ms'] / ms:.2f}%; sector model {ib['sector_ms']:.4f} ms, "
+            f"{100 * ib['sector_ms'] / ms:.1f}%; probe bound {pb['bound_ms']:.5f} ms "
+            f"({pb['bound_by']}), sector model {pb['sector_ms']:.4f} ms [{card}]")
+        if (radius, mode, fpp) == BLOOM_FILTERS[0]:  # the demo's setBF: the main path's shape
+            rows["bf_insert"] = {"max_abs_err": 0, "ms": ms, "ms_source": "profiler",
+                                 "plain_ms": 1e3 * t_p, **ib}
+        del kbf, plain, keys
+        torch.cuda.empty_cache()
+
+    # 2. BASELINE config[3]'s filter (r = 99, mixed; staged in shared memory
+    # by the probe): the pipeline's keys given as words, and its probe from
+    # blind distances at the step's 102,400 checks.
+    t = 1 << PIPE_T_BITS
+    w_len = PIPE_W.bit_length()
+    kbf = pipeline.build_pipeline_filter(t, PIPE_S, PIPE_R, PIPE_W, dev)
+    sizes, salts = kbf._sizes(), kbf._salts_device()
+    sq = PIPE_R * PIPE_R
+    bd_all = PIPE_S * (torch.arange(sq, dtype=torch.int64, device=dev) + PIPE_R) % t
+    plain = torch.zeros(kbf.table_size, dtype=torch.uint8, device=dev)
+    bloom.insert_plain(plain, *blinded_keys(bd_all, PIPE_W, w_len), salts, sizes, True)
+    bd_in = bd_all[torch.randint(0, sq, (BLOOM_KEYS,), generator=gen, device=dev)]
+    bd_out = torch.randint(0, t, (BLOOM_KEYS,), generator=gen, device=dev)
+    tag = f"config[3] r={PIPE_R} mixed ({kbf.table_size} bits, {kbf.salt_count} salts)"
+    b_err, v_err, _, _, _ = _bloom_check(
+        tag, kbf, plain, blinded_keys(bd_in, PIPE_W, w_len), blinded_keys(bd_out, PIPE_W, w_len),
+        sizes, card)
+    err["bf_insert"] = max(err["bf_insert"], b_err)
+    err["bf_probe"] = max(err["bf_probe"], v_err)
+    n = PIPE_ROWS * PIPE_N  # the step's shape, half of it inserted values
+    pick = torch.randint(0, sq, (n,), generator=gen, device=dev)
+    half = torch.rand(n, generator=gen, device=dev) < 0.5
+    bd = torch.where(half, bd_all[pick], torch.randint(0, t, (n,), generator=gen, device=dev))
+    bd = bd.reshape(PIPE_ROWS, PIPE_N)
+    table = kbf.bits_device
+    got = pipeline.bf_probe(bd, PIPE_W, w_len, table, salts, kbf.table_size)
+    flat_keys = blinded_keys(bd.reshape(-1), PIPE_W, w_len)
+    want = bloom.probe_plain(plain, *flat_keys, salts, sizes, True).reshape(bd.shape)
+    torch.cuda.synchronize()
+    v_err = int((got.to(torch.int8) - want.to(torch.int8)).abs().max())
+    assert v_err == 0, "the pipeline's probe differs from the plain version"
+    err["bf_probe"] = max(err["bf_probe"], v_err)
+
+    def plain_probe():
+        return bloom.probe_plain(plain, *blinded_keys(bd.reshape(-1), PIPE_W, w_len), salts,
+                                 sizes, True)
+
+    def call():
+        return pipeline.bf_probe(bd, PIPE_W, w_len, table, salts, kbf.table_size)
+
+    ms, call_ms = device_ms(call), cuda_ms(call)
+    plain_ms = cuda_ms(plain_probe)
+    tested = _first_misses(plain, *flat_keys, salts, sizes, True)
+    pb = probe_bound(bd.numel(), tested, kbf.salt_count, kbf.table_size, True, key_bytes=8)
+    scratch = torch.zeros_like(table)
+    all_keys = blinded_keys(bd_all, PIPE_W, w_len)
+    k_ms = device_ms(lambda: bloom.insert(scratch, salts, sizes, True, keys=all_keys))
+    log(f"[bloom] config[3] probe of the step's {bd.numel()} blind distances (one launch, "
+        f"the table staged in shared memory): {ms:.4f} ms (profiler; the wrapper call "
+        f"{call_ms:.4f} ms by CUDA events; plain {plain_ms:.4f}); {tested} "
+        f"(key, salt) bits tested, bound {pb['bound_ms']:.5f} ms ({pb['bound_by']}), "
+        f"{100 * pb['bound_ms'] / ms:.2f}%; the filter's insert of {sq} keys {k_ms:.4f} ms "
+        f"[{card}]")
+    rows["bf_probe"] = {"max_abs_err": 0, "ms": ms, "ms_source": "profiler", "plain_ms": plain_ms,
+                        **pb}
+    del kbf, plain
+
+    # 3. A compressible filter, compressed twice between thirds of its keys
+    # (a size chain of three): the kernels against the plain version, which
+    # folds its unpacked table on the card.
+    count, cuts = BLOOM_COMPRESSED
+    rng = np.random.default_rng(15)
+    words = rng.integers(0, 1 << 32, size=(2, count + BLOOM_KEYS), dtype=np.uint64)
+    lo, hi = (torch.from_numpy(w.astype(np.int64)).to(dev) for w in words)
+    kbf = params(count, 1e-4, "mixed", bloom.CompressibleBloomFilter)
+    salts = kbf._salts_device()
+    plain = torch.zeros(kbf.table_size, dtype=torch.uint8, device=dev)
+    thirds = np.linspace(0, count, len(cuts) + 2).astype(int)
+    for j, (a, b) in enumerate(zip(thirds[:-1], thirds[1:])):
+        kbf.insert_u64_batch(lo[a:b], hi[a:b])
+        bloom.insert_plain(plain, lo[a:b], hi[a:b], salts, kbf._sizes(), True)
+        if j < len(cuts):
+            assert kbf.compress(cuts[j])
+            new = kbf.table_size
+            folded = torch.zeros(new, dtype=torch.uint8, device=dev)
+            folded.index_put_((torch.arange(plain.numel(), device=dev) % new,), plain,
+                              accumulate=True)
+            plain = (folded > 0).to(torch.uint8)
+    tag = f"compressible, sizes {kbf.size_list}"
+    b_err, v_err, _, _, _ = _bloom_check(tag, kbf, plain, (lo[:BLOOM_KEYS], hi[:BLOOM_KEYS]),
+                                         (lo[count:], hi[count:]), kbf._sizes(), card)
+    err["bf_insert"] = max(err["bf_insert"], b_err)
+    err["bf_probe"] = max(err["bf_probe"], v_err)
+    for name in rows:
+        rows[name]["max_abs_err"] = err[name]
+    log(f"[bloom] phase done in {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
+def phase_slice(dev):
+    """The demo on each profile, and at the reference's r = 8192 on seal;
+    returns the NTT launches of these runs."""
+    import torch
+
+    from pplp_tpu_torch.ops import bloom_cuda, ntt_cuda
     from pplp_tpu_torch.primitives import Blinding
     from pplp_tpu_torch.protocol import ProtocolConfig, run_local_demo
 
     launches = {k: 0 for k in ntt_cuda.launches_by_kernel}
-    for profile in ("seal", "tpu"):
-        for radius, xa, ya, xb, yb in DEMO_CASES:
-            cfg = ProtocolConfig(
-                xa=xa, ya=ya, xb=xb, yb=yb, radius=radius,
-                plain_modulus_bits=DEMO_T_BITS,
-                poly_modulus_degree_bits=DEMO_N_BITS, profile=profile, seed=7,
-            )
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats(dev)
-            ntt_cuda.reset_launches()
-            res = run_local_demo(cfg, verbose=False, device=dev)
-            torch.cuda.synchronize()
-            run_launches = dict(ntt_cuda.launches_by_kernel)
-            peak = torch.cuda.max_memory_allocated(dev)
-            d2 = (xa - xb) ** 2 + (ya - yb) ** 2
-            near = d2 < radius * radius
-            bl = Blinding.for_protocol(cfg.plain_modulus_bits, cfg.sq_radius, cfg.seed)
-            tag = f"{profile} r={radius}"
-            assert res.is_near == near, f"{tag}: verdict {res.verdict}, oracle {near}"
-            assert res.blind_distance == bl.s * (d2 + bl.r) % cfg.plain_modulus, (
-                f"{tag}: blind distance {res.blind_distance:#x} is not s(d^2+r) mod t")
-            assert all(run_launches[k] > 0 for k in PROFILE_NTT[profile]), (
-                f"{tag}: NTT kernel launches {run_launches}")
-            assert res.bf_device.type == "cuda", "Bloom filter is not on the card"
-            for k, v in run_launches.items():
-                launches[k] += v
-            stages = ", ".join(f"{k} {v / 1e6:.3f} ms" for k, v in res.stage_ns.items())
-            log(f"[slice] {tag} d^2={d2}: {res.verdict} (oracle "
-                f"{'near' if near else 'far'}), blind distance {res.blind_distance:#x}, "
-                f"launches {run_launches}")
-            log(f"[slice] {tag} stages: {stages}; total {res.elapsed_s:.3f} s")
-            log(f"[slice] {tag} BF {res.bf_table_bits} bits held as "
-                f"{res.bf_table_bits} bytes on {res.bf_device}, {res.bf_wire_bytes} "
-                f"wire bytes; peak device memory {peak} bytes")
+    cases = [(p, c) for p in ("seal", "tpu") for c in DEMO_CASES]
+    cases += [("seal", c) for c in DEMO_R8192_CASES]
+    for profile, (radius, xa, ya, xb, yb) in cases:
+        cfg = ProtocolConfig(
+            xa=xa, ya=ya, xb=xb, yb=yb, radius=radius,
+            plain_modulus_bits=DEMO_T_BITS,
+            poly_modulus_degree_bits=DEMO_N_BITS, profile=profile, seed=7,
+        )
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ntt_cuda.reset_launches()
+        bloom_cuda.reset_launches()
+        res = run_local_demo(cfg, verbose=False, device=dev)
+        torch.cuda.synchronize()
+        run_launches = dict(ntt_cuda.launches_by_kernel)
+        bf_launches = dict(bloom_cuda.launches_by_kernel)
+        peak = torch.cuda.max_memory_allocated(dev)
+        d2 = (xa - xb) ** 2 + (ya - yb) ** 2
+        near = d2 < radius * radius
+        bl = Blinding.for_protocol(cfg.plain_modulus_bits, cfg.sq_radius, cfg.seed)
+        tag = f"{profile} r={radius}"
+        assert res.is_near == near, f"{tag}: verdict {res.verdict}, oracle {near}"
+        assert res.blind_distance == bl.s * (d2 + bl.r) % cfg.plain_modulus, (
+            f"{tag}: blind distance {res.blind_distance:#x} is not s(d^2+r) mod t")
+        assert all(run_launches[k] > 0 for k in PROFILE_NTT[profile]), (
+            f"{tag}: NTT kernel launches {run_launches}")
+        assert bf_launches["bf_insert"] == 1, f"{tag}: Bloom kernel launches {bf_launches}"
+        assert res.bf_device.type == "cuda", "Bloom filter is not on the card"
+        for k, v in run_launches.items():
+            launches[k] += v
+        _bloom_counted(bf_launches)
+        stages = ", ".join(f"{k} {v / 1e6:.3f} ms" for k, v in res.stage_ns.items())
+        log(f"[slice] {tag} d^2={d2}: {res.verdict} (oracle "
+            f"{'near' if near else 'far'}), blind distance {res.blind_distance:#x}, "
+            f"launches {run_launches}, {bf_launches}")
+        log(f"[slice] {tag} stages: {stages}; total {res.elapsed_s:.3f} s")
+        log(f"[slice] {tag} BF {res.bf_table_bits} bits held as "
+            f"{4 * ((res.bf_table_bits + 31) // 32)} bytes of words on {res.bf_device}, "
+            f"{res.bf_wire_bytes} wire bytes; peak device memory {peak} bytes "
+            f"[{torch.cuda.get_device_name(dev)}]")
     return launches
 
 
@@ -1237,7 +1494,7 @@ def phase_pipeline(dev):
     from pplp_tpu_torch import bfv
     from pplp_tpu_torch.bfv.rns_decrypt import get_decoder
     from pplp_tpu_torch.measure_multiply import profile_phases
-    from pplp_tpu_torch.ops import ntt_cuda
+    from pplp_tpu_torch.ops import bloom_cuda, ntt_cuda
     from pplp_tpu_torch.parallel import pipeline
 
     card = torch.cuda.get_device_name(dev)
@@ -1247,6 +1504,8 @@ def phase_pipeline(dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     kg = bfv.KeyGenerator(ctx, gen)
     sk, pk = kg.secret_key(), kg.create_public_key()
+    torch.cuda.synchronize()
+    bloom_cuda.reset_launches()  # the server's filter, then the counted step
     bf = pipeline.build_pipeline_filter(t, PIPE_S, PIPE_R, PIPE_W, dev)
     bits, salts = bf.bits_device, bf._salts_device()
 
@@ -1273,8 +1532,11 @@ def phase_pipeline(dev):
     got = fn(*cts, bits, salts, bf.table_size)
     torch.cuda.synchronize()
     launches = dict(ntt_cuda.launches_by_kernel)
+    bf_launches = dict(bloom_cuda.launches_by_kernel)
     peak = torch.cuda.max_memory_allocated(dev)
     assert all(launches[k] > 0 for k in PROFILE_NTT["tpu"]), f"NTT launches {launches}"
+    assert bf_launches == {"bf_insert": 1, "bf_probe": 1}, f"Bloom launches {bf_launches}"
+    _bloom_counted(bf_launches)
 
     # Host oracle, all in numpy and Python ints: clear blind distance -> key
     # -> the filter's host scalar probe (the byte-wise AP hash).
@@ -1301,7 +1563,7 @@ def phase_pipeline(dev):
     n_near = int(flat.sum())
     log(f"[pipeline] all {total} checks equal the host oracle ({n_near} near, "
         f"{int(truly_near.sum())} truly near, no false negatives); device decode == "
-        f"host CRT decode on rows 0 and {PIPE_ROWS - 1}; launches {launches}")
+        f"host CRT decode on rows 0 and {PIPE_ROWS - 1}; launches {launches}, {bf_launches}")
 
     t_step = _median_ms(lambda: fn(*cts, bits, salts, bf.table_size))
     t_hom = _median_ms(lambda: hom(*cts))
@@ -1482,7 +1744,7 @@ def phase_network(dev):
 
     from pplp_tpu_torch.benchmark import harness
     from pplp_tpu_torch.benchmark.sweep import RADIUS_SWEEP
-    from pplp_tpu_torch.ops import ntt_cuda
+    from pplp_tpu_torch.ops import bloom_cuda, ntt_cuda
     from pplp_tpu_torch.protocol import ProtocolConfig
 
     t_phase = time.perf_counter()
@@ -1506,11 +1768,15 @@ def phase_network(dev):
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats(dev)
                 ntt_cuda.reset_launches()
+                bloom_cuda.reset_launches()
                 client, server, ca, cb, seconds = _network_pair(
                     dev, ProtocolConfig(xa=xa, ya=ya, **kw), ProtocolConfig(xb=xb, yb=yb, **kw))
                 torch.cuda.synchronize()
                 run_launches = dict(ntt_cuda.launches_by_kernel)
+                bf_launches = dict(bloom_cuda.launches_by_kernel)
                 count()
+                _bloom_counted(bf_launches)
+                assert bf_launches["bf_insert"] == 1, f"{tag}: Bloom launches {bf_launches}"
                 peak = torch.cuda.max_memory_allocated(dev)
                 bl = server.blinding
                 assert client.is_near == (d2 < radius * radius), f"{tag}: verdict"
@@ -1531,7 +1797,7 @@ def phase_network(dev):
                     f"{'near' if d2 < radius * radius else 'far'}), blind distance "
                     f"{client.blind_distance:#x}; client sent {ca.bytes_sent} B, received "
                     f"{ca.bytes_received} B (BF frame {bf_frame} B); {seconds:.3f} s; launches "
-                    f"{run_launches}; peak device memory {peak} B [{card}]")
+                    f"{run_launches}, {bf_launches}; peak device memory {peak} B [{card}]")
                 del client, server
             assert len(seen) == 1, f"{tag}: the two runs differ: {seen}"
 
@@ -1892,8 +2158,16 @@ def phase_dgk(dev):
         f"eval + device decrypt) [{card}]")
 
     # 4. The sweep, with its Bloom filter on the card.
+    from pplp_tpu_torch.ops import bloom_cuda
+
+    torch.cuda.synchronize()
+    bloom_cuda.reset_launches()
     with tempfile.TemporaryDirectory() as tmp:
         _dgk_sweep(dev, tmp)
+    bf_launches = dict(bloom_cuda.launches_by_kernel)
+    assert bf_launches["bf_insert"] == len(DGK_SWEEP_RADII), f"Bloom launches {bf_launches}"
+    _bloom_counted(bf_launches)
+    log(f"[dgk] the sweep's Bloom launches {bf_launches}")
     log(f"[dgk] phase done in {time.perf_counter() - t_phase:.1f} s")
     return rows
 
@@ -2191,6 +2465,7 @@ MD_TIMEOUT_S = 300  # a launch's limit; every rank is killed past it
 MD_KERNELS = ("ntt_forward_u32", "ntt_inverse_u32", "behz_to_bsk", "behz_tensor",
               "behz_floor_sk", "behz_lift", "behz_keyprod", "behz_add")
 MD_NTT = ("ntt_forward", "ntt_inverse")  # the distributed NTT's and the pipeline's
+MD_BLOOM = ("bf_probe",)  # the sharded pipeline's probe (its filter is built outside the count)
 
 
 def _md_assemble(outs, shape):
@@ -2311,7 +2586,7 @@ def phase_multidevice(dev, pipe):
             for out in r["results"]:
                 for k, v in out["launches"].items():
                     counts[k] = counts.get(k, 0) + v
-    missing = [k for k in MD_KERNELS + MD_NTT if not counts.get(k)]
+    missing = [k for k in MD_KERNELS + MD_NTT + MD_BLOOM if not counts.get(k)]
     assert not missing, f"kernels the ranks never launched: {missing}"
     log(f"[multidevice] the ranks' launches: {counts}")
 
@@ -2362,6 +2637,8 @@ def main() -> int:
     demo_shapes = [(), (3,), (6,)]
     err, times = phase_kernels(dev, demo_shapes)
     done("kernels")
+    bloom_rows = phase_bloom(dev)
+    done("bloom")
     launches = phase_slice(dev)
     done("slice")
     rows, mult_ntt = phase_multiply(dev)
@@ -2390,7 +2667,11 @@ def main() -> int:
     for name in MD_KERNELS:
         if name in rows:  # the BEHZ rows; the NTT rows are summed below
             rows[name]["launches"] += md_counts[name]
+    _bloom_counted({k: md_counts.get(k, 0) for k in BLOOM_MAIN})
     done("multidevice")
+    assert all(BLOOM_MAIN.values()), f"Bloom kernels never launched on the main paths: {BLOOM_MAIN}"
+    for name, row in bloom_rows.items():
+        rows[name] = {"launches": BLOOM_MAIN[name], **row}
     n = 1 << DEMO_N_BITS
     main_shapes = {prof: (6, len(_chain(prof, n)), n) for prof in PROFILE_NTT}
     u32_shape = (ROWS_PER_LIMB, len(_chain("tpu", 32768)), 32768)
@@ -2419,8 +2700,12 @@ def main() -> int:
         f"call on the seal chain n = {SEAL_MUL[0][0]}, batch {SEAL_MUL[0][2]}, width "
         f"{SEAL_MUL[0][3][0]}; mulmod_chain at {PROBE_SHAPE}; the dgk kernels per launch at "
         f"B = {DGK_B}, k = {DGK_KEYS[0]} (encrypt's g^m h^r product and h^r, the decrypt's "
-        f"c^vpq, the blind distance), their plain_ms one call on the same inputs; library_ms "
-        f"null: no PyTorch call computes these functions")
+        f"c^vpq, the blind distance), their plain_ms one call on the same inputs; bf_insert "
+        f"at the demo's setBF (r = {BLOOM_FILTERS[0][0]}, {BLOOM_FILTERS[0][1]}, fpp "
+        f"{BLOOM_FILTERS[0][2]:g}: one launch of r^2 keys made in the kernel), its plain_ms "
+        f"blind_distance_keys + index_fill_; bf_probe at config[3]'s step ({PIPE_ROWS * PIPE_N} "
+        f"blind distances, the table staged in shared memory); library_ms null: no PyTorch "
+        f"call computes these functions")
     log(json.dumps({"kernels": kernels}))
     log(smi_line())
     print(json.dumps({"ok": True, "device": {

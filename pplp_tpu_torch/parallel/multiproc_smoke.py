@@ -122,18 +122,20 @@ def _ctx(job, dev):
 
 
 def _launch_counts() -> dict:
-    from ..ops import behz_cuda, ntt_cuda
+    from ..ops import behz_cuda, bloom_cuda, ntt_cuda
 
-    return {**ntt_cuda.launches_by_kernel, **behz_cuda.launches_by_kernel}
+    return {**ntt_cuda.launches_by_kernel, **behz_cuda.launches_by_kernel,
+            **bloom_cuda.launches_by_kernel}
 
 
 def _reset_launches(dev):
     if dev.type == "cuda":
-        from ..ops import behz_cuda, ntt_cuda
+        from ..ops import behz_cuda, bloom_cuda, ntt_cuda
 
         torch.cuda.synchronize(dev)
         ntt_cuda.reset_launches()
         behz_cuda.reset_launches()
+        bloom_cuda.reset_launches()
 
 
 def _counted(dev, fn):

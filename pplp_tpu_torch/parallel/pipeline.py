@@ -40,6 +40,7 @@ from ..bfv.encryptor import Encryptor
 from ..bfv.rns_decrypt import get_decoder
 from ..ops import ntt
 from ..ops.modmath import M32
+from ..primitives.blinding import blinded_keys
 from ..primitives.bloom import BloomFilter, BloomParameters, probe
 from ..utils.hexcodec import uint64_to_hex_string
 from .mesh import gather
@@ -158,22 +159,13 @@ def build_packed_pipeline(ctx, sk, xb: int, yb: int, s_blind: int, r_blind: int,
     return packed
 
 
-def blinded_keys(bd: torch.Tensor, w: int, w_len: int):
-    """key = (bd << w_len) | w for blind distances bd < 2^32, as (lo, hi)
-    32-bit words (w < 2^w_len, 0 < w_len < 32)."""
-    if not 0 < w_len < 32:
-        raise ValueError(f"w_len must be in (0, 32), got {w_len}")
-    return ((bd << w_len) | w) & M32, bd >> (32 - w_len)
-
-
-def bf_probe(bd: torch.Tensor, w: int, w_len: int, bits: torch.Tensor,
+def bf_probe(bd: torch.Tensor, w: int, w_len: int, table: torch.Tensor,
              salts: torch.Tensor, table_size: int, mixed: bool = True) -> torch.Tensor:
-    """Bloom membership of the blinded keys of ``bd`` [...] -> bool [...]:
-    the AP hash of every key against every salt, then one gather on the
-    unpacked bit table."""
-    klo, khi = blinded_keys(bd, w, w_len)
-    return probe(bits, klo.reshape(-1), khi.reshape(-1), salts, table_size,
-                 mixed).reshape(bd.shape)
+    """Bloom membership of the blinded keys (bd << w_len) | w of ``bd`` [...]
+    -> bool [...], in a filter's device table (``BloomFilter.bits_device``):
+    on the card one launch of the probe kernel, which makes the keys itself;
+    on the CPU the plain hash and gather."""
+    return probe(table, salts, table_size, mixed, blind_distances=(bd, w, w_len))
 
 
 def build_pipeline_filter(t: int, s_blind: int, r_blind: int, w: int,
@@ -201,9 +193,10 @@ def build_packed_pipeline_bf(ctx, sk, xb: int, yb: int, s_blind: int, r_blind: i
 
     The reference ends every proximity check with ``bf.contains((bd << w_len)
     | w)`` (``pplp:src/demo.cc:171-177``). Returns
-    ``fn(c1_polys, c2_polys, c3_polys, bits, salts, table_size) -> bool [B, n]``
-    where ``bits``/``salts``/``table_size`` are a ``BloomFilter``'s
-    ``bits_device``, ``_salts_device()`` and ``table_size``. Requires
+    ``fn(c1_polys, c2_polys, c3_polys, table, salts, table_size) -> bool [B, n]``
+    where ``table``/``salts``/``table_size`` are a ``BloomFilter``'s
+    ``bits_device`` (packed words on the card), ``_salts_device()`` and
+    ``table_size``. Requires
     t < 2^30 and 0 < w_len < 32. With ``mesh`` (dp x coeff), the
     ciphertexts are this rank's blocks, every rank holds the whole filter,
     and every rank gets all [B, n] verdicts."""
@@ -211,9 +204,9 @@ def build_packed_pipeline_bf(ctx, sk, xb: int, yb: int, s_blind: int, r_blind: i
         raise ValueError(f"w_len must be in (0, 32), got {w_len}")
     step = build_packed_pipeline(ctx, sk, xb, yb, s_blind, r_blind, mesh=mesh)
 
-    def fn(c1_polys, c2_polys, c3_polys, bits, salts, table_size):
+    def fn(c1_polys, c2_polys, c3_polys, table, salts, table_size):
         bd = step(c1_polys, c2_polys, c3_polys)
-        near = bf_probe(bd, w, w_len, bits, salts, table_size, mixed)
+        near = bf_probe(bd, w, w_len, table, salts, table_size, mixed)
         return near if mesh is None else gather(near, mesh, ("dp", "coeff"))
 
     return fn

@@ -7,8 +7,10 @@ key = ((s*(di+r) mod 2^64) << bitlen(w)) | w into the Bloom filter, and the
 client later probes ((blind_distance << bitlen(w)) | w).
 
 ``blind_distance_keys`` produces those keys on the device, chunk for chunk
-as the reference does. s*(di+r) reaches 2^65, so it is formed from 32-bit
-words (``mul32``) and kept modulo 2^64 as two words.
+as the reference does (``distance_keys`` for any tensor of candidates).
+s*(di+r) reaches 2^65, so it is formed from 32-bit words (``mul32``) and
+kept modulo 2^64 as two words. ``blinded_keys`` makes the client's probe
+keys from blind distances below 2^32.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 from ..ops.modmath import M32, mul32
 from ..utils.hexcodec import get_bitlen
 
-__all__ = ["Blinding", "pack_key", "blind_distance_keys"]
+__all__ = ["Blinding", "pack_key", "blind_distance_keys", "distance_keys", "blinded_keys"]
 
 _M64 = (1 << 64) - 1
 
@@ -84,6 +86,27 @@ def pack_key(bd: int, w: int, w_len: int) -> int:
     return ((int(bd) << w_len) | w) & _M64
 
 
+def distance_keys(di: torch.Tensor, s: int, r: int, w: int, w_len: int):
+    """The blinded keys ((s (di + r) mod 2^64) << w_len) | w of candidate
+    squared distances di (int64, di + r < 2^33; s, r < 2^32) as int64
+    tensors of their (lo, hi) 32-bit words."""
+    add = di + r  # a 33-bit value
+    bd_lo, bd_hi = mul32(add & M32, s)
+    bd_hi = (bd_hi + s * (add >> 32)) & M32
+    # w_len = bitlen(w) >= 1, so the spill shift is at most 31.
+    klo = ((bd_lo << w_len) | w) & M32
+    khi = ((bd_hi << w_len) | (bd_lo >> (32 - w_len))) & M32
+    return klo, khi
+
+
+def blinded_keys(bd: torch.Tensor, w: int, w_len: int):
+    """key = (bd << w_len) | w for blind distances bd < 2^32, as (lo, hi)
+    32-bit words (w < 2^w_len, 0 < w_len < 32)."""
+    if not 0 < w_len < 32:
+        raise ValueError(f"w_len must be in (0, 32), got {w_len}")
+    return ((bd << w_len) | w) & M32, bd >> (32 - w_len)
+
+
 def blind_distance_keys(blinding: Blinding, sq_radius: int, device,
                         chunk: int = 1 << 20):
     """Yield (klo, khi, count) for di in [0, sq_radius), in fixed-size chunks.
@@ -92,17 +115,12 @@ def blind_distance_keys(blinding: Blinding, sq_radius: int, device,
     32-bit words on ``device``. Every chunk has the reference's size (at most
     2^16); the tail of the last one repeats its last valid key (an OR-scatter
     insert is idempotent), and ``count`` is how many leading keys are fresh.
+    This is the plain version: a packed filter on the card makes the same
+    keys inside its insert kernel (``BloomFilter.insert_blind_distances``).
     """
     chunk = min(chunk, 1 << 16)
-    s, w, w_len = blinding.s, blinding.w, blinding.w_len
-    r_lo = blinding.r & M32
     steps = torch.arange(chunk, dtype=torch.int64, device=device)
     for start in range(0, sq_radius, chunk):
         di = torch.clamp(steps + start, max=sq_radius - 1)
-        add = di + r_lo  # di + r as a 33-bit value
-        bd_lo, bd_hi = mul32(add & M32, s)
-        bd_hi = (bd_hi + s * (add >> 32)) & M32
-        # w_len = bitlen(w) >= 1, so the spill shift is at most 31.
-        klo = ((bd_lo << w_len) | w) & M32
-        khi = ((bd_hi << w_len) | (bd_lo >> (32 - w_len))) & M32
+        klo, khi = distance_keys(di, blinding.s, blinding.r & M32, blinding.w, blinding.w_len)
         yield klo, khi, min(chunk, sq_radius - start)

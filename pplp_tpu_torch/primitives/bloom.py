@@ -2,15 +2,24 @@
 
 Counterpart of ``pplp_tpu.primitives.bloom``. The parameter optimization,
 salt schedule, host AP hash, host probe and wire format are copied from it
-verbatim; the batch insert (AP hash of u64 keys against every salt, index,
-and the OR-scatter into the bit table), the batch probe (the same hash,
-then a gather) and the bit packing for the wire run as torch ops on the
-filter's device. The bit table is held unpacked, one
-byte per bit, as the reference holds it: at r = 4096 and fpp 1e-12 that is
-about 965 MB on the device.
+verbatim. The batch insert (AP hash of u64 keys against every salt, index,
+OR into the bit table) and the batch probe run on the filter's device:
 
-All hashing is 32-bit unsigned arithmetic done in int64: every value is
-masked to 32 bits after a shift, add, multiply or complement.
+* on a CUDA device the table is packed, ``ceil(table_size / 32)`` u32
+  words (an int32 tensor), and every insert and probe is one launch of the
+  hand-written kernels ``csrc/bloom.cu`` (``ops/bloom_cuda.py``). On a
+  little-endian host the words' bytes are the wire's packed table, so
+  serializing copies them as they are. At r = 8192 and fpp 1e-12 the table
+  is 482.4 MB on the card;
+* the plain version, which a CPU filter runs, holds the table unpacked, one
+  byte per bit, as the reference does: ``_indices`` (the hash as int64 torch
+  ops), ``index_fill_``, a gather, and ``pack_bits`` for the wire. A CPU
+  filter built with ``packed=True`` keeps words and runs the plain version
+  on them (the tests hold the word-table methods so).
+
+Nothing on a CUDA device falls back to the plain version. All hashing is
+32-bit unsigned arithmetic; in the plain version it is done in int64, every
+value masked to 32 bits after a shift, add, multiply or complement.
 """
 
 from __future__ import annotations
@@ -22,9 +31,12 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..ops import bloom_cuda
 from ..ops.modmath import mul32
+from .blinding import blind_distance_keys, blinded_keys, distance_keys
 
-__all__ = ["BloomParameters", "BloomFilter", "CompressibleBloomFilter", "pack_bits", "probe"]
+__all__ = ["BloomParameters", "BloomFilter", "CompressibleBloomFilter", "pack_bits", "insert",
+           "probe", "insert_plain", "probe_plain"]
 
 BITS_PER_CHAR = 8
 
@@ -204,11 +216,23 @@ def _indices(klo, khi, salts, sizes: tuple, mixed: bool) -> torch.Tensor:
     return h
 
 
-def probe(bits, klo, khi, salts, table_size: int, mixed: bool) -> torch.Tensor:
-    """Membership of u64 keys as (lo, hi) word tensors [K] in the unpacked
-    bit table ``bits``: the AP hash against every salt, then one gather ->
-    bool [K]."""
-    return (bits[_indices(klo, khi, salts, (table_size,), mixed)] != 0).all(dim=0)
+_INSERT_CHUNK = 1 << 20  # keys a plain pass hashes (bounds the [salts, keys] indices)
+
+
+def insert_plain(bits, klo, khi, salts, sizes: tuple, mixed: bool):
+    """The plain insert: the bits of u64 keys, int64 (lo, hi) word tensors
+    [K], set in the unpacked table ``bits``, one ``index_fill_`` per
+    ``_INSERT_CHUNK`` keys."""
+    chunk = _INSERT_CHUNK
+    for start in range(0, klo.shape[0], chunk):
+        idx = _indices(klo[start:start + chunk], khi[start:start + chunk], salts, sizes, mixed)
+        bits.index_fill_(0, idx.reshape(-1), 1)
+
+
+def probe_plain(bits, klo, khi, salts, sizes: tuple, mixed: bool) -> torch.Tensor:
+    """The plain probe: membership of u64 keys as (lo, hi) word tensors [K]
+    in the unpacked table ``bits``, one gather over all salts -> bool [K]."""
+    return (bits[_indices(klo, khi, salts, sizes, mixed)] != 0).all(dim=0)
 
 
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
@@ -224,16 +248,101 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def unpack_words(words: torch.Tensor, table_size: int) -> torch.Tensor:
+    """The unpacked table (uint8 0/1 [table_size]) of packed u32 words."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    return ((words[:, None] >> shifts) & 1).to(torch.uint8).reshape(-1)[:table_size]
+
+
+def words_of_bytes(packed: np.ndarray, device) -> torch.Tensor:
+    """A packed table's bytes (np.packbits order) -> a new tensor of its u32
+    words (int32) on ``device``, the last word zero-padded."""
+    host = np.zeros(bloom_cuda.words_for(8 * packed.shape[0]) * 4, np.uint8)
+    host[:packed.shape[0]] = packed
+    return torch.from_numpy(host.view(np.int32)).to(device)
+
+
+def _chain(sizes) -> tuple:
+    return (int(sizes),) if isinstance(sizes, int) else tuple(sizes)
+
+
+def _plain_table(table: torch.Tensor, table_size: int) -> torch.Tensor:
+    if table.device.type != "cpu":
+        raise ValueError(f"no Bloom filter path for a table on {table.device}")
+    return table if table.dtype == torch.uint8 else unpack_words(table, table_size)
+
+
+_BLINDED_CHUNK = 1 << 16  # keys a plain pass makes of a blinded range
+
+
+def insert(table, salts, sizes, mixed: bool, *, keys=None, blinded=None):
+    """Set the bits of u64 keys in a filter's device table, in place.
+
+    ``keys=(lo, hi)``: int64 word tensors [K]; ``blinded=(s, r, w, w_len,
+    start, count)``: the keys ((s (di + r) mod 2^64) << w_len) | w for di in
+    [start, start + count), s and r below 2^32. ``sizes``: the size chain, or
+    the table size. A table on a CUDA device is packed and goes to the
+    ``bf_insert`` kernel (one launch); on the CPU the plain version runs, on
+    the unpacked table or on the words unpacked and packed again."""
+    sizes = _chain(sizes)
+    if table.is_cuda:
+        bloom_cuda.insert_cuda(table, salts, sizes, mixed, keys=keys, blinded=blinded)
+        return
+    bits = _plain_table(table, sizes[-1])
+    if keys is not None:
+        insert_plain(bits, *keys, salts, sizes, mixed)
+    else:
+        s, r, w, w_len, start, count = blinded
+        steps = torch.arange(_BLINDED_CHUNK, dtype=torch.int64)
+        for lo in range(start, start + count, _BLINDED_CHUNK):
+            di = (steps + lo)[:start + count - lo]
+            insert_plain(bits, *distance_keys(di, s, r, w, w_len), salts, sizes, mixed)
+    if bits is not table:
+        table.copy_(words_of_bytes(pack_bits(bits).numpy(), "cpu"))
+
+
+def probe(table, salts, sizes, mixed: bool, *, keys=None,
+          blind_distances=None) -> torch.Tensor:
+    """Membership of u64 keys in a filter's device table -> bool.
+
+    ``keys=(lo, hi)``: int64 word tensors [K] -> [K];
+    ``blind_distances=(bd, w, w_len)``: the keys (bd << w_len) | w of blind
+    distances bd < 2^32 (any shape; 0 < w_len < 32) -> bool shaped like bd.
+    A table on a CUDA device goes to the ``bf_probe`` kernel (one launch);
+    on the CPU the plain version gathers from the unpacked table."""
+    sizes = _chain(sizes)
+    if blind_distances is not None:
+        bd, w, w_len = blind_distances
+        if table.is_cuda:
+            flat = bd.reshape(-1).contiguous()
+            return bloom_cuda.probe_cuda(table, salts, sizes, mixed,
+                                         blind_distances=(flat, w, w_len)).reshape(bd.shape)
+        klo, khi = blinded_keys(bd.reshape(-1), w, w_len)
+        return probe_plain(_plain_table(table, sizes[-1]), klo, khi, salts, sizes,
+                           mixed).reshape(bd.shape)
+    if table.is_cuda:
+        return bloom_cuda.probe_cuda(table, salts, sizes, mixed, keys=keys)
+    return probe_plain(_plain_table(table, sizes[-1]), *keys, salts, sizes, mixed)
+
+
 class BloomFilter:
-    """Bit-compatible Bloom filter; batch inserts run on ``device``."""
+    """Bit-compatible Bloom filter; batch inserts and probes run on ``device``.
 
-    # Keys per hash/scatter pass (bounds the [salts, keys] index temporaries).
-    _INSERT_CHUNK = 1 << 20
+    The host copy ``bit_table`` (packed bytes, the wire's) and the device
+    table (``bits_device``) are kept in step lazily: a device write marks the
+    host copy stale, a host write drops the device table. ``packed`` (the
+    default on a CUDA device, where it is required) keeps the device table as
+    u32 words; else it is one byte per bit."""
 
-    def __init__(self, params: BloomParameters | None = None, *, device):
+    def __init__(self, params: BloomParameters | None = None, *, device,
+                 packed: bool | None = None):
         self.device = torch.device(device)
-        self._device_bits = None  # unpacked uint8 [table_size] on device
-        self._host_dirty = False
+        self.packed = self.device.type == "cuda" if packed is None else bool(packed)
+        if self.device.type == "cuda" and not self.packed:
+            raise ValueError("a filter on a CUDA device keeps a packed table")
+        self._table = None  # the device table, made on first use
+        self._salts = None  # the salts as int64 on ``device``, made on first use
+        self._host_dirty = False  # the device table is newer than bit_table
         if params is None:
             self.salt_count = 0
             self.table_size = 0
@@ -255,6 +364,9 @@ class BloomFilter:
         self.index_mode = params.index_mode
         self.salts = self._generate_unique_salt()
         self.bit_table = np.zeros(self.table_size // BITS_PER_CHAR, np.uint8)
+        if self.packed:  # an empty table of words, so nothing reads the host copy
+            self._table = torch.zeros(bloom_cuda.words_for(self.table_size), dtype=torch.int32,
+                                      device=self.device)
 
     # -- salt schedule (bloomfilter.h:459-525) --------------------------
 
@@ -291,7 +403,7 @@ class BloomFilter:
         for bit_index in self._host_indices(data):
             self.bit_table[bit_index // 8] |= 1 << (bit_index % 8)
         self.inserted_element_count += 1
-        self._device_bits = None
+        self._table = None
 
     def insert_u64(self, key: int):
         self.insert_bytes(int(key).to_bytes(8, "little"))
@@ -309,50 +421,73 @@ class BloomFilter:
 
     @property
     def bits_device(self) -> torch.Tensor:
-        """The unpacked bit table on ``device`` (created on first use)."""
-        if self._device_bits is None:
-            if self.inserted_element_count == 0 and not self.bit_table.any():
-                self._device_bits = torch.zeros(
-                    self.table_size, dtype=torch.uint8, device=self.device)
+        """The filter's table on ``device``, the one that every device insert
+        and probe takes: u32 words (an int32 tensor) when packed, else one
+        byte per bit. Made from the host copy on first use."""
+        if self._table is None:
+            if self.packed:
+                self._table = words_of_bytes(self.bit_table, self.device)
+            elif self.inserted_element_count == 0 and not self.bit_table.any():
+                self._table = torch.zeros(self.table_size, dtype=torch.uint8, device=self.device)
             else:
                 bits = np.unpackbits(self.bit_table, bitorder="little")
-                self._device_bits = torch.as_tensor(bits, device=self.device)
-        return self._device_bits
+                self._table = torch.as_tensor(bits, device=self.device)
+        return self._table
 
     def _salts_device(self) -> torch.Tensor:
-        return torch.as_tensor(self.salts.astype(np.int64), device=self.device)
+        if self._salts is None:
+            self._salts = torch.as_tensor(self.salts.astype(np.int64), device=self.device)
+        return self._salts
+
+    def _keys(self, k) -> torch.Tensor:
+        return torch.as_tensor(k, device=self.device).reshape(-1).to(torch.int64).contiguous()
 
     def insert_u64_batch(self, klo, khi, count: int | None = None):
         """Insert u64 keys given as int64 (lo, hi) word tensors [K].
 
         ``count`` is how many leading keys are fresh (a padded chunk repeats
-        valid keys); it only affects ``inserted_element_count``. The bit
-        table is updated in place, one pass per ``_INSERT_CHUNK`` keys."""
+        valid keys); it only affects ``inserted_element_count``. The device
+        table is updated in place (``insert``)."""
         assert self.table_size < (1 << 32), "device path needs u32 indices"
-        klo = torch.as_tensor(klo, device=self.device).reshape(-1)
-        khi = torch.as_tensor(khi, device=self.device).reshape(-1)
-        bits = self.bits_device
-        salts = self._salts_device()
-        mixed = self.index_mode == "mixed"
-        for start in range(0, klo.shape[0], self._INSERT_CHUNK):
-            stop = start + self._INSERT_CHUNK
-            idx = _indices(klo[start:stop], khi[start:stop], salts, self._sizes(), mixed)
-            bits.index_fill_(0, idx.reshape(-1), 1)
+        klo, khi = self._keys(klo), self._keys(khi)
+        insert(self.bits_device, self._salts_device(), self._sizes(), self.index_mode == "mixed",
+               keys=(klo, khi))
         self.inserted_element_count += klo.shape[0] if count is None else int(count)
         self._host_dirty = True
 
+    def insert_blind_distances(self, blinding, sq_radius: int):
+        """Insert the server's keys ((s (di + r) mod 2^64) << w_len) | w for
+        di < ``sq_radius`` (``blinding``: a ``Blinding``). A packed table
+        makes the keys inside the insert kernel, one launch for all of them;
+        an unpacked one takes ``blind_distance_keys``'s chunks, as the
+        reference does. ``inserted_element_count`` grows by ``sq_radius``
+        either way, as the reference's does."""
+        if not self.packed:
+            for klo, khi, count in blind_distance_keys(blinding, sq_radius, self.device):
+                self.insert_u64_batch(klo, khi, count=count)
+            return
+        assert self.table_size < (1 << 32), "device path needs u32 indices"
+        insert(self.bits_device, self._salts_device(), self._sizes(), self.index_mode == "mixed",
+               blinded=(blinding.s, blinding.r, blinding.w, blinding.w_len, 0, sq_radius))
+        self.inserted_element_count += sq_radius
+        self._host_dirty = True
+
     def contains_u64_batch(self, klo, khi) -> torch.Tensor:
-        """Membership of u64 keys given as int64 (lo, hi) word tensors [K]:
-        one gather on the unpacked table over all salts -> bool [K]."""
-        klo = torch.as_tensor(klo, device=self.device).reshape(-1)
-        khi = torch.as_tensor(khi, device=self.device).reshape(-1)
-        idx = _indices(klo, khi, self._salts_device(), self._sizes(), self.index_mode == "mixed")
-        return (self.bits_device[idx] != 0).all(dim=0)
+        """Membership of u64 keys given as int64 (lo, hi) word tensors [K]
+        -> bool [K] (``probe``)."""
+        return probe(self.bits_device, self._salts_device(), self._sizes(),
+                     self.index_mode == "mixed", keys=(self._keys(klo), self._keys(khi)))
+
+    def _packed_device(self) -> torch.Tensor:
+        """The wire's packed table bytes, on ``device``: the words' own
+        bytes, or the unpacked table packed."""
+        if self.packed:
+            return self._table.view(torch.uint8)[:self.table_size // BITS_PER_CHAR]
+        return pack_bits(self._table)
 
     def _sync_host(self):
-        if self._device_bits is not None and self._host_dirty:
-            # Pack on the device: 8x fewer bytes cross to the host.
-            self.bit_table = pack_bits(self._device_bits).cpu().numpy()
+        if self._table is not None and self._host_dirty:
+            self.bit_table = self._packed_device().to("cpu", copy=True).numpy()
             self._host_dirty = False
 
     def _compatible(self, other) -> bool:
@@ -364,28 +499,45 @@ class BloomFilter:
 
     # -- set algebra (bloomfilter.h:410-444) ----------------------------
 
-    def _combine(self, other, op):
-        if self._compatible(other):
+    def _combine(self, other, op: str):
+        """``op`` (a bitwise operation's name in numpy and torch) of the two
+        tables, into this one: on the words of a packed filter, else on the
+        host copies."""
+        if not self._compatible(other):
+            return self
+        if self.packed:
+            words = self.bits_device
+            if other.packed and other._table is not None and other._table.device == words.device:
+                theirs = other._table
+            else:
+                other._sync_host()
+                theirs = words_of_bytes(other.bit_table, words.device)
+            getattr(torch, op)(words, theirs, out=words)
+            self._host_dirty = True
+        else:
             self._sync_host()
             other._sync_host()
-            op(self.bit_table, other.bit_table, out=self.bit_table)
-            self._device_bits = None
+            getattr(np, op)(self.bit_table, other.bit_table, out=self.bit_table)
+            self._table = None
         return self
 
     def __iand__(self, other):
-        return self._combine(other, np.bitwise_and)
+        return self._combine(other, "bitwise_and")
 
     def __ior__(self, other):
-        return self._combine(other, np.bitwise_or)
+        return self._combine(other, "bitwise_or")
 
     def __ixor__(self, other):
-        return self._combine(other, np.bitwise_xor)
+        return self._combine(other, "bitwise_xor")
 
     def clear(self):
-        self._sync_host()
-        self.bit_table[:] = 0
+        self.bit_table = np.zeros(self.table_size // BITS_PER_CHAR, np.uint8)
+        if self.packed and self._table is not None:
+            self._table.zero_()
+        else:
+            self._table = None
+        self._host_dirty = False
         self.inserted_element_count = 0
-        self._device_bits = None
 
     def effective_fpp(self) -> float:
         k = len(self.salts)
@@ -406,36 +558,52 @@ class BloomFilter:
             self.desired_fpp,
         ) + self.salts.tobytes()
 
-    def serialize(self) -> bytes:
+    def _tail(self) -> bytes:
+        """What the wire format puts after the table (a compressible
+        filter's size chain)."""
+        return b""
+
+    def serialized_parts(self) -> tuple:
+        """``serialize()``'s bytes as buffers: the header, the host table
+        itself (no copy) and the tail. A message that holds the filter joins
+        them once (``b"".join``), instead of copying the table per part."""
         self._sync_host()
-        return self._header_bytes() + self.bit_table.tobytes()
+        return self._header_bytes(), self.bit_table, self._tail()
+
+    def serialize(self) -> bytes:
+        return b"".join(self.serialized_parts())
 
     def iter_serialized(self, chunk_bytes: int = 16 << 20):
         """``serialize()``'s bytes in pieces: the header, then the packed
-        table in slices of ``chunk_bytes``. A table changed on the device is
-        packed there once and copied to the host one slice at a time, so a
-        consumer (a socket) can send a slice while the next one is copied;
-        the host table is refreshed on the way, so a later ``serialize()``
-        costs no copy."""
+        table in slices of ``chunk_bytes``, as memoryviews of the host table
+        (send each before the filter changes), then the tail. A table changed
+        on the device is copied to the host one slice at a time, each into
+        its place in a new host table (a packed table's words as they are,
+        an unpacked one packed on the device first), so a consumer (a socket)
+        can send a slice while the next one is copied; a later
+        ``serialize()`` costs no copy."""
         yield self._header_bytes()
-        if self._device_bits is None or not self._host_dirty:
-            table = self.bit_table.tobytes()
+        if self._table is not None and self._host_dirty:
+            packed = self._packed_device()
+            host = np.empty(packed.shape[0], np.uint8)
+            for off in range(0, host.shape[0], chunk_bytes):
+                part = host[off:off + chunk_bytes]
+                torch.from_numpy(part).copy_(packed[off:off + chunk_bytes])
+                yield memoryview(part)
+            self.bit_table = host
+            self._host_dirty = False
+        else:
+            table = memoryview(self.bit_table)
             for off in range(0, len(table), chunk_bytes):
                 yield table[off:off + chunk_bytes]
-            return
-        packed = pack_bits(self._device_bits)
-        host_rows = []
-        for off in range(0, packed.shape[0], chunk_bytes):
-            row = packed[off:off + chunk_bytes].cpu().numpy()
-            host_rows.append(row)
-            yield row.tobytes()
-        self.bit_table = np.concatenate(host_rows) if host_rows else self.bit_table
-        self._host_dirty = False
+        tail = self._tail()
+        if tail:
+            yield tail
 
     @classmethod
     def deserialize(cls, buf: bytes, index_mode: str = "reference", *,
-                    device) -> "BloomFilter":
-        bf = cls(device=device)
+                    device, packed: bool | None = None) -> "BloomFilter":
+        bf = cls(device=device, packed=packed)
         bf.index_mode = index_mode
         (
             bf.salt_count,
@@ -473,24 +641,22 @@ class CompressibleBloomFilter(BloomFilter):
     leaving the filter unchanged, for an out-of-range or degenerate request.
     The wire format is the base one, then a u16 count and the u64 sizes."""
 
-    def __init__(self, params: BloomParameters | None = None, *, device):
-        super().__init__(params, device=device)
+    def __init__(self, params: BloomParameters | None = None, *, device,
+                 packed: bool | None = None):
+        super().__init__(params, device=device, packed=packed)
         self.size_list = [self.table_size] if self.table_size else []
 
     def _sizes(self) -> tuple:
         return tuple(self.size_list)
 
-    def _size_tail(self) -> bytes:
+    def _tail(self) -> bytes:
         return struct.pack("<H", len(self.size_list)) + b"".join(
             struct.pack("<Q", size) for size in self.size_list)
 
-    def serialize(self) -> bytes:
-        return super().serialize() + self._size_tail()
-
     @classmethod
     def deserialize(cls, buf: bytes, index_mode: str = "reference", *,
-                    device) -> "CompressibleBloomFilter":
-        bf = super().deserialize(buf, index_mode, device=device)
+                    device, packed: bool | None = None) -> "CompressibleBloomFilter":
+        bf = super().deserialize(buf, index_mode, device=device, packed=packed)
         off = _HDR.size + 4 * bf.salt_count + bf.table_size // 8
         (n_sizes,) = struct.unpack_from("<H", buf, off)
         bf.size_list = list(struct.unpack_from(f"<{n_sizes}Q", buf, off + 2))
@@ -500,10 +666,6 @@ class CompressibleBloomFilter(BloomFilter):
 
     def compute_serialization_size(self) -> int:
         return super().compute_serialization_size() + 2 + 8 * len(self.size_list)
-
-    def iter_serialized(self, chunk_bytes: int = 16 << 20):
-        yield from super().iter_serialized(chunk_bytes)
-        yield self._size_tail()
 
     def compress(self, percentage: float) -> bool:
         if not 0.0 < percentage < 100.0:
@@ -520,5 +682,5 @@ class CompressibleBloomFilter(BloomFilter):
         self.bit_table = np.packbits(folded, bitorder="little")
         self.table_size = new_size
         self.size_list.append(new_size)
-        self._device_bits = None
+        self._table = None  # reloaded from the folded host copy on next use
         return True

@@ -25,7 +25,7 @@ import torch
 
 from ..bfv import BFVContext, Ciphertext, Plaintext
 from ..bfv.serialize import load_ciphertext, load_parms, save_ciphertext, save_parms
-from ..primitives import Blinding, BloomFilter, BloomParameters, blind_distance_keys, pack_key
+from ..primitives import Blinding, BloomFilter, BloomParameters, pack_key
 from ..utils.hexcodec import get_bitlen, uint64_to_hex_string
 from . import stages
 from .config import ProtocolConfig
@@ -85,8 +85,8 @@ class ProximityClient:
         (self.w,) = struct.unpack_from("<Q", blob, 0)
         # The client probes one key on the host (contains_u64), as the
         # reference does: the filter stays on the CPU.
-        self.bf = BloomFilter.deserialize(blob[8:], index_mode=self.cfg.bf_index_mode,
-                                          device="cpu")
+        self.bf = BloomFilter.deserialize(memoryview(blob)[8:],
+                                          index_mode=self.cfg.bf_index_mode, device="cpu")
 
     def receive_blind_distance(self, blob: bytes) -> bool:
         ct = load_ciphertext(blob, self.ctx)
@@ -151,7 +151,9 @@ class ProximityServer:
         self.ctx = BFVContext.build(self.parms, self.device)
 
     def build_bloom_filter(self):
-        """r^2 blinded-key inserts on the device."""
+        """r^2 blinded-key inserts on the device: on the card one launch of
+        the insert kernel that makes the keys itself
+        (``BloomFilter.insert_blind_distances``)."""
         cfg = self.cfg
         p = BloomParameters(
             projected_element_count=cfg.sq_radius,
@@ -161,12 +163,10 @@ class ProximityServer:
         )
         assert p.compute_optimal_parameters()
         self.bf = BloomFilter(p, device=self.device)
-        for klo, khi, count in blind_distance_keys(self.blinding, cfg.sq_radius,
-                                                   self.device):
-            self.bf.insert_u64_batch(klo, khi, count=count)
+        self.bf.insert_blind_distances(self.blinding, cfg.sq_radius)
 
     def bf_message(self) -> bytes:
-        return struct.pack("<Q", self.blinding.w) + self.bf.serialize()
+        return b"".join((struct.pack("<Q", self.blinding.w), *self.bf.serialized_parts()))
 
     def bf_message_size(self) -> int:
         return 8 + self.bf.compute_serialization_size()

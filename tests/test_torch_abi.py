@@ -10,7 +10,8 @@ import re
 
 import pytest
 
-from pplp_tpu_torch.ops import behz64_cuda, behz_cuda, dgk_cuda, mulmod_chain, ntt_cuda
+from pplp_tpu_torch.ops import (behz64_cuda, behz_cuda, bloom_cuda, dgk_cuda, mulmod_chain,
+                                ntt_cuda)
 
 _ENTRY = re.compile(r"^[\w \*]*?\b(pplp_\w+)\(([^)]*)\)\s*\{", re.M)
 
@@ -40,7 +41,8 @@ def _entry_points(source) -> dict:
             for m in _ENTRY.finditer(body)}
 
 
-@pytest.mark.parametrize("wrapper", [ntt_cuda, behz_cuda, behz64_cuda, mulmod_chain, dgk_cuda],
+@pytest.mark.parametrize("wrapper", [ntt_cuda, behz_cuda, behz64_cuda, mulmod_chain, dgk_cuda,
+                                     bloom_cuda],
                          ids=lambda m: m.__name__.rsplit(".", 1)[-1])
 def test_argtypes_match_the_c_entry_points(wrapper):
     lib = _Library()

@@ -221,3 +221,112 @@ def test_filter_takes_no_default_device(cls):
     with pytest.raises(TypeError):
         getattr(prim, cls).deserialize(wire, "mixed")
     assert getattr(prim, cls).deserialize(wire, "mixed", device="cpu").serialize() == wire
+
+
+# --- The word table (a packed filter) against the plain version ----------
+# On the card a filter keeps u32 words; on the CPU ``packed=True`` keeps the
+# same words and runs the plain version on them, so the word-table methods
+# (serialize, iter_serialized, deserialize, the set operators, clear,
+# compress) are held here against the unpacked plain filter.
+
+def _pair(cls, n, mode, fpp=1e-3):
+    p = _params(prim, n, fpp, mode)
+    return (getattr(prim, cls)(p, device="cpu", packed=True),
+            getattr(prim, cls)(p, device="cpu"))
+
+
+def _batch(filters, lo, hi):
+    for f in filters:
+        f.insert_u64_batch(torch.from_numpy(lo.astype(np.int64)),
+                           torch.from_numpy(hi.astype(np.int64)))
+
+
+@pytest.mark.parametrize("mode", ["reference", "mixed"])
+def test_word_table_matches_plain(mode):
+    """Batch inserts, the blinded range, host inserts, probes, serialize,
+    iter_serialized and a deserialized copy: the packed filter's words give
+    the plain filter's bytes and verdicts at every step."""
+    packed, plain = _pair("BloomFilter", 3000, mode)
+    assert packed.bits_device.dtype == torch.int32 and plain.bits_device.dtype == torch.uint8
+    assert packed.bits_device.numel() == (packed.table_size + 31) // 32
+    lo, hi = _keys(1500, seed=7)
+    _batch((packed, plain), lo, hi)
+    bl = prim.Blinding(r=0xFFFFFF00, s=0x89ABCDEF, w=0x1F)
+    for f in (packed, plain):
+        f.insert_blind_distances(bl, 1000)
+    assert packed.inserted_element_count == plain.inserted_element_count == 2500
+    assert b"".join(packed.iter_serialized(1000)) == plain.serialize()
+    assert packed.serialize() == plain.serialize()
+    for f in (packed, plain):
+        f.insert_u64(0x0123456789ABCDEF)
+        f.insert_bytes(b"abc")
+    assert packed.serialize() == plain.serialize()
+    probes = _keys(2000, seed=8)
+    probe_lo = torch.from_numpy(np.concatenate([lo[:500], probes[0]]).astype(np.int64))
+    probe_hi = torch.from_numpy(np.concatenate([hi[:500], probes[1]]).astype(np.int64))
+    got = packed.contains_u64_batch(probe_lo, probe_hi)
+    assert torch.equal(got, plain.contains_u64_batch(probe_lo, probe_hi)) and bool(got[:500].all())
+    assert bool(packed.contains_u64_batch(torch.tensor([0x89ABCDEF]), torch.tensor([0x01234567])))
+    back = prim.BloomFilter.deserialize(plain.serialize(), mode, device="cpu", packed=True)
+    assert back.packed and back == plain
+    assert torch.equal(back.contains_u64_batch(probe_lo, probe_hi), got)
+    packed.clear()
+    plain.clear()
+    assert packed.serialize() == plain.serialize() and not packed.bits_device.any()
+
+
+def test_word_table_set_algebra_matches_plain():
+    """|=, &=, ^= on words (both packed, and a packed filter with an
+    unpacked one) against the plain filters' host bytes."""
+    lo, hi = _keys(800, seed=9)
+    (pa, a), (pb, b) = _pair("BloomFilter", 1000, "mixed"), _pair("BloomFilter", 1000, "mixed")
+    _batch((pa, a), lo[:500], hi[:500])
+    _batch((pb, b), lo[300:], hi[300:])
+    for op in ("__ior__", "__iand__", "__ixor__"):
+        want = getattr(prim.BloomFilter.deserialize(a.serialize(), "mixed", device="cpu"), op)(b)
+        for other in (pb, b):
+            got = prim.BloomFilter.deserialize(a.serialize(), "mixed", device="cpu", packed=True)
+            got = getattr(got, op)(other)
+            assert got.serialize() == want.serialize(), op
+        assert getattr(pa, op)(pb) is pa
+        getattr(a, op)(b)
+        assert pa.serialize() == a.serialize(), op
+
+
+@pytest.mark.parametrize("mode", ["reference", "mixed"])
+def test_word_table_compress_matches_plain(mode):
+    """A compressible filter on words: compress folds on the host and
+    reloads the words at the new size; inserts through the size chain, the
+    wire bytes and the probe equal the plain filter's."""
+    packed, plain = _pair("CompressibleBloomFilter", 1000, mode)
+    lo, hi = _keys(900, seed=10)
+    _batch((packed, plain), lo[:600], hi[:600])
+    assert packed.compress(30.0) is plain.compress(30.0) is True
+    assert packed.bits_device.numel() == (packed.table_size + 31) // 32
+    _batch((packed, plain), lo[600:], hi[600:])
+    assert packed.compress(25.0) is plain.compress(25.0) is True
+    assert packed.size_list == plain.size_list and len(packed.size_list) == 3
+    assert packed.serialize() == plain.serialize()
+    klo, khi = torch.from_numpy(lo.astype(np.int64)), torch.from_numpy(hi.astype(np.int64))
+    got = packed.contains_u64_batch(klo, khi)
+    assert torch.equal(got, plain.contains_u64_batch(klo, khi)) and bool(got.all())
+
+
+def test_device_paths_refuse_a_table_they_cannot_run():
+    """The dispatchers run the plain version only on a CPU table, and the
+    kernel wrappers only on CUDA tensors; a CPU filter may be unpacked, a
+    CUDA one may not."""
+    from pplp_tpu_torch.ops import bloom_cuda
+    from pplp_tpu_torch.primitives import bloom
+
+    keys = (torch.zeros(4, dtype=torch.int64),) * 2
+    salts = torch.ones(3, dtype=torch.int64)
+    with pytest.raises(ValueError, match="no Bloom filter path"):
+        bloom.probe(torch.zeros(64, dtype=torch.uint8, device="meta"), salts, 64, True, keys=keys)
+    with pytest.raises(ValueError, match="no Bloom filter path"):
+        bloom.insert(torch.zeros(2, dtype=torch.int32, device="meta"), salts, 64, True, keys=keys)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        bloom_cuda.insert_cuda(torch.zeros(2, dtype=torch.int32), salts, (64,), True, keys=keys)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        bloom_cuda.probe_cuda(torch.zeros(2, dtype=torch.int32), salts, (64,), True, keys=keys)
+    assert not prim.BloomFilter(_params(prim, 100, 1e-3, "mixed"), device="cpu").packed

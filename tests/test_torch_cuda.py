@@ -7,7 +7,9 @@ real product and mod switch, the demo on both profiles, the packed pipeline,
 the networked entry points, the DGK batch path and protocol, the 2PC
 predicates (``secure2pc``: in process and a networked party pair), and the
 distributed multiply and the coefficient/row exchange in two gloo ranks
-that share the card, and an NCCL group of one rank.
+that share the card, an NCCL group of one rank, and the Bloom filter's
+kernels (insert, probe, the words' bytes on the wire) against their plain
+versions, and the demo at the reference's r = 8192.
 
 Every test here is marked ``cuda`` and skips without a card. This file
 imports neither jax nor the JAX package, so it also runs where jax is not
@@ -1538,3 +1540,183 @@ def test_nccl_group_of_one_rank_on_card(dev, tmp_path):
     finally:
         ntt_dist.reset_exchanges()
         dist.destroy_process_group()
+
+
+# --- The Bloom filter's kernels (csrc/bloom.cu) on a packed table ---------
+
+def _bf(dev, count, fpp, mode, cls="BloomFilter"):
+    from pplp_tpu_torch import primitives
+
+    p = primitives.BloomParameters(projected_element_count=count, false_positive_probability=fpp,
+                                   random_seed=0xA5A5A5A5, index_mode=mode)
+    assert p.compute_optimal_parameters()
+    return getattr(primitives, cls)(p, device=dev)
+
+
+def _probe_keys(dev, bl, sq, n, seed):
+    """n keys of inserted candidates and n of candidates above r^2."""
+    from pplp_tpu_torch.primitives.blinding import distance_keys
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    di = torch.cat([torch.randint(0, sq, (n,), generator=g, device=dev),
+                    sq + torch.randint(0, 1 << 30, (n,), generator=g, device=dev)])
+    return distance_keys(di, bl.s, bl.r, bl.w, bl.w_len)
+
+
+@pytest.mark.parametrize("radius,mode,fpp", [(4096, "mixed", 1e-12), (4096, "reference", 1e-12),
+                                             (8192, "reference", 1e-12), (4096, "mixed", 1e-4)])
+def test_bloom_kernels_match_plain_on_the_demo_filters(dev, radius, mode, fpp):
+    """The demo's filter (fpp 1e-12, r = 4096 and the reference's r = 8192,
+    whose 3,859,468,176 bits need u32 indices) and the client/server one
+    (fpp 1e-4): the insert kernel, making the r^2 keys itself, against
+    blind_distance_keys + index_fill_ on the unpacked table: the same
+    serialize() bytes, and the same verdicts on 100,000 inserted and
+    100,000 outside keys."""
+    from pplp_tpu_torch.ops import bloom_cuda
+    from pplp_tpu_torch.primitives import Blinding, bloom
+    from pplp_tpu_torch.primitives.blinding import blind_distance_keys
+
+    sq = radius * radius
+    bl = Blinding.for_protocol(56, sq, seed=radius)
+    bf = _bf(dev, sq, fpp, mode)
+    sizes, salts, mixed = bf._sizes(), bf._salts_device(), mode == "mixed"
+    bloom_cuda.reset_launches()
+    bf.insert_blind_distances(bl, sq)
+    assert bloom_cuda.launches_by_kernel == {"bf_insert": 1, "bf_probe": 0}
+    assert bf.bits_device.dtype == torch.int32 and bf.bits_device.numel() == (bf.table_size + 31) // 32
+    assert bf.inserted_element_count == sq
+    plain = torch.zeros(bf.table_size, dtype=torch.uint8, device=dev)
+    for klo, khi, _ in blind_distance_keys(bl, sq, dev):
+        bloom.insert_plain(plain, klo, khi, salts, sizes, mixed)
+    packed = bloom.pack_bits(plain).cpu().numpy().tobytes()
+    assert bf.serialize() == bf._header_bytes() + packed
+    klo, khi = _probe_keys(dev, bl, sq, 100_000, radius)
+    got = bf.contains_u64_batch(klo, khi)
+    assert bloom_cuda.launches_by_kernel["bf_probe"] == 1
+    assert torch.equal(got, bloom.probe_plain(plain, klo, khi, salts, sizes, mixed))
+    assert bool(got[:100_000].all())
+
+
+def test_bloom_kernels_match_plain_on_the_pipeline_filter(dev):
+    """BASELINE config[3]'s filter (r = 99, mixed, 187,920 bits: the probe
+    stages it in shared memory): keys given as words, and the probe from
+    blind distances at the step's 102,400, against the plain version; the
+    same probe of a table too large to stage."""
+    from pplp_tpu_torch.ops import bloom_cuda
+    from pplp_tpu_torch.parallel import pipeline
+    from pplp_tpu_torch.primitives import bloom
+    from pplp_tpu_torch.primitives.blinding import blinded_keys
+
+    t, s, r, w = 1 << 20, 501, 99, 0xA5A5
+    bloom_cuda.reset_launches()
+    bf = pipeline.build_pipeline_filter(t, s, r, w, dev)
+    assert bloom_cuda.launches_by_kernel["bf_insert"] == 1
+    bd_all = s * (torch.arange(r * r, device=dev) + r) % t
+    g = torch.Generator(device=dev).manual_seed(3)
+    bd = torch.where(torch.rand(102_400, generator=g, device=dev) < 0.5,
+                     bd_all[torch.randint(0, r * r, (102_400,), generator=g, device=dev)],
+                     torch.randint(0, t, (102_400,), generator=g, device=dev)).reshape(25, 4096)
+    large = _bf(dev, 1 << 20, 1e-4, "mixed")
+    large.insert_u64_batch(*blinded_keys(bd_all, w, w.bit_length()))
+    for other in (bf, large):  # staged in shared memory, then read from device memory
+        sizes, salts = other._sizes(), other._salts_device()
+        plain = torch.zeros(other.table_size, dtype=torch.uint8, device=dev)
+        bloom.insert_plain(plain, *blinded_keys(bd_all, w, w.bit_length()), salts, sizes, True)
+        assert other.serialize() == (other._header_bytes()
+                                     + bloom.pack_bits(plain).cpu().numpy().tobytes())
+        before = bloom_cuda.launches_by_kernel["bf_probe"]
+        got = pipeline.bf_probe(bd, w, w.bit_length(), other.bits_device, salts, other.table_size)
+        assert bloom_cuda.launches_by_kernel["bf_probe"] == before + 1
+        want = bloom.probe_plain(plain, *blinded_keys(bd.reshape(-1), w, w.bit_length()), salts,
+                                 sizes, True).reshape(bd.shape)
+        assert torch.equal(got, want) and bool(got.any()) and not bool(got.all())
+
+
+def test_bloom_kernels_on_a_compressed_filter(dev):
+    """A CompressibleBloomFilter compressed twice between inserts (a size
+    chain of three): bytes and verdicts against the plain version, which
+    folds its unpacked table on the card; the set operators on words."""
+    from pplp_tpu_torch.primitives import bloom
+
+    rng = np.random.default_rng(5)
+    lo, hi = (torch.from_numpy(rng.integers(0, 1 << 32, 300_000, dtype=np.uint64)
+                               .astype(np.int64)).to(dev) for _ in range(2))
+    bf = _bf(dev, 200_000, 1e-4, "mixed", "CompressibleBloomFilter")
+    salts = bf._salts_device()
+    plain = torch.zeros(bf.table_size, dtype=torch.uint8, device=dev)
+    for a, b, cut in ((0, 70_000, 30.0), (70_000, 140_000, 20.0), (140_000, 200_000, None)):
+        bf.insert_u64_batch(lo[a:b], hi[a:b])
+        bloom.insert_plain(plain, lo[a:b], hi[a:b], salts, bf._sizes(), True)
+        if cut:
+            assert bf.compress(cut)
+            folded = torch.zeros(bf.table_size, dtype=torch.uint8, device=dev)
+            folded.index_put_((torch.arange(plain.numel(), device=dev) % bf.table_size,), plain,
+                              accumulate=True)
+            plain = (folded > 0).to(torch.uint8)
+    assert len(bf.size_list) == 3
+    assert bf.serialize() == (bf._header_bytes() + bloom.pack_bits(plain).cpu().numpy().tobytes()
+                              + bf._tail())
+    got = bf.contains_u64_batch(lo, hi)
+    assert torch.equal(got, bloom.probe_plain(plain, lo, hi, salts, bf._sizes(), True))
+    assert bool(got[:200_000].all())
+    # Set algebra on the card's words against the host bytes of the same filters.
+    a, b = _bf(dev, 50_000, 1e-3, "mixed"), _bf(dev, 50_000, 1e-3, "mixed")
+    a.insert_u64_batch(lo[:30_000], hi[:30_000])
+    b.insert_u64_batch(lo[20_000:50_000], hi[20_000:50_000])
+    ta, tb = (np.frombuffer(f.serialize(), np.uint8)[-(f.table_size // 8):] for f in (a, b))
+    for op, fn in (("__ior__", np.bitwise_or), ("__iand__", np.bitwise_and),
+                   ("__ixor__", np.bitwise_xor)):
+        c = bloom.BloomFilter.deserialize(a.serialize(), "mixed", device=dev)
+        getattr(c, op)(b)
+        assert np.array_equal(np.frombuffer(c.serialize(), np.uint8)[-(c.table_size // 8):],
+                              fn(ta, tb)), op
+    a.clear()
+    assert not a.bits_device.any() and not np.frombuffer(a.serialize(), np.uint8)[-100:].any()
+
+
+def test_bloom_filter_on_card_raises_without_its_kernels(dev, monkeypatch):
+    """A filter on the card keeps a packed table, and when the kernel
+    library cannot load it raises: nothing falls back to the plain version."""
+    from pplp_tpu_torch.ops import bloom_cuda, cuda_build
+
+    from pplp_tpu_torch.primitives import BloomFilter
+
+    with pytest.raises(ValueError, match="packed"):
+        BloomFilter(None, device=dev, packed=False)
+
+    def no_nvcc(*a, **k):
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(cuda_build, "load", no_nvcc)
+    bf = _bf(dev, 1000, 1e-4, "mixed")
+    keys = torch.arange(10, dtype=torch.int64, device=dev)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        bf.insert_u64_batch(keys, keys)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        bf.contains_u64_batch(keys, keys)
+    with pytest.raises(TypeError):  # an unpacked table is not the kernels'
+        bloom_cuda.probe_cuda(torch.zeros(bf.table_size, dtype=torch.uint8, device=dev),
+                              bf._salts_device(), bf._sizes(), True, keys=(keys, keys))
+
+
+@pytest.mark.parametrize("xa,near", [(1234, True), (10234, False)])
+def test_demo_r8192_on_card(dev, xa, near):
+    """The demo at the reference's largest radius (seal, -d 13 -b 56): the
+    verdict equals the clear oracle, the filter is one insert launch of the
+    67,108,864 keys into 482.4 MB of words, and the peak device memory stays
+    below the unpacked table's 3.86 GB, which is never allocated."""
+    from pplp_tpu_torch.ops import bloom_cuda
+    from pplp_tpu_torch.protocol import ProtocolConfig, run_local_demo
+
+    cfg = ProtocolConfig(xa=xa, ya=1212, xb=1000, yb=1000, radius=8192,
+                         poly_modulus_degree_bits=13, plain_modulus_bits=56, seed=7)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    bloom_cuda.reset_launches()
+    res = run_local_demo(cfg, verbose=False, device=dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    assert res.is_near is near
+    assert ((xa - 1000) ** 2 + 212 ** 2 < 8192 ** 2) is near
+    assert bloom_cuda.launches_by_kernel["bf_insert"] == 1
+    assert res.bf_table_bits == 3_859_468_176 and res.bf_device.type == "cuda"
+    assert peak < res.bf_table_bits, f"peak {peak} B: the unpacked table was allocated"

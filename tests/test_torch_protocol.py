@@ -197,7 +197,8 @@ def test_import_loads_no_jax():
         "pplp_tpu_torch.secure2pc.climain, pplp_tpu_torch.secure2pc.yao, "
         "pplp_tpu_torch.parallel.mesh, pplp_tpu_torch.parallel.distributed, "
         "pplp_tpu_torch.parallel.ntt_dist, pplp_tpu_torch.parallel.behz_dist, "
-        "pplp_tpu_torch.parallel.multiproc_smoke\n"
+        "pplp_tpu_torch.parallel.multiproc_smoke, pplp_tpu_torch.ops.bloom_cuda, "
+        "pplp_tpu_torch.measure_bloom\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'pplp_tpu' or m.startswith('pplp_tpu.')]\n"
         "assert not bad, bad\n"
