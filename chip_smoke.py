@@ -28,20 +28,25 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
                words) and with the plain version (the unpacked table,
                ``index_fill_``): the demo's filter at r = 4096 and 8192 (fpp
                1e-12, ``mixed`` as the CLI runs it and the reference's
-               indexing), the client/server filter at r = 4096 (fpp 1e-4),
-               BASELINE config[3]'s (r = 99, ``mixed``, probed from blind
-               distances) and a ``CompressibleBloomFilter`` compressed twice;
+               indexing; the partitioned insert), the client/server filter
+               at r = 4096 (fpp 1e-4; the direct kernel), BASELINE
+               config[3]'s (r = 99, ``mixed``, probed from blind distances)
+               and a ``CompressibleBloomFilter`` compressed twice;
                ``serialize()`` equal byte for byte and the probe verdicts
-               equal on 100,000 inserted and 100,000 outside keys; the
-               kernels' CUDA-event times beside their bounds
-               (``measure_bloom``) and the plain versions' times;
+               equal on 100,000 inserted and 100,000 outside keys; each
+               partitioned kernel against its plain step on the demo's first
+               chunk; each insert kernel's device time and the call's
+               CUDA-event time beside the bound, the sector model and the
+               design's floor (``measure_bloom``), and the plain versions'
+               times;
 5. slice    -- the local proximity demo (``run_local_demo``) at -d 13 -b 56,
                on the seal profile (the CLI's default) and on the tpu profile:
                r = 4096 with a near pair and r = 128 with a far pair, then on
                seal at the reference's r = 8192 a near and a far pair. Each
                verdict must equal the clear oracle, the blind distance must
                equal s(d^2 + r) mod t, the profile's NTT kernel and the Bloom
-               insert kernel (once) must have been launched and the filter
+               insert kernels (as ``bloom_cuda.insert_plan`` routes the
+               filter) must have been launched and the filter
                must live on the card; stage times and peak device memory;
 6. multiply -- the BFV ct x ct multiply at n = 4096 on the tpu chain
                (4 primes, |B_sk| = 6), t = 2^16, batch 256, through
@@ -215,8 +220,8 @@ the larger of the bytes the kernel's interface moves over 3.35 TB/s and its
 Shoup products over the card's integer-multiply peak,
 ``measure_multiply.MULMODS_PER_S`` (the Bloom kernels: each input read and
 each output written once, and their indices' 32-bit multiplies at
-``MULS_PER_S``, ``measure_bloom``; beside it ``sector_ms``, one random
-32-byte sector a bit); ``library_ms`` null, since no PyTorch call computes
+``MULS_PER_S``, ``measure_bloom``; beside the direct insert's
+``sector_ms``, one random 32-byte sector a bit); ``library_ms`` null, since no PyTorch call computes
 a negacyclic modular NTT, the BEHZ multiply, a Shoup chain or a Bloom
 filter's hashed scatter and gather), the card's
 name and power limit, and the result line
@@ -283,11 +288,14 @@ BLOOM_FILTERS = ((4096, "mixed", 1e-12), (4096, "reference", 1e-12), (8192, "mix
                  (8192, "reference", 1e-12), (4096, "mixed", 1e-4))
 BLOOM_KEYS = 100_000  # inserted keys probed, and as many outside keys
 BLOOM_COMPRESSED = (200_000, (30.0, 20.0))  # keys, the compressions between thirds
-BLOOM_XLA = {"bf_insert": "pplp_tpu/primitives/bloom.py:200",  # _insert_scan_fn
+# The insert kernels: direct (one launch, a table of at most DIRECT_MAX_BITS
+# bits) and partitioned (count, scatter, apply a chunk of keys).
+BLOOM_INSERT = ("bf_insert", "bf_insert_count", "bf_insert_scatter", "bf_insert_apply")
+BLOOM_XLA = {**dict.fromkeys(BLOOM_INSERT, "pplp_tpu/primitives/bloom.py:200"),  # _insert_scan_fn
              "bf_probe": "pplp_tpu/primitives/bloom.py:224"}  # _contains_fn
 # Launches of the Bloom kernels on the main paths (slice, pipeline, network,
 # dgk and the ranks of multidevice), summed as the phases run.
-BLOOM_MAIN = {"bf_insert": 0, "bf_probe": 0}
+BLOOM_MAIN = dict.fromkeys(BLOOM_XLA, 0)
 
 
 NTT_TPU = "pplp_tpu/ops/ntt_vmem.py:272"
@@ -470,6 +478,92 @@ def _bloom_counted(counts: dict):
         BLOOM_MAIN[k] += v
 
 
+def _bloom_launches(inserts, probes: int = 0) -> dict:
+    """The Bloom launches by kernel of inserting ``count`` keys into a
+    filter of ``count`` projected keys at fpp ``fpp`` (``inserts``: (count,
+    fpp) pairs), and ``probes`` probe launches: ``bloom_cuda.insert_plan``'s
+    route for each."""
+    from pplp_tpu_torch.ops import bloom_cuda
+    from pplp_tpu_torch.primitives import BloomParameters
+
+    out = dict.fromkeys(BLOOM_MAIN, 0)
+    for count, fpp in inserts:
+        p = BloomParameters(projected_element_count=count, false_positive_probability=fpp)
+        assert p.compute_optimal_parameters()
+        plan = bloom_cuda.insert_plan(p.table_size, p.number_of_hashes, count)
+        for k, v in plan.launches().items():
+            out[k] += v
+    out["bf_probe"] = probes
+    return out
+
+
+def _partition_steps(tag, kbf, bl, plan, card) -> dict:
+    """The partitioned kernels, one launch each on the first chunk of the
+    filter's keys (blinded, from 0), each against its plain version: the
+    blocks' histograms and the chunk's totals against ``index_put_``
+    counts of idx >> slice_log2; the stash (u32) against the chunk's
+    indices sorted by bucket (stable argsort), equal as sorted sets, its
+    buckets in order; the table after the apply against ``index_fill_`` of
+    the plain stash, byte for byte. Returns (max error, plain ms) by
+    kernel."""
+    import torch
+
+    from pplp_tpu_torch.ops import bloom_cuda
+    from pplp_tpu_torch.primitives import bloom
+    from pplp_tpu_torch.primitives.blinding import distance_keys
+
+    dev = kbf.bits_device.device
+    salts, sizes, mixed = kbf._salts_device(), kbf._sizes(), kbf.index_mode == "mixed"
+    n, nb = plan.chunk_keys, plan.buckets
+    blinded = (bl.s, bl.r, bl.w, bl.w_len, 0, n)
+    words = torch.zeros_like(kbf.bits_device)
+    stash, hist, counts = bloom_cuda.partition_buffers(plan, dev)
+    bloom_cuda.count_cuda(words, salts, sizes, mixed, plan, hist, counts[0], blinded=blinded)
+    bloom_cuda.scatter_cuda(words, salts, sizes, mixed, plan, hist, counts[0], stash,
+                            blinded=blinded)
+    bloom_cuda.apply_cuda(words, stash, n * plan.n_salts)
+    klo, khi = distance_keys(torch.arange(n, device=dev), bl.s, bl.r, bl.w, bl.w_len)
+    flat = bloom._indices(klo, khi, salts, sizes, mixed).t().reshape(-1)  # key-major, as a block
+    bucket = flat >> plan.slice_log2
+    tile = torch.arange(flat.numel(), device=dev) // (plan.n_salts * plan.tile_keys)
+    bits = torch.zeros(kbf.table_size, dtype=torch.uint8, device=dev)
+
+    def plain_count():
+        h = torch.zeros(n // plan.tile_keys, nb, dtype=torch.int64, device=dev)
+        return h.index_put_((tile, bucket), torch.ones_like(bucket), accumulate=True)
+
+    def plain_scatter():
+        return flat[torch.argsort(bucket, stable=True)]
+
+    want_hist, want_stash = plain_count(), plain_scatter()
+
+    def plain_apply():
+        bits.index_fill_(0, want_stash, 1)
+
+    plain_apply()
+    got = stash.to(torch.int64) & 0xFFFFFFFF
+    got_b = got >> plan.slice_log2
+    err = {"bf_insert_count": max(int((hist.to(torch.int64) - want_hist).abs().max()),
+                                  int((counts[0, :nb].to(torch.int64) - want_hist.sum(0))
+                                      .abs().max())),
+           "bf_insert_scatter": int((torch.sort(got).values - torch.sort(want_stash).values)
+                                    .abs().max()),
+           "bf_insert_apply": int((words.view(torch.uint8)[:kbf.table_size // 8].to(torch.int16)
+                                   - bloom.pack_bits(bits).to(torch.int16)).abs().max())}
+    torch.cuda.synchronize()
+    assert not any(err.values()), f"{tag}: a partitioned kernel differs from plain: {err}"
+    assert bool((got_b[1:] >= got_b[:-1]).all()), f"{tag}: the stash is not in bucket order"
+    plain = {"bf_insert_count": cuda_ms(plain_count, 3, 1),
+             "bf_insert_scatter": cuda_ms(plain_scatter, 3, 1),
+             "bf_insert_apply": cuda_ms(plain_apply, 3, 1)}
+    log(f"[bloom] {tag}: the partitioned kernels on the first chunk ({n} keys, {nb} buckets of "
+        f"2^{plan.slice_log2} bits) equal their plain versions (histograms {tuple(hist.shape)} "
+        f"and totals; the stash of {got.numel()} indices in bucket order; the table's bytes); "
+        f"plain ms a chunk " + ", ".join(f"{k} {v:.4f}" for k, v in plain.items())
+        + f" [{card}]")
+    return {k: (err[k], plain[k]) for k in err}
+
+
 def _first_misses(bits, klo, khi, salts, sizes, mixed) -> int:
     """(key, salt) bits the probe kernel tests: each key's salts up to its
     first clear bit, all of them for a member."""
@@ -526,8 +620,10 @@ def phase_bloom(dev):
     import numpy as np
     import torch
 
-    from pplp_tpu_torch.measure_bloom import insert_bound, probe_bound
+    from pplp_tpu_torch.measure_bloom import (design_floor, insert_bound, insert_split,
+                                              partition_bounds, probe_bound)
     from pplp_tpu_torch.measure_ntt import device_ms
+    from pplp_tpu_torch.ops import bloom_cuda
     from pplp_tpu_torch.parallel import pipeline
     from pplp_tpu_torch.primitives import bloom
     from pplp_tpu_torch.primitives.blinding import (Blinding, blind_distance_keys,
@@ -536,7 +632,7 @@ def phase_bloom(dev):
     t_phase = time.perf_counter()
     card = torch.cuda.get_device_name(dev)
     gen = torch.Generator(device=dev).manual_seed(15)
-    err = {"bf_insert": 0, "bf_probe": 0}
+    err = dict.fromkeys(BLOOM_MAIN, 0)
     rows = {}
 
     def params(count, fpp, mode, cls=bloom.BloomFilter):
@@ -574,19 +670,47 @@ def phase_bloom(dev):
         keys = [distance_keys(d, bl.s, bl.r, bl.w, bl.w_len) for d in (di_in, di_out)]
         tag = f"r={radius} {mode} fpp {fpp:g} ({kbf.table_size} bits, {kbf.salt_count} salts)"
         b_err, v_err, p_ms, p_plain, tested = _bloom_check(tag, kbf, plain, *keys, sizes, card)
-        err["bf_insert"] = max(err["bf_insert"], b_err)
+        plan = bloom_cuda.insert_plan(kbf.table_size, kbf.salt_count, sq)
+        for name in plan.launches():
+            err[name] = max(err[name], b_err)
         err["bf_probe"] = max(err["bf_probe"], v_err)
-        ms = device_ms(lambda: kbf.insert_blind_distances(bl, sq), 5)
+
+        def insert():
+            kbf.insert_blind_distances(bl, sq)
+
+        bloom_cuda.reset_launches()
+        insert()
+        got = {k: v for k, v in bloom_cuda.launches_by_kernel.items() if v}
+        assert got == plan.launches(), f"{tag}: launches {got}, planned {plan.launches()}"
+        split = insert_split(insert)
+        call_ms = cuda_ms(insert, 3, 1)
+        ms = sum(split[k] for k in plan.launches())
         ib = insert_bound(sq, kbf.salt_count, kbf.table_size, mixed, key_bytes=0)
+        floor = design_floor(plan)
         pb = probe_bound(2 * BLOOM_KEYS, tested, kbf.salt_count, kbf.table_size, mixed)
-        log(f"[bloom] {tag}: insert {ms:.4f} ms (profiler; first call {1e3 * t_k:.1f} ms), "
-            f"plain {1e3 * t_p:.1f} ms; bound {ib['bound_ms']:.4f} ms ({ib['bound_by']}), "
-            f"{100 * ib['bound_ms'] / ms:.2f}%; sector model {ib['sector_ms']:.4f} ms, "
-            f"{100 * ib['sector_ms'] / ms:.1f}%; probe bound {pb['bound_ms']:.5f} ms "
-            f"({pb['bound_by']}), sector model {pb['sector_ms']:.4f} ms [{card}]")
+        route = ("direct, one launch" if plan.direct else
+                 f"partitioned: {plan.chunks} chunks of {plan.chunk_keys} keys, {plan.buckets} "
+                 f"buckets of 2^{plan.slice_log2} bits")
+        log(f"[bloom] {tag}: insert ({route}) {ms:.4f} ms of kernels (profiler: "
+            + ", ".join(f"{k} {split[k]:.4f}" for k in plan.launches())
+            + f"; all kernels of the call {split['total']:.4f}), the call {call_ms:.4f} ms "
+            f"(CUDA events; first call {1e3 * t_k:.1f} ms), plain {1e3 * t_p:.1f} ms; "
+            f"{sq * kbf.salt_count / ms / 1e6:.2f}G bit sets/s; bound "
+            f"{ib['bound_ms']:.4f} ms ({ib['bound_by']}), {100 * ib['bound_ms'] / ms:.2f}%; "
+            f"sector model {ib['sector_ms']:.4f} ms, {100 * ib['sector_ms'] / ms:.1f}%; the "
+            f"design's floor {floor:.4f} ms, {100 * floor / ms:.1f}%; probe bound "
+            f"{pb['bound_ms']:.5f} ms ({pb['bound_by']}), sector model {pb['sector_ms']:.4f} ms "
+            f"[{card}]")
         if (radius, mode, fpp) == BLOOM_FILTERS[0]:  # the demo's setBF: the main path's shape
-            rows["bf_insert"] = {"max_abs_err": 0, "ms": ms, "ms_source": "profiler",
-                                 "plain_ms": 1e3 * t_p, **ib}
+            steps = _partition_steps(tag, kbf, bl, plan, card)
+            bounds = partition_bounds(plan, mixed)
+            for name, (s_err, s_plain) in steps.items():
+                err[name] = max(err[name], s_err)
+                rows[name] = {"max_abs_err": 0, "ms": split[name] / plan.chunks,
+                              "ms_source": "profiler", "plain_ms": s_plain, **bounds[name]}
+        if (radius, mode, fpp) == BLOOM_FILTERS[-1]:  # the C/S filter: the direct kernel's
+            rows["bf_insert"] = {"max_abs_err": 0, "ms": split["bf_insert"],
+                                 "ms_source": "profiler", "plain_ms": 1e3 * t_p, **ib}
         del kbf, plain, keys
         torch.cuda.empty_cache()
 
@@ -607,7 +731,7 @@ def phase_bloom(dev):
     b_err, v_err, _, _, _ = _bloom_check(
         tag, kbf, plain, blinded_keys(bd_in, PIPE_W, w_len), blinded_keys(bd_out, PIPE_W, w_len),
         sizes, card)
-    err["bf_insert"] = max(err["bf_insert"], b_err)
+    err["bf_insert"] = max(err["bf_insert"], b_err)  # a table of 187,920 bits: direct
     err["bf_probe"] = max(err["bf_probe"], v_err)
     n = PIPE_ROWS * PIPE_N  # the step's shape, half of it inserted values
     pick = torch.randint(0, sq, (n,), generator=gen, device=dev)
@@ -671,7 +795,7 @@ def phase_bloom(dev):
     tag = f"compressible, sizes {kbf.size_list}"
     b_err, v_err, _, _, _ = _bloom_check(tag, kbf, plain, (lo[:BLOOM_KEYS], hi[:BLOOM_KEYS]),
                                          (lo[count:], hi[count:]), kbf._sizes(), card)
-    err["bf_insert"] = max(err["bf_insert"], b_err)
+    err["bf_insert"] = max(err["bf_insert"], b_err)  # every size of the chain: direct
     err["bf_probe"] = max(err["bf_probe"], v_err)
     for name in rows:
         rows[name]["max_abs_err"] = err[name]
@@ -715,7 +839,8 @@ def phase_slice(dev):
             f"{tag}: blind distance {res.blind_distance:#x} is not s(d^2+r) mod t")
         assert all(run_launches[k] > 0 for k in PROFILE_NTT[profile]), (
             f"{tag}: NTT kernel launches {run_launches}")
-        assert bf_launches["bf_insert"] == 1, f"{tag}: Bloom kernel launches {bf_launches}"
+        want = _bloom_launches([(cfg.sq_radius, cfg.false_positive_probability)])
+        assert bf_launches == want, f"{tag}: Bloom kernel launches {bf_launches}, planned {want}"
         assert res.bf_device.type == "cuda", "Bloom filter is not on the card"
         for k, v in run_launches.items():
             launches[k] += v
@@ -1535,7 +1660,8 @@ def phase_pipeline(dev):
     bf_launches = dict(bloom_cuda.launches_by_kernel)
     peak = torch.cuda.max_memory_allocated(dev)
     assert all(launches[k] > 0 for k in PROFILE_NTT["tpu"]), f"NTT launches {launches}"
-    assert bf_launches == {"bf_insert": 1, "bf_probe": 1}, f"Bloom launches {bf_launches}"
+    want = _bloom_launches([(PIPE_R * PIPE_R, 1e-4)], probes=1)
+    assert bf_launches == want, f"Bloom launches {bf_launches}, planned {want}"
     _bloom_counted(bf_launches)
 
     # Host oracle, all in numpy and Python ints: clear blind distance -> key
@@ -1776,7 +1902,8 @@ def phase_network(dev):
                 bf_launches = dict(bloom_cuda.launches_by_kernel)
                 count()
                 _bloom_counted(bf_launches)
-                assert bf_launches["bf_insert"] == 1, f"{tag}: Bloom launches {bf_launches}"
+                want = _bloom_launches([(radius * radius, 1e-4)])
+                assert bf_launches == want, f"{tag}: Bloom launches {bf_launches}, planned {want}"
                 peak = torch.cuda.max_memory_allocated(dev)
                 bl = server.blinding
                 assert client.is_near == (d2 < radius * radius), f"{tag}: verdict"
@@ -2165,7 +2292,8 @@ def phase_dgk(dev):
     with tempfile.TemporaryDirectory() as tmp:
         _dgk_sweep(dev, tmp)
     bf_launches = dict(bloom_cuda.launches_by_kernel)
-    assert bf_launches["bf_insert"] == len(DGK_SWEEP_RADII), f"Bloom launches {bf_launches}"
+    want = _bloom_launches([(r * r, 1e-4) for r in DGK_SWEEP_RADII])
+    assert bf_launches == want, f"Bloom launches {bf_launches}, planned {want}"
     _bloom_counted(bf_launches)
     log(f"[dgk] the sweep's Bloom launches {bf_launches}")
     log(f"[dgk] phase done in {time.perf_counter() - t_phase:.1f} s")
@@ -2700,11 +2828,16 @@ def main() -> int:
         f"call on the seal chain n = {SEAL_MUL[0][0]}, batch {SEAL_MUL[0][2]}, width "
         f"{SEAL_MUL[0][3][0]}; mulmod_chain at {PROBE_SHAPE}; the dgk kernels per launch at "
         f"B = {DGK_B}, k = {DGK_KEYS[0]} (encrypt's g^m h^r product and h^r, the decrypt's "
-        f"c^vpq, the blind distance), their plain_ms one call on the same inputs; bf_insert "
-        f"at the demo's setBF (r = {BLOOM_FILTERS[0][0]}, {BLOOM_FILTERS[0][1]}, fpp "
-        f"{BLOOM_FILTERS[0][2]:g}: one launch of r^2 keys made in the kernel), its plain_ms "
-        f"blind_distance_keys + index_fill_; bf_probe at config[3]'s step ({PIPE_ROWS * PIPE_N} "
-        f"blind distances, the table staged in shared memory); library_ms null: no PyTorch "
+        f"c^vpq, the blind distance), their plain_ms one call on the same inputs; the "
+        f"partitioned insert kernels (bf_insert_count, _scatter, _apply) a launch at the "
+        f"demo's setBF (r = {BLOOM_FILTERS[0][0]}, {BLOOM_FILTERS[0][1]}, fpp "
+        f"{BLOOM_FILTERS[0][2]:g}: the mean of a chunk's launch over the insert, r^2 keys made "
+        f"in the kernels), their plain_ms the plain step on the first chunk (index_put_ "
+        f"counts, a stable argsort by bucket, index_fill_); bf_insert, the direct kernel, at "
+        f"the client/server filter (r = {BLOOM_FILTERS[-1][0]}, fpp {BLOOM_FILTERS[-1][2]:g}: "
+        f"one launch), its plain_ms blind_distance_keys + index_fill_; bf_probe at config[3]'s "
+        f"step ({PIPE_ROWS * PIPE_N} blind distances, the table staged in shared memory); "
+        f"library_ms null: no PyTorch "
         f"call computes these functions")
     log(json.dumps({"kernels": kernels}))
     log(smi_line())

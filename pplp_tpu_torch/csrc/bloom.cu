@@ -11,13 +11,13 @@
 // np.packbits(bits, bitorder="little"), the wire format, so serializing the
 // filter copies the words as they are (sliced to table_size / 8 bytes).
 //
-// One thread per key. A key is the 8-byte value lo | hi << 32 from one of
-// three sources, chosen at compile time:
+// A key is the 8-byte value lo | hi << 32 from one of three sources, chosen
+// at compile time:
 //   kWords           (lo, hi) int64 word arrays (insert_u64_batch,
 //                    contains_u64_batch);
 //   kBlinded         ((s (start + i + r) mod 2^64) << w_len) | w, the server's
 //                    blinded candidates (blinding.blind_distance_keys fused:
-//                    the demo's whole r^2 insert is one launch);
+//                    the demo's keys are made in the kernels);
 //   kBlindDistances  ((bd[i] << w_len) | w) from int64 blind distances below
 //                    2^32 (pipeline.blinded_keys fused into the probe).
 // For every salt: one 8-byte round of the AP hash (bloomfilter.h's hash_ap, as
@@ -25,25 +25,67 @@
 // reduction by each size of the chain in turn (one size for a plain filter,
 // the historical sizes for a compressed one). Everything is u32:
 // table_size < 2^32 (3,859,468,176 bits at r = 8192 is above 2^31, so no
-// index may be signed), and word indices are below 2^27. The salts (at most
-// 128) and the size chain (at most 32) are copied into shared memory by each
-// block.
+// index, bucket or offset may be signed), and word indices are below 2^27.
+// The salts (at most 128) and the size chain (at most 32) are copied into
+// shared memory by each block.
 //
-// bf_insert sets each bit with an atomicOr whose result is unused (a RED).
+// The insert takes one of two routes, by the table's size (the wrapper,
+// ops/bloom_cuda.py, decides; its constants come from the measurement below):
+// * direct (bf_insert): one thread a key, each bit an atomicOr whose result
+//   is unused (a RED), one launch. For a table of at most 44 MB, which stays
+//   in L2, it runs at the L2's rate of REDs.
+// * partitioned: the table is cut into buckets, slices of S = 2^27 bits
+//   (16.8 MB), at most kMaxBuckets of them, and the keys into chunks whose
+//   stash of u32 indices (chunk keys x salts x 4 B, with the blocks'
+//   histograms) is no larger than the table. Each chunk is three launches:
+//   bf_insert_count hashes every (key, salt) and counts its bucket in shared
+//   memory; bf_insert_scatter hashes again, sorts each block's indices by
+//   bucket in shared memory and writes them as contiguous runs into the
+//   stash, each bucket's run reserved by one atomicAdd on its cursor, its
+//   offset the exclusive scan of the counts, taken on the device (no host
+//   sync in an insert); bf_insert_apply reads the stash in order and REDs
+//   each index into the table, one slice live in L2 at a time. The words
+//   are the direct kernel's, bit for bit: OR commutes.
 // bf_probe reads the word of each salt and stops at the first clear bit, as
 // the reference's contains does; a table of at most kStageWords words (44 KB;
 // 23.5 KB at the packed pipeline's r = 99) is staged in shared memory by every
 // block, which then walks the keys in a grid-stride loop; a larger one is
 // read from device memory.
 //
-// What bounds them: at the demo's sizes the table (120.6 MB at r = 4096,
-// 482.4 MB at r = 8192) is larger than the 50 MB L2, so every bit set reads
-// and writes one 32-byte sector at random: 671M bit sets x 64 B / 3.35 TB/s
-// = 12.8 ms at r = 4096 and 40 salts, 51 ms at r = 8192. The probe reads one
-// sector per salt it tests. Hashing is ~30 integer operations an index, well
-// below either. The design keeps the table packed (8x fewer bytes than the
-// byte-per-bit table, and no packing pass before the wire), makes the keys in
-// registers, and issues the scatter as fire-and-forget REDs.
+// The constants, measured on an NVIDIA H100 80GB HBM3 at 700.00 W
+// (measure_bloom --sweep: the direct kernel's bit sets/s against the table's
+// size, each table filled to half its bits; at 40 and at 13 salts alike):
+// 89.1G bit sets/s at 8 MB, 90.5G at 2^27 bits (16.8 MB), 82.0G at 2^28
+// (33.6 MB), 80.8G at 40 MB, 80.5G at 44 MB, 67.0-74.0G at 48 MB (two
+// runs), 24.2G at 2^29 (67.1 MB) and 17.9G at 120 MB. So a table of at most
+// 44 MB (352,000,000 bits) is direct: the largest at the L2 rate, which
+// takes the client/server filter (40.2 MB, 13 salts). The rule "the largest
+// power of two within 80% of the smallest table's rate" gives 2^28, but the
+// same sweep's partitioned inserts ran 2^27 faster: at r = 4096, 14.06 ms
+// against 18.15 ms at 2^28 (r = 8192: 54.92 against 73.22 ms), because
+// the apply's blocks in flight (~1M indices) span one to two buckets, and
+// two slices of 2^28 bits (67 MB) outgrow the L2; 2^26 ran 3-4% faster
+// still but needs 58 buckets at r = 8192, above kMaxBuckets. One 16-byte
+// load a thread in the apply ran 7% (r = 4096) and 14% (r = 8192) faster
+// than four, which put ~4M indices in flight.
+//
+// What bounds them. Direct, a table above the L2: each bit set reads and
+// writes a random 32-byte sector (the sector model, 671M x 64 B / 3.35 TB/s
+// = 12.8 ms at r = 4096, 51.3 ms at r = 8192); it ran 37.6 / 185.9 ms. The
+// partitioned insert does not pay that model: its REDs land in an
+// L2-resident slice, and what it moves through device memory is the stash
+// (written and read, 8 B an index: 1.6 ms at r = 4096, 6.4 ms at r = 8192)
+// and the table, into L2 and back once a chunk (1.7 / 6.6 ms at 23 chunks),
+// plus hashing each index twice (~25 integer operations each at 1.67e13/s:
+// 2.0 / 8.0 ms). That sum is the design's floor (5.3 / 21.1 ms,
+// measure_bloom.design_floor); above it, the apply's REDs at the L2's rate
+// (671M / 2.68G at ~80G/s: 8.4 / 33.5 ms) set the pace. The probe reads one
+// sector per salt it tests.
+//
+// Rejected: hashing every key again for each L2-sized pass, with no stash.
+// At r = 8192 that is 15-30 passes of 2.68G indices at ~25 integer
+// operations each; at MULS_PER_S = 1.67e13/s ~4 ms a pass, 60-120 ms of
+// hashing before one bit is set, and the cost grows with table / L2 x keys.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -55,6 +97,13 @@ constexpr int kMaxSizes = 32;
 constexpr int kThreads = 256;
 constexpr int64_t kStageWords = 11264;  // 44 KB of dynamic shared memory
 constexpr int kStagedBlocksPerSm = 2;
+// The partitioned insert: at most kMaxBuckets slices of a table, a block's
+// tile of at most kTileElems (key, salt) indices sorted in shared memory
+// (40 KB: 256 keys at 40 salts, 80 at 128), and one 16-byte load of the
+// stash a thread of the apply kernel.
+constexpr int kMaxBuckets = 32;
+constexpr int kTileElems = 10240;
+constexpr int kApplyElems = kThreads * 4;  // indices a block applies
 
 enum Source : int { kWords = 0, kBlinded = 1, kBlindDistances = 2 };
 
@@ -130,6 +179,121 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// By value: the partition of one chunk of keys. A block takes tile_keys
+// keys (thread t < tile_keys the key start + blockIdx.x * tile_keys + t of
+// the source) and their n_salts indices; bucket = idx >> slice_log.
+struct Part {
+  int tile_keys;
+  int slice_log;
+  int n_buckets;
+};
+
+// a. count: each block's histogram of buckets in shared memory, written to
+// hist[blockIdx.x][b]; the chunk's totals[b] summed by one atomicAdd a
+// (block, bucket).
+template <int kSource>
+__global__ void __launch_bounds__(kThreads)
+    bf_insert_count_kernel(const int64_t* __restrict__ salts, const Chain chain,
+                           const Keys keys, const Part part, uint32_t* __restrict__ hist,
+                           uint32_t* __restrict__ totals) {
+  __shared__ uint32_t s_salt[kMaxSalts];
+  __shared__ uint32_t s_size[kMaxSizes];
+  __shared__ uint32_t s_hist[kMaxBuckets];
+  load_chain(s_salt, s_size, salts, chain);
+  if (threadIdx.x < kMaxBuckets) s_hist[threadIdx.x] = 0;
+  __syncthreads();
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * part.tile_keys + threadIdx.x;
+  if (static_cast<int>(threadIdx.x) < part.tile_keys && i < keys.count) {
+    const uint64_t key = key_at<kSource>(keys, i);
+    for (int j = 0; j < chain.n_salts; ++j) {
+      const uint32_t idx = bit_index(s_salt[j], key, chain.mixed, s_size, chain.n_sizes);
+      atomicAdd(s_hist + (idx >> part.slice_log), 1u);
+    }
+  }
+  __syncthreads();
+  if (static_cast<int>(threadIdx.x) < part.n_buckets) {
+    const uint32_t c = s_hist[threadIdx.x];
+    hist[static_cast<int64_t>(blockIdx.x) * part.n_buckets + threadIdx.x] = c;
+    if (c) atomicAdd(totals + threadIdx.x, c);
+  }
+}
+
+// b. scatter: the same tiles hashed again. The prologue takes bucket b's
+// run in the stash: its chunk offset (the exclusive scan of totals), plus
+// what one atomicAdd on cursors[b] reserves for this block's hist count;
+// and b's place in the block's sorted tile (the exclusive scan of the
+// block's own hist). The tile is sorted by bucket in shared memory (a
+// shared atomicAdd for each index picks its slot in its bucket's range;
+// order inside a bucket is free, since OR commutes), then written out in
+// order: consecutive threads write consecutive words of a run. Every count
+// and offset is at most the chunk's indices (chunk keys x salts, no more
+// than the table's words < 2^27), so u32 offsets and cursors cannot
+// overflow.
+template <int kSource>
+__global__ void __launch_bounds__(kThreads)
+    bf_insert_scatter_kernel(const int64_t* __restrict__ salts, const Chain chain,
+                             const Keys keys, const Part part,
+                             const uint32_t* __restrict__ hist,
+                             const uint32_t* __restrict__ totals,
+                             uint32_t* __restrict__ cursors, uint32_t* __restrict__ stash) {
+  __shared__ uint32_t s_salt[kMaxSalts];
+  __shared__ uint32_t s_size[kMaxSizes];
+  __shared__ uint32_t s_local[kMaxBuckets];  // the bucket's first slot in s_tile
+  __shared__ uint32_t s_fill[kMaxBuckets];   // its next free slot
+  __shared__ uint32_t s_dst[kMaxBuckets];    // its run's first index in the stash
+  __shared__ uint32_t s_tile[kTileElems];
+  load_chain(s_salt, s_size, salts, chain);
+  const int b = threadIdx.x;
+  if (b < part.n_buckets) {
+    const uint32_t* mine = hist + static_cast<int64_t>(blockIdx.x) * part.n_buckets;
+    uint32_t base = 0, local = 0;
+    for (int c = 0; c < b; ++c) {
+      base += totals[c];
+      local += mine[c];
+    }
+    s_local[b] = local;
+    s_fill[b] = local;
+    s_dst[b] = base + (mine[b] ? atomicAdd(cursors + b, mine[b]) : 0u);
+  }
+  __syncthreads();
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * part.tile_keys;
+  const int64_t left = keys.count - first;
+  const int n_keys = left < part.tile_keys ? static_cast<int>(left) : part.tile_keys;
+  if (static_cast<int>(threadIdx.x) < n_keys) {
+    const uint64_t key = key_at<kSource>(keys, first + threadIdx.x);
+    for (int j = 0; j < chain.n_salts; ++j) {
+      const uint32_t idx = bit_index(s_salt[j], key, chain.mixed, s_size, chain.n_sizes);
+      s_tile[atomicAdd(s_fill + (idx >> part.slice_log), 1u)] = idx;
+    }
+  }
+  __syncthreads();
+  const int n = n_keys * chain.n_salts;
+  for (int j = threadIdx.x; j < n; j += kThreads) {
+    const uint32_t idx = s_tile[j];
+    const uint32_t bucket = idx >> part.slice_log;
+    __stcs(stash + (s_dst[bucket] + (static_cast<uint32_t>(j) - s_local[bucket])), idx);
+  }
+}
+
+// c. apply: the stash, sorted by bucket, read in order, 16 bytes a thread
+// (streaming loads, so the table's slice keeps L2), each index a RED into
+// the table. Blocks start in index order, so the blocks in flight (132 SMs
+// x 8 blocks x 1,024 indices, about 1M) cover one or two buckets: about one
+// slice of the table is live in L2 at a time.
+__global__ void __launch_bounds__(kThreads)
+    bf_insert_apply_kernel(uint32_t* __restrict__ words, const uint32_t* __restrict__ stash,
+                           int64_t n) {
+  const int64_t e = 4 * (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x);
+  if (e + 4 <= n) {
+    const uint4 v = __ldcs(reinterpret_cast<const uint4*>(stash + e));
+    const uint32_t idx[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) atomicOr(words + (idx[q] >> 5), 1u << (idx[q] & 31));
+  } else {
+    for (int64_t q = e; q < n; ++q) atomicOr(words + (stash[q] >> 5), 1u << (stash[q] & 31));
+  }
+}
+
 template <int kSource, bool kStaged>
 __global__ void __launch_bounds__(kThreads)
     bf_probe_kernel(const uint32_t* __restrict__ words, int64_t n_words,
@@ -179,6 +343,27 @@ int make_chain(Chain* chain, int n_salts, const void* sizes, int n_sizes, int mi
   return 0;
 }
 
+// Checks of one chunk of a partitioned insert (see pplp_bf_insert_count):
+// fills `chain` as make_chain does and `part`. Returns 0 or
+// cudaErrorInvalidValue.
+int make_chunk(Chain* chain, Part* part, int n_salts, const void* sizes, int n_sizes,
+               int mixed, int source, int w_len, long long count, int tile_keys,
+               int slice_log, int n_buckets) {
+  const int bad = make_chain(chain, n_salts, sizes, n_sizes, mixed, source, w_len, count);
+  if (bad) return bad;
+  const uint64_t table = chain->size[n_sizes - 1];
+  if (source == kBlindDistances || tile_keys < 1 || tile_keys > kThreads ||
+      tile_keys * n_salts > kTileElems || slice_log < 5 || slice_log > 31 || n_buckets < 1 ||
+      n_buckets > kMaxBuckets || table > (static_cast<uint64_t>(n_buckets) << slice_log) ||
+      table <= (static_cast<uint64_t>(n_buckets - 1) << slice_log) ||
+      static_cast<uint64_t>(count) * n_salts > 0xFFFFFFFFull)
+    return static_cast<int>(cudaErrorInvalidValue);
+  part->tile_keys = tile_keys;
+  part->slice_log = slice_log;
+  part->n_buckets = n_buckets;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -207,6 +392,83 @@ int pplp_bf_insert(void* words, const void* salts, int n_salts, const void* size
     bf_insert_kernel<kWords><<<blocks, kThreads, 0, st>>>(out, sl, chain, keys);
   else
     bf_insert_kernel<kBlinded><<<blocks, kThreads, 0, st>>>(out, sl, chain, keys);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The partitioned insert of one chunk of keys, in three launches on one
+// stream: pplp_bf_insert_count, pplp_bf_insert_scatter,
+// pplp_bf_insert_apply. salts, sizes, source and the key arguments as for
+// pplp_bf_insert, for the chunk's keys (lo, hi offset to its first key;
+// start its first blinded step). Every bucket is a slice of 2^slice_log
+// bits; n_buckets = ceil(table_size / 2^slice_log) <= kMaxBuckets;
+// tile_keys <= kThreads keys a block, at most kTileElems indices. hist: u32
+// [ceil(count / tile_keys), n_buckets]; counts: u32 [2, n_buckets], zero
+// before the count (the chunk's totals, then the scatter's cursors); stash:
+// u32 [count * n_salts], the chunk's indices sorted by bucket.
+int pplp_bf_insert_count(const void* salts, int n_salts, const void* sizes, int n_sizes,
+                         int mixed, int source, const void* lo, const void* hi,
+                         unsigned long long s, unsigned long long r, unsigned long long start,
+                         unsigned w, int w_len, long long count, int tile_keys, int slice_log,
+                         int n_buckets, void* hist, void* counts, void* stream) {
+  Chain chain;
+  Part part;
+  const int bad = make_chunk(&chain, &part, n_salts, sizes, n_sizes, mixed, source, w_len,
+                             count, tile_keys, slice_log, n_buckets);
+  if (bad || count == 0) return bad;
+  const Keys keys{static_cast<const int64_t*>(lo), static_cast<const int64_t*>(hi), s, r,
+                  start, w, w_len, count};
+  const auto blocks = static_cast<unsigned>((count + tile_keys - 1) / tile_keys);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* sl = static_cast<const int64_t*>(salts);
+  auto* h = static_cast<uint32_t*>(hist);
+  auto* totals = static_cast<uint32_t*>(counts);
+  if (source == kWords)
+    bf_insert_count_kernel<kWords><<<blocks, kThreads, 0, st>>>(sl, chain, keys, part, h,
+                                                                 totals);
+  else
+    bf_insert_count_kernel<kBlinded><<<blocks, kThreads, 0, st>>>(sl, chain, keys, part, h,
+                                                                   totals);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int pplp_bf_insert_scatter(const void* salts, int n_salts, const void* sizes, int n_sizes,
+                           int mixed, int source, const void* lo, const void* hi,
+                           unsigned long long s, unsigned long long r, unsigned long long start,
+                           unsigned w, int w_len, long long count, int tile_keys, int slice_log,
+                           int n_buckets, const void* hist, void* counts, void* stash,
+                           void* stream) {
+  Chain chain;
+  Part part;
+  const int bad = make_chunk(&chain, &part, n_salts, sizes, n_sizes, mixed, source, w_len,
+                             count, tile_keys, slice_log, n_buckets);
+  if (bad || count == 0) return bad;
+  const Keys keys{static_cast<const int64_t*>(lo), static_cast<const int64_t*>(hi), s, r,
+                  start, w, w_len, count};
+  const auto blocks = static_cast<unsigned>((count + tile_keys - 1) / tile_keys);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* sl = static_cast<const int64_t*>(salts);
+  const auto* h = static_cast<const uint32_t*>(hist);
+  auto* totals = static_cast<uint32_t*>(counts);
+  auto* cursors = totals + n_buckets;
+  auto* out = static_cast<uint32_t*>(stash);
+  if (source == kWords)
+    bf_insert_scatter_kernel<kWords><<<blocks, kThreads, 0, st>>>(sl, chain, keys, part, h,
+                                                                   totals, cursors, out);
+  else
+    bf_insert_scatter_kernel<kBlinded><<<blocks, kThreads, 0, st>>>(sl, chain, keys, part, h,
+                                                                     totals, cursors, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// words: int32 [ceil(table_size / 32)] on the device, updated in place;
+// stash: u32 [n] (16-byte aligned), indices below table_size.
+int pplp_bf_insert_apply(void* words, const void* stash, long long n, void* stream) {
+  if (n < 0 || (reinterpret_cast<uintptr_t>(stash) & 15) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  const auto blocks = static_cast<unsigned>((n + kApplyElems - 1) / kApplyElems);
+  bf_insert_apply_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(words), static_cast<const uint32_t*>(stash), n);
   return static_cast<int>(cudaGetLastError());
 }
 

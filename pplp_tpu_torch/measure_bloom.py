@@ -2,6 +2,8 @@
 kernels' bounds.
 
     python3 -m pplp_tpu_torch.measure_bloom [--radii 4096,8192] [--repeats 3] [--json PATH]
+    python3 -m pplp_tpu_torch.measure_bloom --sweep [--json PATH]
+    python3 -m pplp_tpu_torch.measure_bloom --inserts [--json PATH]
 
 Runs the local demo (``run_local_demo``: seal, -d 13 -b 56, the near pair
 (1234, 1212) / (1000, 1000), seed 7, the CLI's defaults otherwise) once at
@@ -13,6 +15,19 @@ device memory, with the card's name and power limit. It uses only ``run_local_de
 file runs unchanged in a tree from before the Bloom kernels: run parent,
 change, change, parent in one call to compare them.
 
+``--sweep`` instead times the direct insert kernel (``bloom_cuda.insert_direct``,
+one thread a key, a RED a bit) against the table's size, at 40 and 13 salts:
+bit sets/s into tables of 8 to 120 MB (and of 2^27, 2^28 and 2^29 bits),
+each filled to its optimum (keys = bits ln 2 / salts, half the bits set).
+``bloom.cu``'s slice size and direct threshold come from it.
+
+``--inserts`` times the device insert of each filter of the main paths
+(the demo's at r = 4096, the client/server one, config[3]'s and a
+compressible filter's chain of three sizes): the device time of all the
+call's kernels (torch.profiler) and the call's CUDA-event time. It uses
+only the filters' own methods, so a copy of this file runs in a parent
+tree too.
+
 ``insert_bound`` and ``probe_bound`` are the bounds ``chip_smoke.py`` puts
 beside the kernels' times: the larger of the bytes the function must move
 (each input read once, each output written once) over ``BYTES_PER_S`` and
@@ -20,20 +35,35 @@ the 32-bit multiplies of its indices (one in the AP hash, two in fmix32,
 two a reduction by a size) over ``MULS_PER_S``. ``sector_ms`` is the model
 for a table larger than the 50 MB L2, where each bit set reads and writes
 one random 32-byte sector and each probed bit reads one.
+``partition_bounds`` bounds each kernel of the partitioned insert a launch,
+and ``design_floor`` is the floor of an insert's own design: the bytes it
+moves (the table in and out once, for a partitioned insert once a chunk,
+and the stash written and read, 8 B an index) over ``BYTES_PER_S``, plus
+its hashing (``HASH_OPS`` integer operations an index, once, or twice when
+partitioned) over ``MULS_PER_S``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import sys
 import time
 
 from .measure_multiply import BYTES_PER_S, MULS_PER_S
 
-__all__ = ["insert_bound", "probe_bound", "demo_runs", "main"]
+__all__ = ["insert_bound", "probe_bound", "partition_bounds", "design_floor", "insert_split",
+           "demo_runs", "sweep", "inserts", "main"]
 
 SECTOR = 32  # bytes
+HASH_OPS = 25  # integer operations an index: AP round, fmix32, reduction (an estimate)
+SWEEP_MB = (8, 16, 24, 32, 40, 44, 48, 64, 120)  # table sizes, 10^6 bytes
+SWEEP_POW2 = (27, 28, 29)  # and tables of 2^k bits
+SWEEP_SALTS = (40, 13)  # the demo's filter (fpp 1e-12), the client/server one (1e-4)
+SWEEP_KEYS = (0x3FFFFFFB, 0x12345, 0xBEEF, 16)  # a blinded range's s, r, w, w_len
+SWEEP_SLICES = (26, 27, 28)  # slices of 2^k bits tried on the demo's tables
+INSERT_KERNELS = ("bf_insert", "bf_insert_count", "bf_insert_scatter", "bf_insert_apply")
 
 
 def _bound(nbytes: int, indices: int, mixed: bool, n_sizes: int, sector_bytes: int) -> dict:
@@ -63,6 +93,34 @@ def probe_bound(keys: int, tested: int, salts: int, table_bits: int, mixed: bool
                   SECTOR * tested)
 
 
+def partition_bounds(plan, mixed: bool, n_sizes: int = 1, key_bytes: int = 0) -> dict:
+    """The bound of each partitioned kernel's launch on a mean chunk of
+    ``plan`` (``plan.count / plan.chunks`` keys): count reads the keys and
+    writes a histogram; scatter reads the keys and the histograms, writes
+    the stash; apply reads the stash and the table and writes the table;
+    count and scatter hash every index."""
+    keys = plan.count / plan.chunks
+    idx = keys * plan.n_salts
+    hist = 4 * plan.buckets * -(-keys // plan.tile_keys)
+    table = 4 * ((plan.table_size + 31) // 32)
+    out = {"bf_insert_count": _bound(keys * key_bytes + hist, idx, mixed, n_sizes, 0),
+           "bf_insert_scatter": _bound(keys * key_bytes + hist + 4 * idx, idx, mixed, n_sizes, 0),
+           "bf_insert_apply": _bound(4 * idx + 2 * table, 0, mixed, n_sizes, 0)}
+    for b in out.values():
+        del b["sector_ms"]
+    return out
+
+
+def design_floor(plan) -> float:
+    """Milliseconds of the insert's own floor (see the module's note)."""
+    idx = plan.count * plan.n_salts
+    table = 4 * ((plan.table_size + 31) // 32)
+    passes = 1 if plan.direct else plan.chunks
+    nbytes = 2 * table * passes + (0 if plan.direct else 8 * idx)
+    hashes = 1 if plan.direct else 2
+    return (nbytes / BYTES_PER_S + hashes * HASH_OPS * idx / MULS_PER_S) * 1e3
+
+
 def demo_runs(radius: int, repeats: int, dev) -> list[dict]:
     """The seal demo at ``radius``, ``repeats`` times: stages (ms), wall
     time, verdict and peak device memory of each run."""
@@ -85,11 +143,180 @@ def demo_runs(radius: int, repeats: int, dev) -> list[dict]:
     return runs
 
 
+def insert_split(fn, calls: int = 3) -> dict:
+    """Device milliseconds a call of ``fn`` under torch.profiler, by insert
+    kernel (``INSERT_KERNELS``), and ``total`` over every kernel of the
+    call (the buffers' zero fill included)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(INSERT_KERNELS, 0.0)
+    out["total"] = 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3 / calls
+        out["total"] += ms
+        m = re.search(r"(bf_insert\w*)_kernel", e.name)
+        if m and m.group(1) in out:
+            out[m.group(1)] += ms
+    return out
+
+
+def sweep(dev, card: str) -> list[dict]:
+    """The direct insert kernel's bit sets/s against the table's size (CUDA
+    events over back-to-back launches, after one warm-up launch)."""
+    import math
+
+    import torch
+
+    from .device import window_ms
+    from .ops import bloom_cuda
+    from .primitives.bloom import _PREDEF_SALT
+
+    sizes = [mb * 8_000_000 for mb in SWEEP_MB] + [1 << k for k in SWEEP_POW2]
+    rows = []
+    for n_salts in SWEEP_SALTS:
+        salts = torch.tensor(_PREDEF_SALT[:n_salts], dtype=torch.int64, device=dev)
+        for bits in sorted(sizes):
+            words = torch.zeros(bloom_cuda.words_for(bits), dtype=torch.int32, device=dev)
+            keys = round(bits * math.log(2) / n_salts)
+            blinded = (*SWEEP_KEYS, 0, keys)
+
+            def insert():
+                bloom_cuda.insert_direct(words, salts, (bits,), True, blinded=blinded)
+
+            insert()
+            sets = keys * n_salts
+            ms = window_ms(insert, max(5, min(100, 2_000_000_000 // sets)))
+            row = {"table_bits": bits, "table_mb": bits / 8e6, "salts": n_salts, "keys": keys,
+                   "ms": ms, "bit_sets_per_s": sets / ms * 1e3}
+            rows.append(row)
+            print(f"sweep direct: {row['table_mb']:.2f} MB ({bits} bits), {n_salts} salts, "
+                  f"{keys} keys: {ms:.4f} ms, {row['bit_sets_per_s'] / 1e9:.2f}G bit sets/s "
+                  f"[{card}]", flush=True)
+            del words
+    rows += _sweep_slices(dev, card)
+    return rows
+
+
+def _sweep_slices(dev, card: str) -> list[dict]:
+    """The partitioned insert of the demo's filters (fpp 1e-12, mixed, r^2
+    keys made in the kernels) at each slice of ``SWEEP_SLICES``, its table
+    held against the direct kernel's: the call's CUDA-event time and its
+    kernels' device times."""
+    import torch
+
+    from .device import window_ms
+    from .ops import bloom_cuda
+    from .primitives.bloom import BloomFilter, BloomParameters
+
+    rows = []
+    for radius in (4096, 8192):
+        p = BloomParameters(projected_element_count=radius * radius,
+                            false_positive_probability=1e-12, random_seed=0xA5A5A5A5,
+                            index_mode="mixed")
+        assert p.compute_optimal_parameters()
+        bf = BloomFilter(p, device=dev)
+        salts, sizes = bf._salts_device(), bf._sizes()
+        blinded = (*SWEEP_KEYS, 0, radius * radius)
+        direct = torch.zeros_like(bf.bits_device)
+        bloom_cuda.insert_direct(direct, salts, sizes, True, blinded=blinded)
+        for log2 in SWEEP_SLICES:
+            try:
+                plan = bloom_cuda.insert_plan(bf.table_size, bf.salt_count, radius * radius,
+                                              slice_log2=log2, partitioned=True)
+            except ValueError as e:
+                print(f"sweep partitioned r={radius}, slice 2^{log2}: {e}", flush=True)
+                continue
+            words = torch.zeros_like(direct)
+
+            def insert():
+                bloom_cuda.insert_partitioned(words, salts, sizes, True, blinded=blinded,
+                                              slice_log2=log2)
+
+            insert()
+            torch.cuda.synchronize()
+            assert torch.equal(words, direct), f"r={radius} slice 2^{log2}: differs from direct"
+            ms = window_ms(insert, 3)
+            split = insert_split(insert)
+            sets = radius * radius * bf.salt_count
+            rows.append({"radius": radius, "table_bits": bf.table_size, "slice_log2": log2,
+                         "buckets": plan.buckets, "chunks": plan.chunks, "ms": ms,
+                         "bit_sets_per_s": sets / ms * 1e3, "device_ms": split})
+            print(f"sweep partitioned r={radius} ({bf.table_size} bits), slice 2^{log2}: "
+                  f"{plan.buckets} buckets, {plan.chunks} chunks; equal to direct; {ms:.4f} ms "
+                  f"(events), {sets / ms / 1e6:.2f}G bit sets/s; device "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in split.items()) + f" ms [{card}]",
+                  flush=True)
+            del words
+        del bf, direct
+        torch.cuda.empty_cache()
+    return rows
+
+
+def inserts(dev, card: str) -> list[dict]:
+    """Each main-path filter's device insert, timed as the module's note
+    says (after one untimed insert; the bits are set again each time, the
+    same work)."""
+    import numpy as np
+    import torch
+
+    from .device import window_ms
+    from .primitives import Blinding, BloomFilter, BloomParameters, CompressibleBloomFilter
+    from .primitives.blinding import blinded_keys
+
+    def make(count, fpp, cls=BloomFilter):
+        p = BloomParameters(projected_element_count=count, false_positive_probability=fpp,
+                            random_seed=0xA5A5A5A5, index_mode="mixed")
+        assert p.compute_optimal_parameters()
+        return cls(p, device=dev)
+
+    cases = []
+    for radius, fpp in ((4096, 1e-12), (4096, 1e-4)):
+        bf, bl = make(radius * radius, fpp), Blinding.for_protocol(56, radius * radius, seed=7)
+        cases.append((f"r={radius} fpp {fpp:g} ({bf.table_size} bits, {bf.salt_count} salts; "
+                      f"{radius * radius} keys made in the kernels)",
+                      lambda bf=bf, bl=bl, sq=radius * radius: bf.insert_blind_distances(bl, sq)))
+    t, s, r, w = 1 << 20, 501, 99, 0xA5A5  # config[3]: keys of blind distances, as words
+    bf = make(r * r, 1e-4)
+    keys = blinded_keys(s * (torch.arange(r * r, device=dev) + r) % t, w, w.bit_length())
+    cases.append((f"config[3] r={r} ({bf.table_size} bits, {bf.salt_count} salts; {r * r} keys)",
+                  lambda bf=bf: bf.insert_u64_batch(*keys)))
+    bf = make(200_000, 1e-4, CompressibleBloomFilter)
+    assert bf.compress(30.0) and bf.compress(20.0)
+    rng = np.random.default_rng(15)
+    lo, hi = (torch.from_numpy(rng.integers(0, 1 << 32, 66_666, dtype=np.uint64).astype(np.int64))
+              .to(dev) for _ in range(2))
+    cases.append((f"compressible, sizes {bf.size_list} (66666 keys)",
+                  lambda bf=bf: bf.insert_u64_batch(lo, hi)))
+    rows = []
+    for tag, fn in cases:
+        fn()
+        split = insert_split(fn, calls=5)
+        ms = window_ms(fn, 5)
+        rows.append({"filter": tag, "device_ms": split["total"], "call_ms": ms})
+        print(f"inserts: {tag}: {split['total']:.4f} ms of kernels (profiler), the call "
+              f"{ms:.4f} ms (CUDA events) [{card}]", flush=True)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--radii", default="4096,8192")
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--json", default=None)
+    ap.add_argument("--sweep", action="store_true",
+                    help="time the direct insert kernel against the table's size instead")
+    ap.add_argument("--inserts", action="store_true",
+                    help="time the main paths' filters' device inserts instead")
     args = ap.parse_args(argv)
 
     import torch
@@ -99,6 +326,13 @@ def main(argv=None) -> int:
     dev = cuda_device(0)
     card = smi_line()
     print(f"measure_bloom: {card}", flush=True)
+    if args.sweep or args.inserts:
+        out = {"card": card, **({"sweep": sweep(dev, card)} if args.sweep else {}),
+               **({"inserts": inserts(dev, card)} if args.inserts else {})}
+        if args.json:
+            with open(args.json, "w") as f:
+                json.dump(out, f, indent=1)
+        return 0
     out = {"card": card, "runs": []}
     t0 = time.perf_counter()
     demo_runs(128, 1, dev)  # builds and loads the kernels the demo runs

@@ -3,12 +3,22 @@
 They replace no Pallas kernel: the reference runs its Bloom filter as XLA
 (``pplp_tpu/primitives/bloom.py``: ``_insert_scan_fn``, ``_contains_fn``,
 the size chain's ``_chain_insert_fn`` / ``_chain_contains_fn``) and in its
-native library (``pplp_bf_indices_u64``, ``pplp_bf_insert_u64``). Two
-kernels, each one launch a call, on a packed table of u32 words (an int32
-tensor holding the bits, ``ceil(table_size / 32)`` words):
+native library (``pplp_bf_indices_u64``, ``pplp_bf_insert_u64``). They work
+on a packed table of u32 words (an int32 tensor holding the bits,
+``ceil(table_size / 32)`` words):
 
-* ``insert_cuda`` sets the bits of every key against every salt;
-* ``probe_cuda`` returns, per key, whether every salt's bit is set (bool).
+* ``insert_cuda`` sets the bits of every key against every salt. A table of
+  at most ``DIRECT_MAX_BITS`` bits, which stays in L2 while its bits are
+  set, takes the direct kernel ``bf_insert``: one launch, one thread a key,
+  a RED a bit. A larger one is cut into buckets, slices of ``2^SLICE_LOG2``
+  bits, and its keys into chunks whose stash of u32 indices is no larger
+  than the table; each chunk is three launches: ``bf_insert_count`` (a
+  histogram of buckets), ``bf_insert_scatter`` (the indices sorted by
+  bucket into the stash) and ``bf_insert_apply`` (the stash's REDs, one
+  slice live in L2 at a time). ``insert_plan`` gives the route, the
+  buckets, the chunks and the launches;
+* ``probe_cuda`` returns, per key, whether every salt's bit is set (bool),
+  in one launch.
 
 Keys come as int64 (lo, hi) 32-bit word tensors (``keys=(lo, hi)``), or are
 made by the kernel: ``blinded=(s, r, w, w_len, start, count)`` inserts the
@@ -18,27 +28,41 @@ int64 tensor bd of values below 2^32. ``sizes`` is the size chain (one size
 for a plain filter), ending at the table size. The plain versions are
 ``primitives.bloom``'s (the unpacked table, ``index_fill_``, a gather); the
 filter dispatches on its table's device. ``launches_by_kernel`` counts the
-launches.
+launches by kernel. No insert waits for the card: the stash's offsets are
+scanned on the device.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from . import cuda_build
 
-__all__ = ["insert_cuda", "probe_cuda", "words_for", "launches_by_kernel", "reset_launches",
-           "MAX_SALTS", "MAX_SIZES"]
+__all__ = ["insert_cuda", "insert_direct", "insert_partitioned", "insert_plan", "InsertPlan",
+           "partition_buffers", "count_cuda", "scatter_cuda", "apply_cuda", "probe_cuda",
+           "words_for", "launches_by_kernel", "reset_launches", "MAX_SALTS", "MAX_SIZES",
+           "SLICE_LOG2", "DIRECT_MAX_BITS"]
 
 SOURCE = cuda_build.CSRC / "bloom.cu"
 MAX_SALTS = 128  # the reference's salt table (bloomfilter.h:468-490)
 MAX_SIZES = 32  # a compressed filter's size chain
 _WORDS, _BLINDED, _BLIND_DISTANCES = 0, 1, 2
+# The partitioned insert, from the direct kernel's rate against the table's
+# size on the card (``measure_bloom --sweep``; the figures are in
+# ``csrc/bloom.cu``'s header): a bucket is a slice of 2^SLICE_LOG2 bits, and
+# a table of at most DIRECT_MAX_BITS bits takes the direct kernel.
+SLICE_LOG2 = 27
+DIRECT_MAX_BITS = 352_000_000
+MAX_BUCKETS = 32  # csrc/bloom.cu: kMaxBuckets
+TILE_ELEMS = 10240  # indices a block sorts in shared memory (kTileElems)
+THREADS = 256  # keys a block at most (kThreads)
 
-launches_by_kernel = {"bf_insert": 0, "bf_probe": 0}
+launches_by_kernel = {"bf_insert": 0, "bf_insert_count": 0, "bf_insert_scatter": 0,
+                      "bf_insert_apply": 0, "bf_probe": 0}
 
 
 def reset_launches():
@@ -51,6 +75,13 @@ def _declare(lib):
                          ctypes.c_ulonglong)
     lib.pplp_bf_insert.argtypes = [vp, vp, i, vp, i, i, i, vp, vp, ull, ull, ull, u, i, ll, vp]
     lib.pplp_bf_insert.restype = ctypes.c_int
+    part = [vp, i, vp, i, i, i, vp, vp, ull, ull, ull, u, i, ll, i, i, i]
+    lib.pplp_bf_insert_count.argtypes = [*part, vp, vp, vp]
+    lib.pplp_bf_insert_count.restype = ctypes.c_int
+    lib.pplp_bf_insert_scatter.argtypes = [*part, vp, vp, vp, vp]
+    lib.pplp_bf_insert_scatter.restype = ctypes.c_int
+    lib.pplp_bf_insert_apply.argtypes = [vp, vp, ll, vp]
+    lib.pplp_bf_insert_apply.restype = ctypes.c_int
     lib.pplp_bf_probe.argtypes = [vp, ll, vp, i, vp, i, i, i, vp, vp, u, i, ll, vp, vp]
     lib.pplp_bf_probe.restype = ctypes.c_int
 
@@ -108,32 +139,237 @@ def _stream(words: torch.Tensor) -> int:
     return torch.cuda.current_stream(words.device).cuda_stream
 
 
-def insert_cuda(words: torch.Tensor, salts: torch.Tensor, sizes, mixed: bool, *,
-                keys=None, blinded=None):
-    """Set the bits of the keys in the packed table ``words``, in place:
-    ``keys=(lo, hi)`` int64 word tensors [K], or ``blinded=(s, r, w, w_len,
-    start, count)``. One launch (none for no key)."""
-    chain = _check_table(words, salts, sizes)
+@dataclass(frozen=True)
+class InsertPlan:
+    """How ``insert_cuda`` sets ``count`` keys' bits in a table of
+    ``table_size`` bits at ``n_salts`` salts: ``direct``, or ``chunks``
+    chunks of ``chunk_keys`` keys (the last one ragged), each partitioned
+    into ``buckets`` slices of 2^``slice_log2`` bits by blocks of
+    ``tile_keys`` keys."""
+
+    table_size: int
+    n_salts: int
+    count: int
+    direct: bool
+    slice_log2: int
+    buckets: int
+    tile_keys: int
+    chunk_keys: int
+    chunks: int
+
+    def launches(self) -> dict:
+        """Launches by kernel of the insert."""
+        if self.direct:
+            return {"bf_insert": int(self.count > 0)}
+        return {k: self.chunks for k in ("bf_insert_count", "bf_insert_scatter",
+                                         "bf_insert_apply")}
+
+
+def insert_plan(table_size: int, n_salts: int, count: int, *, slice_log2: int | None = None,
+                partitioned: bool = False) -> InsertPlan:
+    """The route of an insert: the direct kernel for a table of at most
+    ``DIRECT_MAX_BITS`` bits (unless ``partitioned``), else buckets of
+    2^``slice_log2`` bits (default ``SLICE_LOG2``) and chunks of keys whose
+    stash (chunk keys x salts u32 indices) and per-block histograms (a u32
+    a bucket, fewer than one a key) are together no larger than the table's
+    words; a chunk is a whole number of blocks' tiles. Raises on what the
+    partitioned kernels do not take."""
+    slice_log2 = SLICE_LOG2 if slice_log2 is None else slice_log2
+    if not 1 <= n_salts <= MAX_SALTS:
+        raise ValueError(f"1 to {MAX_SALTS} salts, got {n_salts}")
+    if not 0 < table_size < (1 << 32):
+        raise ValueError(f"a table of 1 to 2^32 - 1 bits, got {table_size}")
+    tile_keys = min(THREADS, TILE_ELEMS // n_salts)
+    if not partitioned and table_size <= DIRECT_MAX_BITS:
+        return InsertPlan(table_size, n_salts, count, True, slice_log2, 1, tile_keys, count,
+                          int(count > 0))
+    if not 5 <= slice_log2 <= 31:
+        raise ValueError(f"a slice of 2^5 to 2^31 bits, got 2^{slice_log2}")
+    buckets = -(-table_size // (1 << slice_log2))
+    if buckets > MAX_BUCKETS:
+        raise ValueError(f"{buckets} buckets of 2^{slice_log2} bits; at most {MAX_BUCKETS}")
+    chunk_keys = words_for(table_size) // (n_salts + 1) // tile_keys * tile_keys
+    if chunk_keys < tile_keys:
+        raise ValueError(f"a table of {table_size} bits holds no stash of {tile_keys} keys at "
+                         f"{n_salts} salts")
+    return InsertPlan(table_size, n_salts, count, False, slice_log2, buckets, tile_keys,
+                      chunk_keys, -(-count // chunk_keys))
+
+
+def _key_args(words, keys, blinded) -> tuple:
+    """(source, lo, hi, s, r, start, w, w_len, count) of the keys: ``keys=(lo,
+    hi)`` int64 word tensors, or ``blinded=(s, r, w, w_len, start, count)``;
+    lo and hi are tensors (or None)."""
     if (keys is None) == (blinded is None):
         raise ValueError("give keys or blinded")
     if keys is not None:
         lo, hi = keys
-        count = _check_keys(words, lo, hi)
-        args = (_WORDS, lo.data_ptr(), hi.data_ptr(), 0, 0, 0, 0, 0, count)
+        return (_WORDS, lo, hi, 0, 0, 0, 0, 0, _check_keys(words, lo, hi))
+    s, r, w, w_len, start, count = (int(v) for v in blinded)
+    _check_w(w, w_len, 64)
+    if not (0 <= s < (1 << 64) and 0 <= r < (1 << 64) and 0 <= start and 0 <= count):
+        raise ValueError(f"bad blinded range {blinded}")
+    return (_BLINDED, None, None, s, r, start, w, w_len, count)
+
+
+def _chunk(key_args, first: int, count: int) -> tuple:
+    """The C key arguments of keys [first, first + count) of ``key_args``."""
+    source, lo, hi, s, r, start, w, w_len, _ = key_args
+    if source == _WORDS:
+        return (source, lo.data_ptr() + 8 * first, hi.data_ptr() + 8 * first, 0, 0, 0, 0, 0,
+                count)
+    return (source, None, None, s, r, start + first, w, w_len, count)
+
+
+def insert_cuda(words: torch.Tensor, salts: torch.Tensor, sizes, mixed: bool, *,
+                keys=None, blinded=None):
+    """Set the bits of the keys in the packed table ``words``, in place:
+    ``keys=(lo, hi)`` int64 word tensors [K], or ``blinded=(s, r, w, w_len,
+    start, count)``. The direct kernel for a table of at most
+    ``DIRECT_MAX_BITS`` bits, else the partitioned insert (``insert_plan``)."""
+    chain = _check_table(words, salts, sizes)
+    key_args = _key_args(words, keys, blinded)
+    plan = insert_plan(int(chain[-1]), salts.numel(), key_args[-1])
+    if plan.direct:
+        _direct(words, salts, chain, mixed, key_args)
     else:
-        s, r, w, w_len, start, count = (int(v) for v in blinded)
-        _check_w(w, w_len, 64)
-        if not (0 <= s < (1 << 64) and 0 <= r < (1 << 64) and 0 <= start and 0 <= count):
-            raise ValueError(f"bad blinded range {blinded}")
-        args = (_BLINDED, None, None, s, r, start, w, w_len, count)
-    if args[-1] == 0:
+        _partitioned(words, salts, chain, mixed, key_args, plan)
+
+
+def insert_direct(words: torch.Tensor, salts: torch.Tensor, sizes, mixed: bool, *,
+                  keys=None, blinded=None):
+    """``insert_cuda`` through the direct kernel at any table size: one
+    launch (none for no key). ``measure_bloom --sweep`` times it."""
+    chain = _check_table(words, salts, sizes)
+    _direct(words, salts, chain, mixed, _key_args(words, keys, blinded))
+
+
+def insert_partitioned(words: torch.Tensor, salts: torch.Tensor, sizes, mixed: bool, *,
+                       keys=None, blinded=None, slice_log2: int | None = None):
+    """``insert_cuda`` through the partitioned kernels at any table size
+    that gives at most ``MAX_BUCKETS`` buckets of 2^``slice_log2`` bits."""
+    chain = _check_table(words, salts, sizes)
+    key_args = _key_args(words, keys, blinded)
+    plan = insert_plan(int(chain[-1]), salts.numel(), key_args[-1], slice_log2=slice_log2,
+                       partitioned=True)
+    _partitioned(words, salts, chain, mixed, key_args, plan)
+
+
+def _direct(words, salts, chain, mixed, key_args):
+    count = key_args[-1]
+    if count == 0:
         return
     lib = load()
     code = lib.pplp_bf_insert(words.data_ptr(), salts.data_ptr(), salts.numel(),
-                              chain.ctypes.data, chain.size, int(mixed), *args,
-                              _stream(words))
+                              chain.ctypes.data, chain.size, int(mixed),
+                              *_chunk(key_args, 0, count), _stream(words))
     cuda_build.check(code, lib, "bf_insert")
     launches_by_kernel["bf_insert"] += 1
+
+
+def partition_buffers(plan: InsertPlan, device) -> tuple:
+    """(stash, hist, counts) of a partitioned insert, as int32 tensors: the
+    stash of one chunk's indices (u32 [chunk_keys * n_salts]), the blocks'
+    histograms (u32 [chunk_keys / tile_keys, buckets]) and each chunk's
+    totals and cursors (u32 [chunks, 2 * buckets], zero)."""
+    stash = torch.empty(plan.chunk_keys * plan.n_salts, dtype=torch.int32, device=device)
+    hist = torch.empty(plan.chunk_keys // plan.tile_keys, plan.buckets, dtype=torch.int32,
+                       device=device)
+    counts = torch.zeros(plan.chunks, 2 * plan.buckets, dtype=torch.int32, device=device)
+    return stash, hist, counts
+
+
+def _head(salts, chain, mixed, key_c, plan) -> tuple:
+    return (salts.data_ptr(), salts.numel(), chain.ctypes.data, chain.size, int(mixed), *key_c,
+            plan.tile_keys, plan.slice_log2, plan.buckets)
+
+
+def _count(lib, head, hist, counts, st):
+    cuda_build.check(lib.pplp_bf_insert_count(*head, hist.data_ptr(), counts.data_ptr(), st),
+                     lib, "bf_insert_count")
+    launches_by_kernel["bf_insert_count"] += 1
+
+
+def _scatter(lib, head, hist, counts, stash, st):
+    cuda_build.check(lib.pplp_bf_insert_scatter(*head, hist.data_ptr(), counts.data_ptr(),
+                                                stash.data_ptr(), st), lib, "bf_insert_scatter")
+    launches_by_kernel["bf_insert_scatter"] += 1
+
+
+def _apply(lib, words, stash, n, st):
+    cuda_build.check(lib.pplp_bf_insert_apply(words.data_ptr(), stash.data_ptr(), n, st), lib,
+                     "bf_insert_apply")
+    launches_by_kernel["bf_insert_apply"] += 1
+
+
+def _partitioned(words, salts, chain, mixed, key_args, plan: InsertPlan):
+    """Each chunk of keys: count, scatter into the stash, apply; the buffers
+    are made once an insert, on the table's stream."""
+    count = key_args[-1]
+    if count == 0:
+        return
+    lib, st = load(), _stream(words)
+    stash, hist, counts = partition_buffers(plan, words.device)
+    for c in range(plan.chunks):
+        first = c * plan.chunk_keys
+        n = min(plan.chunk_keys, count - first)
+        head = _head(salts, chain, mixed, _chunk(key_args, first, n), plan)
+        _count(lib, head, hist, counts[c], st)
+        _scatter(lib, head, hist, counts[c], stash, st)
+        _apply(lib, words, stash, n * plan.n_salts, st)
+
+
+def _check_step(words, salts, sizes, plan: InsertPlan, keys, blinded, hist, counts, stash=None):
+    """The checks of a step on one chunk: the table, the plan, the chunk's
+    keys and the buffers; returns (chain, key arguments)."""
+    chain = _check_table(words, salts, sizes)
+    if plan.direct or (plan.table_size, plan.n_salts) != (int(chain[-1]), salts.numel()):
+        raise ValueError(f"{plan} is not a partition of this table and these salts")
+    key_args = _key_args(words, keys, blinded)
+    if key_args[-1] > plan.chunk_keys:
+        raise ValueError(f"a chunk of at most {plan.chunk_keys} keys, got {key_args[-1]}")
+    need = ((hist, plan.chunk_keys // plan.tile_keys * plan.buckets), (counts, 2 * plan.buckets),
+            (stash, plan.chunk_keys * plan.n_salts))
+    for buf, size in need:
+        if buf is not None and (buf.device != words.device or buf.dtype != torch.int32
+                                or not buf.is_contiguous() or buf.numel() != size):
+            raise ValueError(f"need a contiguous int32 buffer of {size} on {words.device}")
+    return chain, key_args
+
+
+def count_cuda(words, salts, sizes, mixed: bool, plan: InsertPlan, hist, counts, *, keys=None,
+               blinded=None):
+    """``bf_insert_count`` on one chunk of the keys of an insert into
+    ``words`` (at most ``plan.chunk_keys``): the blocks' histograms of
+    buckets into ``hist`` and the chunk's totals added into ``counts[:B]``,
+    a row of ``partition_buffers``' counts. One launch (none for no key)."""
+    chain, key_args = _check_step(words, salts, sizes, plan, keys, blinded, hist, counts)
+    if key_args[-1]:
+        _count(load(), _head(salts, chain, mixed, _chunk(key_args, 0, key_args[-1]), plan),
+               hist, counts, _stream(words))
+
+
+def scatter_cuda(words, salts, sizes, mixed: bool, plan: InsertPlan, hist, counts, stash, *,
+                 keys=None, blinded=None):
+    """``bf_insert_scatter`` on the chunk that ``count_cuda`` counted into
+    ``hist`` and ``counts``: its indices sorted by bucket into the stash's
+    first keys x salts words. One launch (none for no key)."""
+    chain, key_args = _check_step(words, salts, sizes, plan, keys, blinded, hist, counts, stash)
+    if key_args[-1]:
+        _scatter(load(), _head(salts, chain, mixed, _chunk(key_args, 0, key_args[-1]), plan),
+                 hist, counts, stash, _stream(words))
+
+
+def apply_cuda(words, stash, n: int):
+    """``bf_insert_apply``: the stash's first ``n`` indices (below the
+    table's bits) set in ``words``, in place. One launch (none for n = 0)."""
+    if not (words.is_cuda and stash.device == words.device and words.dtype == stash.dtype ==
+            torch.int32 and words.is_contiguous() and stash.is_contiguous()):
+        raise ValueError("apply takes contiguous int32 words and stash on one CUDA device")
+    if not 0 <= n <= stash.numel():
+        raise ValueError(f"{n} indices of a stash of {stash.numel()}")
+    if n:
+        _apply(load(), words, stash, n, _stream(words))
 
 
 def probe_cuda(words: torch.Tensor, salts: torch.Tensor, sizes, mixed: bool, *,

@@ -116,7 +116,7 @@ def blind_distance_keys(blinding: Blinding, sq_radius: int, device,
     2^16); the tail of the last one repeats its last valid key (an OR-scatter
     insert is idempotent), and ``count`` is how many leading keys are fresh.
     This is the plain version: a packed filter on the card makes the same
-    keys inside its insert kernel (``BloomFilter.insert_blind_distances``).
+    keys inside its insert kernels (``BloomFilter.insert_blind_distances``).
     """
     chunk = min(chunk, 1 << 16)
     steps = torch.arange(chunk, dtype=torch.int64, device=device)

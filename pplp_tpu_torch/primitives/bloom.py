@@ -6,8 +6,10 @@ verbatim. The batch insert (AP hash of u64 keys against every salt, index,
 OR into the bit table) and the batch probe run on the filter's device:
 
 * on a CUDA device the table is packed, ``ceil(table_size / 32)`` u32
-  words (an int32 tensor), and every insert and probe is one launch of the
-  hand-written kernels ``csrc/bloom.cu`` (``ops/bloom_cuda.py``). On a
+  words (an int32 tensor), and every insert and probe runs the
+  hand-written kernels ``csrc/bloom.cu`` (``ops/bloom_cuda.py``: a probe
+  is one launch, an insert one launch into a table that fits in L2 and
+  three a chunk of keys into a larger one). On a
   little-endian host the words' bytes are the wire's packed table, so
   serializing copies them as they are. At r = 8192 and fpp 1e-12 the table
   is 482.4 MB on the card;
@@ -282,8 +284,10 @@ def insert(table, salts, sizes, mixed: bool, *, keys=None, blinded=None):
     start, count)``: the keys ((s (di + r) mod 2^64) << w_len) | w for di in
     [start, start + count), s and r below 2^32. ``sizes``: the size chain, or
     the table size. A table on a CUDA device is packed and goes to the
-    ``bf_insert`` kernel (one launch); on the CPU the plain version runs, on
-    the unpacked table or on the words unpacked and packed again."""
+    insert kernels (``bloom_cuda.insert_cuda``: the direct kernel for a
+    table that fits in L2, else the partitioned ones); on the CPU the plain
+    version runs, on the unpacked table or on the words unpacked and packed
+    again."""
     sizes = _chain(sizes)
     if table.is_cuda:
         bloom_cuda.insert_cuda(table, salts, sizes, mixed, keys=keys, blinded=blinded)
@@ -458,7 +462,7 @@ class BloomFilter:
     def insert_blind_distances(self, blinding, sq_radius: int):
         """Insert the server's keys ((s (di + r) mod 2^64) << w_len) | w for
         di < ``sq_radius`` (``blinding``: a ``Blinding``). A packed table
-        makes the keys inside the insert kernel, one launch for all of them;
+        makes the keys inside the insert kernels, one insert for all of them;
         an unpacked one takes ``blind_distance_keys``'s chunks, as the
         reference does. ``inserted_element_count`` grows by ``sq_radius``
         either way, as the reference's does."""

@@ -151,8 +151,8 @@ class ProximityServer:
         self.ctx = BFVContext.build(self.parms, self.device)
 
     def build_bloom_filter(self):
-        """r^2 blinded-key inserts on the device: on the card one launch of
-        the insert kernel that makes the keys itself
+        """r^2 blinded-key inserts on the device: on the card one insert
+        whose kernels make the keys themselves
         (``BloomFilter.insert_blind_distances``)."""
         cfg = self.cfg
         p = BloomParameters(

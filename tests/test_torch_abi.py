@@ -56,3 +56,18 @@ def test_argtypes_match_the_c_entry_points(wrapper):
         kinds = ["p" if t is ctypes.c_void_p else "i" for t in fn.argtypes]
         assert kinds == c_side[name], f"{name}: declared {kinds}, C takes {c_side[name]}"
         assert fn.restype is ctypes.c_int
+
+
+def test_bloom_entry_points():
+    """``csrc/bloom.cu`` exports the direct insert, the partitioned insert's
+    three steps and the probe, and ``bloom_cuda._declare`` declares each:
+    the steps take the chunk's keys and partition (17 arguments) before
+    their buffers and stream."""
+    lib = _Library()
+    bloom_cuda._declare(lib)
+    c_side = _entry_points(bloom_cuda.SOURCE)
+    names = {"pplp_bf_insert", "pplp_bf_insert_count", "pplp_bf_insert_scatter",
+             "pplp_bf_insert_apply", "pplp_bf_probe"}
+    assert set(c_side) - {"pplp_cuda_error_string"} == names == set(lib.functions)
+    steps = [len(c_side[f"pplp_bf_insert_{k}"]) for k in ("count", "scatter", "apply")]
+    assert steps == [20, 21, 4]

@@ -330,3 +330,52 @@ def test_device_paths_refuse_a_table_they_cannot_run():
     with pytest.raises(ValueError, match="CUDA tensors"):
         bloom_cuda.probe_cuda(torch.zeros(2, dtype=torch.int32), salts, (64,), True, keys=keys)
     assert not prim.BloomFilter(_params(prim, 100, 1e-3, "mixed"), device="cpu").packed
+
+
+def test_insert_plan_routes_and_refusals():
+    """``bloom_cuda.insert_plan``: the direct kernel for a table of at most
+    DIRECT_MAX_BITS bits (config[3]'s, the client/server filter's 40.2 MB),
+    the partitioned kernels above it (the demo's r = 4096 and 8192: 23
+    chunks whose stash and histograms fit in the table's words, at most
+    MAX_BUCKETS buckets); it raises on what the kernels do not take, and
+    the step wrappers refuse CPU tensors."""
+    from pplp_tpu_torch.ops import bloom_cuda
+
+    def plan(r, fpp, **kw):
+        p = _params(prim, r * r, fpp, "mixed")
+        return bloom_cuda.insert_plan(p.table_size, p.number_of_hashes, r * r, **kw)
+
+    assert plan(99, 1e-4).launches() == {"bf_insert": 1}
+    cs = plan(4096, 1e-4)
+    assert cs.direct and cs.table_size == 321_668_808 <= bloom_cuda.DIRECT_MAX_BITS
+    for r, buckets in ((4096, 8), (8192, 29)):
+        p = plan(r, 1e-12)
+        assert not p.direct and (p.buckets, p.chunks, p.tile_keys) == (buckets, 23, 256)
+        assert p.launches() == dict.fromkeys(("bf_insert_count", "bf_insert_scatter",
+                                              "bf_insert_apply"), 23)
+        words = bloom_cuda.words_for(p.table_size)
+        assert p.chunk_keys * (p.n_salts + 1) <= words and p.chunk_keys % p.tile_keys == 0
+    assert plan(4096, 1e-4, partitioned=True).buckets == 3
+    assert bloom_cuda.insert_plan(1000, 128, 5).tile_keys == 80
+    with pytest.raises(ValueError, match="buckets"):
+        plan(8192, 1e-12, slice_log2=26)
+    with pytest.raises(ValueError, match="slice"):
+        plan(4096, 1e-12, slice_log2=4)
+    with pytest.raises(ValueError, match="no stash"):
+        bloom_cuda.insert_plan(100_000, 40, 10, partitioned=True, slice_log2=12)
+    with pytest.raises(ValueError, match="salts"):
+        bloom_cuda.insert_plan(100_000, 129, 10)
+    p = bloom_cuda.insert_plan(1 << 20, 13, 5000, partitioned=True, slice_log2=16)
+    words = torch.zeros(bloom_cuda.words_for(p.table_size), dtype=torch.int32)
+    salts = torch.ones(p.n_salts, dtype=torch.int64)
+    stash, hist, counts = bloom_cuda.partition_buffers(p, "cpu")
+    assert stash.numel() + hist.numel() <= words.numel() and counts.shape == (3, 32)
+    blinded = (3, 5, 1, 1, 0, p.chunk_keys)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        bloom_cuda.count_cuda(words, salts, (p.table_size,), True, p, hist, counts[0],
+                              blinded=blinded)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        bloom_cuda.scatter_cuda(words, salts, (p.table_size,), True, p, hist, counts[0], stash,
+                                blinded=blinded)
+    with pytest.raises(ValueError, match="CUDA"):
+        bloom_cuda.apply_cuda(words, stash, 4)

@@ -12,8 +12,17 @@ wire's table. It is held against ``pplp_tpu.primitives.bloom``'s
 against the port's plain version, and the fused key sources against
 ``blind_distance_keys`` (the tail chunk included) and the reference
 pipeline's key formation. At r = 8192's 3,859,468,176 bits (above 2^31) it
-checks indices and word indices without allocating the table. Exact
-comparisons throughout; no card needed.
+checks indices and word indices without allocating the table.
+
+The partitioned insert (a table above ``DIRECT_MAX_BITS``) is modelled
+chunk by chunk as ``bf_insert_count``, ``bf_insert_scatter`` and
+``bf_insert_apply`` run it: each index's bucket by a u32 shift, per-tile
+and per-chunk counts, exclusive-scan offsets, a stash that holds every
+(key, salt) index once inside its bucket's range, and the stash applied in
+bucket order; held bit for bit against ``model_insert`` and the reference's
+bytes, on ragged last buckets and chunks, chains of sizes, chunk starts of
+the blinded source, and r = 8192's bucket ids past 2^31. Exact comparisons
+throughout; no card needed.
 """
 
 import sys
@@ -84,6 +93,73 @@ def model_probe(words: np.ndarray, idx: np.ndarray) -> np.ndarray:
 def model_bytes(words: np.ndarray, table_size: int) -> bytes:
     assert sys.byteorder == "little"
     return words.view(np.uint8)[:table_size // 8].tobytes()
+
+
+# --- the partitioned insert ----------------------------------------------
+
+def model_buckets(idx: np.ndarray, slice_log2: int) -> np.ndarray:
+    """bucket = idx >> slice_log2, a u32 shift."""
+    return idx.astype(U32) >> U32(slice_log2)
+
+
+def model_count(idx: np.ndarray, tile_keys: int, slice_log2: int, n_buckets: int):
+    """bf_insert_count on one chunk's indices [S, K]: each tile's (block's)
+    histogram of buckets [tiles, B] and the chunk's totals [B]."""
+    b = model_buckets(idx, slice_log2)
+    tile = np.broadcast_to(np.arange(idx.shape[1]) // tile_keys, idx.shape)
+    hist = np.zeros((-(-idx.shape[1] // tile_keys), n_buckets), U32)
+    np.add.at(hist, (tile.reshape(-1), b.reshape(-1)), U32(1))
+    return hist, hist.sum(axis=0, dtype=U32)
+
+
+def exclusive_scan(c: np.ndarray) -> np.ndarray:
+    return (np.cumsum(c, dtype=U32) - c).astype(U32)
+
+
+def model_scatter(idx: np.ndarray, hist, totals, tile_keys: int, slice_log2: int):
+    """bf_insert_scatter: every tile reserves its run of each bucket (the
+    bucket's chunk offset, the exclusive scan of totals, plus a cursor; the
+    kernel's blocks reserve in any order, the model in tile order), sorts
+    its indices by bucket (a thread a key, its salts in order) and writes
+    them out in order. Returns the stash and the buckets' offsets."""
+    offsets = exclusive_scan(totals)
+    cursors = np.zeros_like(totals)
+    stash = np.full(int(totals.sum()), 0xFFFFFFFF, U32)
+    for t in range(hist.shape[0]):
+        tile = idx[:, t * tile_keys:(t + 1) * tile_keys].T.reshape(-1)  # key-major
+        local = exclusive_scan(hist[t])
+        dst = offsets + cursors
+        cursors += hist[t]
+        b = model_buckets(tile, slice_log2)
+        order = np.argsort(b, kind="stable")
+        sorted_tile, sb = tile[order], b[order]
+        j = np.arange(sorted_tile.size, dtype=U32)
+        stash[dst[sb] + (j - local[sb])] = sorted_tile
+    return stash, offsets
+
+
+def model_partitioned(words, keys_of, count, salts, sizes, mixed, plan):
+    """The partitioned insert of keys ``keys_of(first, n)`` (u64 keys
+    [first, first + n)) into ``words``, chunk by chunk; checks each chunk's
+    stash and returns the chunks' (stash, offsets, totals)."""
+    chunks = []
+    for first in range(0, count, plan.chunk_keys):
+        n = min(plan.chunk_keys, count - first)
+        idx = model_indices(keys_of(first, n), salts, sizes, mixed)
+        hist, totals = model_count(idx, plan.tile_keys, plan.slice_log2, plan.buckets)
+        stash, offsets = model_scatter(idx, hist, totals, plan.tile_keys, plan.slice_log2)
+        # Every (key, salt) index once, each inside its bucket's range.
+        assert stash.size == idx.size
+        assert np.array_equal(np.sort(stash), np.sort(idx.reshape(-1)))
+        b = model_buckets(stash, plan.slice_log2)
+        pos = np.arange(stash.size)
+        assert ((offsets[b] <= pos) & (pos < offsets[b] + totals[b])).all()
+        assert (np.diff(b.astype(np.int64)) >= 0).all()  # sorted by bucket
+        # The stash and the histograms fit in the table's words.
+        assert stash.size + hist.size <= words.size
+        model_insert(words, stash)  # bf_insert_apply: the stash in order
+        chunks.append((stash, offsets, totals))
+    return chunks
 
 
 def _params(mod, count, fpp, mode):
@@ -244,3 +320,111 @@ def test_model_words_are_the_plain_filters_bytes():
         assert bf.inserted_element_count == sq
         if packed:
             assert np.array_equal(bf.bits_device.numpy().view(U32), words)
+
+
+# --- the partitioned insert against the reference -------------------------
+
+SLICE = 16  # 65,536-bit slices: the kernels' arithmetic on small tables
+RAGGED = 5 * (1 << SLICE) + 776  # a table with a ragged last bucket of 776 bits
+
+
+@pytest.mark.parametrize("case", ["just above one slice", "ragged last bucket", "two sizes",
+                                  "three sizes", "128 salts"])
+@pytest.mark.parametrize("mode", ["reference", "mixed"])
+def test_partitioned_model_matches_reference(case, mode):
+    """The partitioned model's words equal ``model_insert`` of every index
+    and the reference's ``_pack_bits_fn`` bytes of its unpacked table, with
+    a key count that is not a multiple of the chunk; the chain's indices
+    are the reference's ``_indices`` / ``_chain_indices``."""
+    sizes = {"just above one slice": ((1 << 17) + 8,), "ragged last bucket": (RAGGED,),
+             "two sizes": (2 * RAGGED, RAGGED), "three sizes": (3 * RAGGED + 8, 2 * RAGGED, RAGGED),
+             "128 salts": (3 * RAGGED,)}[case]
+    slice_log2 = 17 if case == "just above one slice" else SLICE
+    salts = np.asarray(bloom._PREDEF_SALT[:128 if case == "128 salts" else 13], U32)
+    mixed, ts = mode == "mixed", sizes[-1]
+    plan = bloom_cuda.insert_plan(ts, salts.size, 1, slice_log2=slice_log2, partitioned=True)
+    count = 2 * plan.chunk_keys + 123
+    keys = _keys(count, 7)
+    assert plan.buckets == -(-ts // (1 << slice_log2)) and ts % (1 << slice_log2)
+    words = np.zeros(bloom_cuda.words_for(ts), U32)
+    chunks = model_partitioned(words, lambda a, n: keys[a:a + n], count, salts, sizes, mixed,
+                               plan)
+    assert len(chunks) == 3 == -(-count // plan.chunk_keys)
+    idx = model_indices(keys, salts, sizes, mixed)
+    lo, hi = model_key_words(keys)
+    jl, jh, js = jnp.asarray(lo), jnp.asarray(hi), jnp.asarray(salts)
+    want = (rbloom._indices(jl, jh, js, jnp.uint32(ts), mixed) if len(sizes) == 1 else
+            rbloom._chain_indices(jl, jh, js, sizes, mixed))
+    assert np.array_equal(idx, np.asarray(want))
+    direct = np.zeros_like(words)
+    model_insert(direct, idx)
+    assert np.array_equal(words, direct)
+    bits = np.zeros(ts, np.uint8)
+    bits[idx.reshape(-1)] = 1
+    packed = np.asarray(rbloom._pack_bits_fn(ts)(jnp.asarray(bits)))
+    assert model_bytes(words, ts) == packed.tobytes()
+
+
+_UNSAFE = prim.Blinding.deterministic(7)  # safe_blinding=False at seed 7
+
+
+@pytest.mark.parametrize("s,r,w,sq_radius", [
+    (0xFEDCBA98, 0xFFFFFFF0, 0xBEEF, 70_001),
+    # the seed's full 32-bit s and r at r = 400 (test_torch_protocol.py's
+    # test_unsafe_blinding_matches_reference)
+    (_UNSAFE.s, _UNSAFE.r, _UNSAFE.w, 400 * 400),
+])
+def test_partitioned_chunk_starts_of_the_blinded_source(s, r, w, sq_radius):
+    """The blinded source cut into chunks (each chunk's keys from start +
+    its first key) gives ``blind_distance_keys``' keys, the port's and the
+    reference's, and the partitioned model's words equal the direct
+    model's over the whole range."""
+    bl = prim.Blinding(r=r, s=s, w=w)
+    salts = np.asarray(bloom._PREDEF_SALT[:13], U32)
+    plan = bloom_cuda.insert_plan(RAGGED, 13, sq_radius, slice_log2=SLICE, partitioned=True)
+    assert sq_radius % plan.chunk_keys and plan.chunks >= 2
+
+    def keys_of(first, n):
+        return model_blinded_range(bl.s, bl.r, bl.w, bl.w_len, first, n)
+
+    keys = np.concatenate([keys_of(a, min(plan.chunk_keys, sq_radius - a))
+                           for a in range(0, sq_radius, plan.chunk_keys)])
+    chunks = list(prim.blind_distance_keys(bl, sq_radius, "cpu"))
+    lo = np.concatenate([c[0].numpy() for c in chunks])
+    hi = np.concatenate([c[1].numpy() for c in chunks])
+    rlo = np.concatenate([np.asarray(c[0]) for c in rprim.blind_distance_keys(
+        rprim.Blinding(r=bl.r, s=bl.s, w=bl.w), sq_radius)])
+    mlo, mhi = model_key_words(keys)
+    assert np.array_equal(mlo, lo[:sq_radius]) and np.array_equal(mhi, hi[:sq_radius])
+    assert np.array_equal(rlo, lo)
+    words = np.zeros(bloom_cuda.words_for(RAGGED), U32)
+    model_partitioned(words, keys_of, sq_radius, salts, (RAGGED,), True, plan)
+    direct = np.zeros_like(words)
+    model_insert(direct, model_indices(keys, salts, (RAGGED,), True))
+    assert np.array_equal(words, direct)
+
+
+@pytest.mark.parametrize("mode", ["reference", "mixed"])
+def test_partitioned_buckets_above_2_31(mode):
+    """r = 8192's 3,859,468,176 bits in slices of 2^SLICE_LOG2: bucket ids
+    of indices past 2^31 by u32 shift equal a Python-int reference, the last
+    bucket is ragged, and the plan's chunks keep the stash and histograms
+    within the table's words; no table is allocated."""
+    bf = prim.BloomFilter(_params(prim, 8192 * 8192, 1e-12, mode), device="cpu")
+    plan = bloom_cuda.insert_plan(R8192_BITS, 40, 8192 * 8192)
+    assert not plan.direct and plan.slice_log2 == bloom_cuda.SLICE_LOG2
+    assert plan.buckets == -(-R8192_BITS // (1 << plan.slice_log2)) <= bloom_cuda.MAX_BUCKETS
+    assert R8192_BITS % (1 << plan.slice_log2)  # the last bucket is ragged
+    assert plan.chunks == 23 and plan.count % plan.chunk_keys
+    words = bloom_cuda.words_for(R8192_BITS)
+    assert plan.chunk_keys * 40 + plan.chunk_keys // plan.tile_keys * plan.buckets <= words
+    keys = np.concatenate([_keys(3000, 8), model_blinded_range(0x3FFFFFFF, 0x12345, 0xBEEF, 16,
+                                                              60_000_000, 1000)])
+    idx = model_indices(keys, bf.salts, (R8192_BITS,), mode == "mixed")
+    assert idx.max() >= 1 << 31
+    b = model_buckets(idx, plan.slice_log2)
+    assert b.dtype == U32 and b.max() == plan.buckets - 1
+    assert b.tolist() == [[int(i) >> plan.slice_log2 for i in row] for row in idx.tolist()]
+    hist, totals = model_count(idx, plan.tile_keys, plan.slice_log2, plan.buckets)
+    assert int(totals.sum()) == idx.size
+    assert hist.shape == (-(-keys.size // plan.tile_keys), plan.buckets)

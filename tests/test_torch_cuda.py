@@ -1553,6 +1553,17 @@ def _bf(dev, count, fpp, mode, cls="BloomFilter"):
     return getattr(primitives, cls)(p, device=dev)
 
 
+def _insert_launches(bf, count, probes=0) -> dict:
+    """The launches by kernel of one insert of ``count`` keys into ``bf``:
+    the direct kernel once for a table of at most DIRECT_MAX_BITS bits,
+    else count, scatter and apply once a chunk."""
+    from pplp_tpu_torch.ops import bloom_cuda
+
+    plan = bloom_cuda.insert_plan(bf.table_size, bf.salt_count, count)
+    return {**dict.fromkeys(bloom_cuda.launches_by_kernel, 0), **plan.launches(),
+            "bf_probe": probes}
+
+
 def _probe_keys(dev, bl, sq, n, seed):
     """n keys of inserted candidates and n of candidates above r^2."""
     from pplp_tpu_torch.primitives.blinding import distance_keys
@@ -1567,11 +1578,12 @@ def _probe_keys(dev, bl, sq, n, seed):
                                              (8192, "reference", 1e-12), (4096, "mixed", 1e-4)])
 def test_bloom_kernels_match_plain_on_the_demo_filters(dev, radius, mode, fpp):
     """The demo's filter (fpp 1e-12, r = 4096 and the reference's r = 8192,
-    whose 3,859,468,176 bits need u32 indices) and the client/server one
-    (fpp 1e-4): the insert kernel, making the r^2 keys itself, against
-    blind_distance_keys + index_fill_ on the unpacked table: the same
-    serialize() bytes, and the same verdicts on 100,000 inserted and
-    100,000 outside keys."""
+    whose 3,859,468,176 bits need u32 indices: the partitioned insert, 23
+    chunks of count, scatter and apply) and the client/server one (fpp
+    1e-4, 40.2 MB: the direct kernel, one launch): the kernels, making the
+    r^2 keys themselves, against blind_distance_keys + index_fill_ on the
+    unpacked table: the same serialize() bytes, and the same verdicts on
+    100,000 inserted and 100,000 outside keys."""
     from pplp_tpu_torch.ops import bloom_cuda
     from pplp_tpu_torch.primitives import Blinding, bloom
     from pplp_tpu_torch.primitives.blinding import blind_distance_keys
@@ -1582,7 +1594,7 @@ def test_bloom_kernels_match_plain_on_the_demo_filters(dev, radius, mode, fpp):
     sizes, salts, mixed = bf._sizes(), bf._salts_device(), mode == "mixed"
     bloom_cuda.reset_launches()
     bf.insert_blind_distances(bl, sq)
-    assert bloom_cuda.launches_by_kernel == {"bf_insert": 1, "bf_probe": 0}
+    assert bloom_cuda.launches_by_kernel == _insert_launches(bf, sq)
     assert bf.bits_device.dtype == torch.int32 and bf.bits_device.numel() == (bf.table_size + 31) // 32
     assert bf.inserted_element_count == sq
     plain = torch.zeros(bf.table_size, dtype=torch.uint8, device=dev)
@@ -1610,6 +1622,7 @@ def test_bloom_kernels_match_plain_on_the_pipeline_filter(dev):
     t, s, r, w = 1 << 20, 501, 99, 0xA5A5
     bloom_cuda.reset_launches()
     bf = pipeline.build_pipeline_filter(t, s, r, w, dev)
+    assert bloom_cuda.launches_by_kernel == _insert_launches(bf, r * r)
     assert bloom_cuda.launches_by_kernel["bf_insert"] == 1
     bd_all = s * (torch.arange(r * r, device=dev) + r) % t
     g = torch.Generator(device=dev).manual_seed(3)
@@ -1702,21 +1715,70 @@ def test_bloom_filter_on_card_raises_without_its_kernels(dev, monkeypatch):
 @pytest.mark.parametrize("xa,near", [(1234, True), (10234, False)])
 def test_demo_r8192_on_card(dev, xa, near):
     """The demo at the reference's largest radius (seal, -d 13 -b 56): the
-    verdict equals the clear oracle, the filter is one insert launch of the
-    67,108,864 keys into 482.4 MB of words, and the peak device memory stays
-    below the unpacked table's 3.86 GB, which is never allocated."""
+    verdict equals the clear oracle, the filter's 67,108,864 keys go into
+    482.4 MB of words through the partitioned insert (23 chunks of count,
+    scatter and apply), and the peak device memory stays below the
+    unpacked table's 3.86 GB, which is never allocated. The peak is at most
+    the same demo's at r = 128 plus two tables' bytes: before the
+    partitioned insert it was that plus one table (the words), and the
+    insert's stash and histograms are no larger than the table."""
     from pplp_tpu_torch.ops import bloom_cuda
     from pplp_tpu_torch.protocol import ProtocolConfig, run_local_demo
 
-    cfg = ProtocolConfig(xa=xa, ya=1212, xb=1000, yb=1000, radius=8192,
-                         poly_modulus_degree_bits=13, plain_modulus_bits=56, seed=7)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    bloom_cuda.reset_launches()
-    res = run_local_demo(cfg, verbose=False, device=dev)
-    peak = torch.cuda.max_memory_allocated(dev)
+    peaks = {}
+    for radius in (128, 8192):
+        cfg = ProtocolConfig(xa=xa, ya=1212, xb=1000, yb=1000, radius=radius,
+                             poly_modulus_degree_bits=13, plain_modulus_bits=56, seed=7)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        bloom_cuda.reset_launches()
+        res = run_local_demo(cfg, verbose=False, device=dev)
+        peaks[radius] = torch.cuda.max_memory_allocated(dev)
     assert res.is_near is near
     assert ((xa - 1000) ** 2 + 212 ** 2 < 8192 ** 2) is near
-    assert bloom_cuda.launches_by_kernel["bf_insert"] == 1
+    plan = bloom_cuda.insert_plan(res.bf_table_bits, 40, 8192 ** 2)
+    assert not plan.direct and plan.chunks == 23
+    assert bloom_cuda.launches_by_kernel == {"bf_insert": 0, "bf_insert_count": 23,
+                                             "bf_insert_scatter": 23, "bf_insert_apply": 23,
+                                             "bf_probe": 0}
     assert res.bf_table_bits == 3_859_468_176 and res.bf_device.type == "cuda"
-    assert peak < res.bf_table_bits, f"peak {peak} B: the unpacked table was allocated"
+    table = 4 * bloom_cuda.words_for(res.bf_table_bits)
+    assert peaks[8192] < res.bf_table_bits, f"peak {peaks}: the unpacked table was allocated"
+    assert peaks[8192] <= peaks[128] + 2 * table, f"peaks {peaks}, table {table} B"
+
+
+def test_partitioned_insert_just_above_one_slice(dev):
+    """A table just above one slice (2^SLICE_LOG2 + 1,000 bits: a ragged
+    last bucket of 1,000 bits) and a key count that is not a multiple of
+    the chunk: the partitioned kernels' words equal the direct kernel's and
+    the plain version's bytes, with given keys and with a blinded range
+    from a start above 0, in both index modes; launches 3 a chunk."""
+    from pplp_tpu_torch.ops import bloom_cuda
+    from pplp_tpu_torch.primitives import bloom
+    from pplp_tpu_torch.primitives.blinding import distance_keys
+
+    bits = (1 << bloom_cuda.SLICE_LOG2) + 1000
+    salts = torch.tensor(bloom._PREDEF_SALT[:13], dtype=torch.int64, device=dev)
+    plan = bloom_cuda.insert_plan(bits, 13, 1, partitioned=True)
+    count = 3 * plan.chunk_keys + 12_345
+    rng = np.random.default_rng(16)
+    lo, hi = (torch.from_numpy(rng.integers(0, 1 << 32, count, dtype=np.uint64)
+                               .astype(np.int64)).to(dev) for _ in range(2))
+    bl = (0x3FFFFFFB, 0x12345, 0xBEEF, 16, 1000, count)
+    for mixed in (True, False):
+        for kw, (klo, khi) in ((dict(keys=(lo, hi)), (lo, hi)),
+                               (dict(blinded=bl),
+                                distance_keys(torch.arange(1000, 1000 + count, device=dev),
+                                              *bl[:4]))):
+            words = torch.zeros(bloom_cuda.words_for(bits), dtype=torch.int32, device=dev)
+            direct = torch.zeros_like(words)
+            bloom_cuda.reset_launches()
+            bloom_cuda.insert_partitioned(words, salts, (bits,), mixed, **kw)
+            assert bloom_cuda.launches_by_kernel == {
+                "bf_insert": 0, "bf_insert_count": 4, "bf_insert_scatter": 4,
+                "bf_insert_apply": 4, "bf_probe": 0}
+            bloom_cuda.insert_direct(direct, salts, (bits,), mixed, **kw)
+            plain = torch.zeros(bits, dtype=torch.uint8, device=dev)
+            bloom.insert_plain(plain, klo, khi, salts, (bits,), mixed)
+            assert torch.equal(words, direct)
+            assert torch.equal(words.view(torch.uint8)[:bits // 8], bloom.pack_bits(plain))

@@ -10,6 +10,9 @@
   default profile is ``seal``); the seal demo runs from the CLI on the CPU.
 * ``import pplp_tpu_torch`` loads neither jax nor the JAX package; without a
   card the device chooser and ``chip_smoke.py`` fail instead of falling back.
+* With ``safe_blinding=False`` (the reference's full 32-bit s and r) both
+  packages give the same blind distance and verdict, the reference's
+  overflow quirk included.
 """
 
 import dataclasses
@@ -36,6 +39,7 @@ from pplp_tpu.ops import ntt as rntt
 from pplp_tpu.bfv.serialize import save_parms as rsave_parms
 from pplp_tpu.cli import build_parser as rbuild_parser
 from pplp_tpu.protocol import ProtocolConfig as RProtocolConfig
+from pplp_tpu.protocol import run_local_demo as rrun_local_demo
 from pplp_tpu.protocol.roles import ProximityClient as RClient
 from pplp_tpu.protocol.roles import ProximityServer as RServer
 from pplp_tpu.utils.hexcodec import uint64_to_hex_string
@@ -71,6 +75,27 @@ def test_demo_verdicts_match_clear_oracle(xa, ya, xb, yb, radius, expect_near):
     assert res.blind_distance == (bl.s * (d2 + bl.r)) % cfg.plain_modulus
     assert set(res.stage_ns) == {"setParms", "kGen", "setBF", "enc", "homoCalc", "dec"}
     assert res.bf_device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("radius", [400, 100])
+@pytest.mark.parametrize("mode", ["mixed", "reference"])
+def test_unsafe_blinding_matches_reference(radius, mode):
+    """``safe_blinding=False`` on the tpu profile (n = 4096, t = 2^20, seed
+    7): the blinding is the seed's full 32-bit s and r, and the port gives
+    the reference's blind distance s(d^2 + r) mod t and verdict. At r = 400
+    both read "far" though d^2 = 99,700 is near: the server inserts keys of
+    s(d^2 + r) mod 2^64 and the client probes the mod-t value, the
+    reference's overflow quirk, carried over as it is."""
+    kw = dict(xa=1234, ya=1212, xb=1000, yb=1000, radius=radius, profile="tpu",
+              poly_modulus_degree_bits=12, plain_modulus_bits=20, seed=7,
+              safe_blinding=False, bf_index_mode=mode)
+    ref = rrun_local_demo(RProtocolConfig(**kw), verbose=False)
+    res = run_local_demo(ProtocolConfig(**kw), verbose=False, device="cpu")
+    bl = Blinding.deterministic(7)
+    d2 = (1234 - 1000) ** 2 + (1212 - 1000) ** 2
+    assert d2 == 99_700 and (d2 < radius * radius) is (radius == 400)
+    assert res.blind_distance == ref.blind_distance == bl.s * (d2 + bl.r) % (1 << 20)
+    assert res.is_near is ref.is_near is False
 
 
 def _reference_keys(ctx, s_res, a_ntt, e_res):
