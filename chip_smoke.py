@@ -38,7 +38,10 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
                chunk; each insert kernel's device time and the call's
                CUDA-event time beside the bound, the sector model and the
                design's floor (``measure_bloom``), and the plain versions'
-               times;
+               times; each filter's probe (``measure_bloom.probe_row``): its
+               device time and the call's CUDA-event time beside its bound,
+               sector model, the bits it tests and the launch floor (an
+               empty kernel at the probe's geometry);
 5. slice    -- the local proximity demo (``run_local_demo``) at -d 13 -b 56,
                on the seal profile (the CLI's default) and on the tpu profile:
                r = 4096 with a near pair and r = 128 with a far pair, then on
@@ -221,7 +224,9 @@ Shoup products over the card's integer-multiply peak,
 ``measure_multiply.MULMODS_PER_S`` (the Bloom kernels: each input read and
 each output written once, and their indices' 32-bit multiplies at
 ``MULS_PER_S``, ``measure_bloom``; beside the direct insert's
-``sector_ms``, one random 32-byte sector a bit); ``library_ms`` null, since no PyTorch call computes
+``sector_ms``, one random 32-byte sector a bit, and beside the probe's its
+``launch_floor_ms``, an empty kernel's device time at the probe's
+geometry); ``library_ms`` null, since no PyTorch call computes
 a negacyclic modular NTT, the BEHZ multiply, a Shoup chain or a Bloom
 filter's hashed scatter and gather), the card's
 name and power limit, and the result line
@@ -236,6 +241,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -564,26 +570,15 @@ def _partition_steps(tag, kbf, bl, plan, card) -> dict:
     return {k: (err[k], plain[k]) for k in err}
 
 
-def _first_misses(bits, klo, khi, salts, sizes, mixed) -> int:
-    """(key, salt) bits the probe kernel tests: each key's salts up to its
-    first clear bit, all of them for a member."""
-    import torch
-
-    from pplp_tpu_torch.primitives import bloom
-
-    miss = bits[bloom._indices(klo, khi, salts, sizes, mixed)] == 0  # [S, K]
-    first = torch.where(miss.any(0), miss.to(torch.int8).argmax(0) + 1, miss.shape[0])
-    return int(first.sum())
-
-
 def _bloom_check(tag, kbf, plain, inserted, outside, sizes, card):
     """``kbf`` (kernel filter) against the unpacked ``plain`` table on the
     card: serialize() bytes, then the probe verdicts of the inserted and the
-    outside keys ((lo, hi) pairs). Returns (max |byte diff|, max |verdict
-    diff|, probe ms, plain probe ms, (key, salt) bits tested)."""
+    outside keys ((lo, hi) pairs), then the probe's row
+    (``measure_bloom.probe_row``, one round). Returns (max |byte diff|, max
+    |verdict diff|)."""
     import torch
 
-    from pplp_tpu_torch.measure_ntt import device_ms
+    from pplp_tpu_torch.measure_bloom import probe_row
     from pplp_tpu_torch.primitives import bloom
 
     salts, mixed = kbf._salts_device(), kbf.index_mode == "mixed"
@@ -603,15 +598,13 @@ def _bloom_check(tag, kbf, plain, inserted, outside, sizes, card):
     n_in = inserted[0].numel()
     assert verdict_err == 0, f"{tag}: probe verdicts differ from the plain version"
     assert bool(got[:n_in].all()), f"{tag}: an inserted key probes absent"
-    ms = device_ms(lambda: kbf.contains_u64_batch(klo, khi))
     plain_ms = cuda_ms(lambda: bloom.probe_plain(plain, klo, khi, salts, sizes, mixed), 5, 1)
-    tested = _first_misses(plain, klo, khi, salts, sizes, mixed)
     log(f"[bloom] {tag}: serialize() == plain bytes ({len(wire)} B); verdicts equal on "
         f"{n_in} inserted (all present) and {outside[0].numel()} outside keys "
-        f"({int(got[n_in:].sum())} false positives); probe {ms:.4f} ms (profiler; plain "
-        f"{plain_ms:.4f}), "
-        f"{tested} (key, salt) bits tested [{card}]")
-    return byte_err, verdict_err, ms, plain_ms, tested
+        f"({int(got[n_in:].sum())} false positives); plain probe {plain_ms:.4f} ms [{card}]")
+    probe_row(f"[bloom] {tag}", lambda: kbf.contains_u64_batch(klo, khi), kbf.bits_device,
+              (klo, khi), salts, sizes, mixed, card, rounds=1)
+    return byte_err, verdict_err
 
 
 def phase_bloom(dev):
@@ -621,7 +614,7 @@ def phase_bloom(dev):
     import torch
 
     from pplp_tpu_torch.measure_bloom import (design_floor, insert_bound, insert_split,
-                                              partition_bounds, probe_bound)
+                                              partition_bounds, probe_row)
     from pplp_tpu_torch.measure_ntt import device_ms
     from pplp_tpu_torch.ops import bloom_cuda
     from pplp_tpu_torch.parallel import pipeline
@@ -669,7 +662,7 @@ def phase_bloom(dev):
         di_out = sq + torch.randint(0, 1 << 30, (BLOOM_KEYS,), generator=gen, device=dev)
         keys = [distance_keys(d, bl.s, bl.r, bl.w, bl.w_len) for d in (di_in, di_out)]
         tag = f"r={radius} {mode} fpp {fpp:g} ({kbf.table_size} bits, {kbf.salt_count} salts)"
-        b_err, v_err, p_ms, p_plain, tested = _bloom_check(tag, kbf, plain, *keys, sizes, card)
+        b_err, v_err = _bloom_check(tag, kbf, plain, *keys, sizes, card)
         plan = bloom_cuda.insert_plan(kbf.table_size, kbf.salt_count, sq)
         for name in plan.launches():
             err[name] = max(err[name], b_err)
@@ -687,7 +680,6 @@ def phase_bloom(dev):
         ms = sum(split[k] for k in plan.launches())
         ib = insert_bound(sq, kbf.salt_count, kbf.table_size, mixed, key_bytes=0)
         floor = design_floor(plan)
-        pb = probe_bound(2 * BLOOM_KEYS, tested, kbf.salt_count, kbf.table_size, mixed)
         route = ("direct, one launch" if plan.direct else
                  f"partitioned: {plan.chunks} chunks of {plan.chunk_keys} keys, {plan.buckets} "
                  f"buckets of 2^{plan.slice_log2} bits")
@@ -698,9 +690,7 @@ def phase_bloom(dev):
             f"{sq * kbf.salt_count / ms / 1e6:.2f}G bit sets/s; bound "
             f"{ib['bound_ms']:.4f} ms ({ib['bound_by']}), {100 * ib['bound_ms'] / ms:.2f}%; "
             f"sector model {ib['sector_ms']:.4f} ms, {100 * ib['sector_ms'] / ms:.1f}%; the "
-            f"design's floor {floor:.4f} ms, {100 * floor / ms:.1f}%; probe bound "
-            f"{pb['bound_ms']:.5f} ms ({pb['bound_by']}), sector model {pb['sector_ms']:.4f} ms "
-            f"[{card}]")
+            f"design's floor {floor:.4f} ms, {100 * floor / ms:.1f}% [{card}]")
         if (radius, mode, fpp) == BLOOM_FILTERS[0]:  # the demo's setBF: the main path's shape
             steps = _partition_steps(tag, kbf, bl, plan, card)
             bounds = partition_bounds(plan, mixed)
@@ -728,7 +718,7 @@ def phase_bloom(dev):
     bd_in = bd_all[torch.randint(0, sq, (BLOOM_KEYS,), generator=gen, device=dev)]
     bd_out = torch.randint(0, t, (BLOOM_KEYS,), generator=gen, device=dev)
     tag = f"config[3] r={PIPE_R} mixed ({kbf.table_size} bits, {kbf.salt_count} salts)"
-    b_err, v_err, _, _, _ = _bloom_check(
+    b_err, v_err = _bloom_check(
         tag, kbf, plain, blinded_keys(bd_in, PIPE_W, w_len), blinded_keys(bd_out, PIPE_W, w_len),
         sizes, card)
     err["bf_insert"] = max(err["bf_insert"], b_err)  # a table of 187,920 bits: direct
@@ -754,21 +744,19 @@ def phase_bloom(dev):
     def call():
         return pipeline.bf_probe(bd, PIPE_W, w_len, table, salts, kbf.table_size)
 
-    ms, call_ms = device_ms(call), cuda_ms(call)
     plain_ms = cuda_ms(plain_probe)
-    tested = _first_misses(plain, *flat_keys, salts, sizes, True)
-    pb = probe_bound(bd.numel(), tested, kbf.salt_count, kbf.table_size, True, key_bytes=8)
+    row = probe_row(f"[bloom] config[3] r={PIPE_R}, pipeline.bf_probe of the step's {n} blind "
+                    f"distances (one launch, the table staged in shared memory)", call, table,
+                    flat_keys, salts, sizes, True, card, key_bytes=8)
     scratch = torch.zeros_like(table)
     all_keys = blinded_keys(bd_all, PIPE_W, w_len)
     k_ms = device_ms(lambda: bloom.insert(scratch, salts, sizes, True, keys=all_keys))
-    log(f"[bloom] config[3] probe of the step's {bd.numel()} blind distances (one launch, "
-        f"the table staged in shared memory): {ms:.4f} ms (profiler; the wrapper call "
-        f"{call_ms:.4f} ms by CUDA events; plain {plain_ms:.4f}); {tested} "
-        f"(key, salt) bits tested, bound {pb['bound_ms']:.5f} ms ({pb['bound_by']}), "
-        f"{100 * pb['bound_ms'] / ms:.2f}%; the filter's insert of {sq} keys {k_ms:.4f} ms "
-        f"[{card}]")
-    rows["bf_probe"] = {"max_abs_err": 0, "ms": ms, "ms_source": "profiler", "plain_ms": plain_ms,
-                        **pb}
+    log(f"[bloom] config[3]: plain probe {plain_ms:.4f} ms; the filter's insert of {sq} keys "
+        f"{k_ms:.4f} ms [{card}]")
+    rows["bf_probe"] = {"max_abs_err": 0, "ms": statistics.median(row["device_ms"]),
+                        "ms_source": "profiler", "plain_ms": plain_ms,
+                        **{k: row[k] for k in ("bound_ms", "bound_by", "sector_ms")},
+                        "launch_floor_ms": statistics.median(row["launch_floor_ms"])}
     del kbf, plain
 
     # 3. A compressible filter, compressed twice between thirds of its keys
@@ -793,7 +781,7 @@ def phase_bloom(dev):
                               accumulate=True)
             plain = (folded > 0).to(torch.uint8)
     tag = f"compressible, sizes {kbf.size_list}"
-    b_err, v_err, _, _, _ = _bloom_check(tag, kbf, plain, (lo[:BLOOM_KEYS], hi[:BLOOM_KEYS]),
+    b_err, v_err = _bloom_check(tag, kbf, plain, (lo[:BLOOM_KEYS], hi[:BLOOM_KEYS]),
                                          (lo[count:], hi[count:]), kbf._sizes(), card)
     err["bf_insert"] = max(err["bf_insert"], b_err)  # every size of the chain: direct
     err["bf_probe"] = max(err["bf_probe"], v_err)
@@ -2836,7 +2824,8 @@ def main() -> int:
         f"counts, a stable argsort by bucket, index_fill_); bf_insert, the direct kernel, at "
         f"the client/server filter (r = {BLOOM_FILTERS[-1][0]}, fpp {BLOOM_FILTERS[-1][2]:g}: "
         f"one launch), its plain_ms blind_distance_keys + index_fill_; bf_probe at config[3]'s "
-        f"step ({PIPE_ROWS * PIPE_N} blind distances, the table staged in shared memory); "
+        f"step ({PIPE_ROWS * PIPE_N} blind distances, the table staged in shared memory; "
+        f"its launch_floor_ms an empty kernel's device time at the probe's geometry); "
         f"library_ms null: no PyTorch "
         f"call computes these functions")
     log(json.dumps({"kernels": kernels}))

@@ -47,10 +47,18 @@
 //   each index into the table, one slice live in L2 at a time. The words
 //   are the direct kernel's, bit for bit: OR commutes.
 // bf_probe reads the word of each salt and stops at the first clear bit, as
-// the reference's contains does; a table of at most kStageWords words (44 KB;
-// 23.5 KB at the packed pipeline's r = 99) is staged in shared memory by every
-// block, which then walks the keys in a grid-stride loop; a larger one is
-// read from device memory.
+// the reference's contains does, one launch. Every index is reduced by
+// fastmod (a reciprocal made once a call on the host: two wide multiplies
+// and a product, not a remainder's division sequence), and each salt's
+// index is hashed while the word of the salt before it is in flight. A
+// table of at most kStageWords words (44 KB; 23.5 KB at the packed
+// pipeline's r = 99) is staged in shared memory: one block an SM, sized to
+// spread the keys over every SM; thread 0 starts one bulk copy
+// (cp.async.bulk on an mbarrier) of the table's 16-byte body, the others copy
+// the ragged tail and the salts, and every thread hashes its first salt
+// before it waits for the copy. A larger table is read from device memory,
+// one thread a key. A key's salts are tested one at a time; groups of salts
+// whose words load together were measured and rejected (below).
 //
 // The constants, measured on an NVIDIA H100 80GB HBM3 at 700.00 W
 // (measure_bloom --sweep: the direct kernel's bit sets/s against the table's
@@ -68,6 +76,24 @@
 // still but needs 58 buckets at r = 8192, above kMaxBuckets. One 16-byte
 // load a thread in the apply ran 7% (r = 4096) and 14% (r = 8192) faster
 // than four, which put ~4M indices in flight.
+//
+// The probe's constants, measured on an NVIDIA H100 80GB HBM3 at 700.00 W
+// (measure_bloom --probe on copies of this file with a key's salts tested in
+// groups, a group's words loaded together and the key stopped at the first
+// group with a clear bit; device time, median of 3): groups of 1, 2, 4, 8
+// and 16 salts took 0.00657, 0.00664, 0.00707, 0.00697
+// and 0.00686 ms at config[3] (102,400 keys, 13 salts, staged); 0.02172,
+// 0.02296, 0.02530, 0.03041 and 0.03543 ms on the client/server filter
+// (40.2 MB, 13 salts, 200,000 keys); 0.10841 to 0.14267 ms on the demo's
+// r = 4096 table (120.6 MB, 40 salts) and 0.13253 to 0.17415 ms at r = 8192
+// (482.4 MB), each rising with the group. 200,000 threads already keep
+// enough reads in flight, so a group's extra words (up to 1.33x the tested
+// ones at 16) cost more than its fewer round trips save, so a key's salts
+// are tested one at a time. The staged blocks:
+// one of 1,024 threads an SM ran 0.00697 ms, two of 512 0.00765 and four of
+// 256 0.00856 (groups of 8). The parent's probe took 0.00955, 0.02284,
+// 0.11180 and 0.14249 ms on the same four (one thread a key, a remainder a
+// size, the table copied a word a thread by 264 blocks of 256).
 //
 // What bounds them. Direct, a table above the L2: each bit set reads and
 // writes a random 32-byte sector (the sector model, 671M x 64 B / 3.35 TB/s
@@ -95,8 +121,15 @@ namespace {
 constexpr int kMaxSalts = 128;
 constexpr int kMaxSizes = 32;
 constexpr int kThreads = 256;
-constexpr int64_t kStageWords = 11264;  // 44 KB of dynamic shared memory
-constexpr int kStagedBlocksPerSm = 2;
+// The probe. A table of at most kStageWords words (44 KB) is staged in shared
+// memory: one block of kStagedThreads threads an SM. A larger one is read
+// from device memory, kThreads threads a block, at most kDeviceBlocksPerSm
+// blocks an SM.
+constexpr int64_t kStageWords = 11264;
+constexpr int kStagedThreads = 1024;
+constexpr int kStagedBlocksPerSm = 1;
+constexpr int kDeviceBlocksPerSm = 8;
+constexpr int kMaxDevices = 64;
 // The partitioned insert: at most kMaxBuckets slices of a table, a block's
 // tile of at most kTileElems (key, salt) indices sorted in shared memory
 // (40 KB: 256 keys at 40 salts, 80 at 128), and one 16-byte load of the
@@ -107,8 +140,11 @@ constexpr int kApplyElems = kThreads * 4;  // indices a block applies
 
 enum Source : int { kWords = 0, kBlinded = 1, kBlindDistances = 2 };
 
-// By value: the hash's parameters.
+// By value: the hash's parameters. mul[j] = ceil(2^64 / size[j]) mod 2^64,
+// the reciprocal that fastmod reduces by, made on the host side of the entry
+// points from the sizes.
 struct Chain {
+  uint64_t mul[kMaxSizes];
   uint32_t size[kMaxSizes];
   int n_sizes;
   int n_salts;
@@ -138,28 +174,40 @@ __device__ __forceinline__ uint64_t key_at(const Keys& k, int64_t i) {
   }
 }
 
-__device__ __forceinline__ uint32_t bit_index(uint32_t h, uint64_t key, int mixed,
-                                              const uint32_t* sizes, int n_sizes) {
+// h mod d for every u32 h and d in [1, 2^32), from mul = ceil(2^64 / d) mod
+// 2^64 (Lemire, Kaser and Kurz, "Faster Remainder by Direct Computation",
+// 2019): the high word of (mul h mod 2^64) d, formed from 32-bit halves.
+// Two wide multiplies and the low word's product, in place of the division
+// sequence of a remainder by a run-time divisor. d = 1 has mul 0: h mod 1 = 0.
+__device__ __forceinline__ uint32_t fastmod(uint32_t h, uint64_t mul, uint32_t d) {
+  const uint64_t low = mul * h;
+  const uint64_t lo = static_cast<uint32_t>(low), hi = low >> 32;
+  return static_cast<uint32_t>((hi * d + ((lo * d) >> 32)) >> 32);
+}
+
+// The bit index of `key` at `salt`: one AP round, fmix32 in "mixed" mode,
+// the reduction by each size of the chain in turn. Every Bloom kernel takes
+// its indices from here.
+__device__ __forceinline__ uint32_t bit_index(uint32_t h, uint64_t key, const Chain& c) {
   const uint32_t i1 = static_cast<uint32_t>(key);
   const uint32_t i2 = static_cast<uint32_t>(key >> 32);
   h ^= (h << 7) ^ (i1 * (h >> 3)) ^ (~((h << 11) + (i2 ^ (h >> 5))));
-  if (mixed) {  // murmur3 fmix32
+  if (c.mixed) {  // murmur3 fmix32
     h ^= h >> 16;
     h *= 0x85EBCA6Bu;
     h ^= h >> 13;
     h *= 0xC2B2AE35u;
     h ^= h >> 16;
   }
-  for (int j = 0; j < n_sizes; ++j) h %= sizes[j];
+  h = fastmod(h, c.mul[0], c.size[0]);
+  for (int j = 1; j < c.n_sizes; ++j) h = fastmod(h, c.mul[j], c.size[j]);
   return h;
 }
 
-__device__ __forceinline__ void load_chain(uint32_t* s_salt, uint32_t* s_size,
-                                           const int64_t* __restrict__ salts,
-                                           const Chain& chain) {
-  for (int j = threadIdx.x; j < chain.n_salts; j += blockDim.x)
+__device__ __forceinline__ void load_salts(uint32_t* s_salt, const int64_t* __restrict__ salts,
+                                           int n_salts) {
+  for (int j = threadIdx.x; j < n_salts; j += blockDim.x)
     s_salt[j] = static_cast<uint32_t>(salts[j]);
-  for (int j = threadIdx.x; j < chain.n_sizes; j += blockDim.x) s_size[j] = chain.size[j];
 }
 
 template <int kSource>
@@ -167,14 +215,13 @@ __global__ void __launch_bounds__(kThreads)
     bf_insert_kernel(uint32_t* __restrict__ words, const int64_t* __restrict__ salts,
                      const Chain chain, const Keys keys) {
   __shared__ uint32_t s_salt[kMaxSalts];
-  __shared__ uint32_t s_size[kMaxSizes];
-  load_chain(s_salt, s_size, salts, chain);
+  load_salts(s_salt, salts, chain.n_salts);
   __syncthreads();
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= keys.count) return;
   const uint64_t key = key_at<kSource>(keys, i);
   for (int j = 0; j < chain.n_salts; ++j) {
-    const uint32_t idx = bit_index(s_salt[j], key, chain.mixed, s_size, chain.n_sizes);
+    const uint32_t idx = bit_index(s_salt[j], key, chain);
     atomicOr(words + (idx >> 5), 1u << (idx & 31));
   }
 }
@@ -197,16 +244,15 @@ __global__ void __launch_bounds__(kThreads)
                            const Keys keys, const Part part, uint32_t* __restrict__ hist,
                            uint32_t* __restrict__ totals) {
   __shared__ uint32_t s_salt[kMaxSalts];
-  __shared__ uint32_t s_size[kMaxSizes];
   __shared__ uint32_t s_hist[kMaxBuckets];
-  load_chain(s_salt, s_size, salts, chain);
+  load_salts(s_salt, salts, chain.n_salts);
   if (threadIdx.x < kMaxBuckets) s_hist[threadIdx.x] = 0;
   __syncthreads();
   const int64_t i = static_cast<int64_t>(blockIdx.x) * part.tile_keys + threadIdx.x;
   if (static_cast<int>(threadIdx.x) < part.tile_keys && i < keys.count) {
     const uint64_t key = key_at<kSource>(keys, i);
     for (int j = 0; j < chain.n_salts; ++j) {
-      const uint32_t idx = bit_index(s_salt[j], key, chain.mixed, s_size, chain.n_sizes);
+      const uint32_t idx = bit_index(s_salt[j], key, chain);
       atomicAdd(s_hist + (idx >> part.slice_log), 1u);
     }
   }
@@ -237,12 +283,11 @@ __global__ void __launch_bounds__(kThreads)
                              const uint32_t* __restrict__ totals,
                              uint32_t* __restrict__ cursors, uint32_t* __restrict__ stash) {
   __shared__ uint32_t s_salt[kMaxSalts];
-  __shared__ uint32_t s_size[kMaxSizes];
   __shared__ uint32_t s_local[kMaxBuckets];  // the bucket's first slot in s_tile
   __shared__ uint32_t s_fill[kMaxBuckets];   // its next free slot
   __shared__ uint32_t s_dst[kMaxBuckets];    // its run's first index in the stash
   __shared__ uint32_t s_tile[kTileElems];
-  load_chain(s_salt, s_size, salts, chain);
+  load_salts(s_salt, salts, chain.n_salts);
   const int b = threadIdx.x;
   if (b < part.n_buckets) {
     const uint32_t* mine = hist + static_cast<int64_t>(blockIdx.x) * part.n_buckets;
@@ -262,7 +307,7 @@ __global__ void __launch_bounds__(kThreads)
   if (static_cast<int>(threadIdx.x) < n_keys) {
     const uint64_t key = key_at<kSource>(keys, first + threadIdx.x);
     for (int j = 0; j < chain.n_salts; ++j) {
-      const uint32_t idx = bit_index(s_salt[j], key, chain.mixed, s_size, chain.n_sizes);
+      const uint32_t idx = bit_index(s_salt[j], key, chain);
       s_tile[atomicAdd(s_fill + (idx >> part.slice_log), 1u)] = idx;
     }
   }
@@ -294,39 +339,153 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int kSource, bool kStaged>
-__global__ void __launch_bounds__(kThreads)
-    bf_probe_kernel(const uint32_t* __restrict__ words, int64_t n_words,
-                    const int64_t* __restrict__ salts, const Chain chain, const Keys keys,
-                    uint8_t* __restrict__ out) {
-  __shared__ uint32_t s_salt[kMaxSalts];
-  __shared__ uint32_t s_size[kMaxSizes];
-  extern __shared__ uint32_t s_table[];
-  load_chain(s_salt, s_size, salts, chain);
-  const uint32_t* table = words;
-  if constexpr (kStaged) {
-    for (int64_t j = threadIdx.x; j < n_words; j += kThreads) s_table[j] = words[j];
-    table = s_table;
-  }
-  __syncthreads();
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       i < keys.count; i += stride) {
-    const uint64_t key = key_at<kSource>(keys, i);
-    uint8_t hit = 1;
-    for (int j = 0; j < chain.n_salts; ++j) {
-      const uint32_t idx = bit_index(s_salt[j], key, chain.mixed, s_size, chain.n_sizes);
-      if (!((table[idx >> 5] >> (idx & 31)) & 1u)) {
-        hit = 0;
-        break;
-      }
-    }
-    out[i] = hit;
+// The staged table's copy into shared memory, the probe's only inline PTX.
+// stage_init: thread 0 sets up the mbarrier that the copy completes (one
+// arrival, the thread that starts it). stage_start: thread 0 starts one
+// bulk copy (the Tensor Memory Accelerator's 1-D cp.async.bulk) of the
+// table's first `body_bytes` bytes, a multiple of 16, and arms the barrier
+// with that byte count. stage_wait: a thread waits for phase 0 to complete,
+// after which the copied bytes are visible to it.
+__device__ __forceinline__ void stage_init(uint64_t* bar) {
+  const auto b = static_cast<uint32_t>(__cvta_generic_to_shared(bar));
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(b) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void stage_start(uint32_t* s_table, const uint32_t* words,
+                                            uint32_t body_bytes, uint64_t* bar) {
+  const auto b = static_cast<uint32_t>(__cvta_generic_to_shared(bar));
+  const auto dst = static_cast<uint32_t>(__cvta_generic_to_shared(s_table));
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
+               "r"(body_bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(dst),
+      "l"(words), "r"(body_bytes), "r"(b)
+      : "memory");
+}
+
+__device__ __forceinline__ void stage_wait(uint64_t* bar) {
+  const auto b = static_cast<uint32_t>(__cvta_generic_to_shared(bar));
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(b), "r"(0u)
+        : "memory");
   }
 }
 
-// Checks shared by both entry points; fills `chain` from the host array
-// `sizes`. Returns 0 or cudaErrorInvalidValue.
+// A key's verdict from its first salt's bit index `idx`: each salt's word
+// is loaded, the next salt is hashed while it is in flight, and the key
+// stops at the first clear bit (a key is present only if every bit is set).
+__device__ __forceinline__ uint8_t probe_key(const uint32_t* __restrict__ table, uint64_t key,
+                                             uint32_t idx, const uint32_t* s_salt,
+                                             const Chain& c) {
+  for (int j = 1;; ++j) {
+    const uint32_t w = table[idx >> 5];
+    const bool more = j < c.n_salts;
+    const uint32_t next = more ? bit_index(s_salt[j], key, c) : 0;
+    if (!((w >> (idx & 31)) & 1u)) return 0;
+    if (!more) return 1;
+    idx = next;
+  }
+}
+
+// The probe: a grid-stride loop over the keys, out[i] = every salt's bit set.
+// Staged (kStaged, a table of at most kStageWords words): thread 0 starts
+// the table's bulk copy into shared memory, the other threads copy the
+// ragged tail (the words past the last 16-byte boundary; the whole table
+// when its storage is not 16-byte aligned) and the salts, every thread's
+// first key loads meanwhile, and every thread hashes its first salt before
+// it waits for the copy. Otherwise the table is read from device memory.
+template <int kSource, bool kStaged>
+__global__ void __launch_bounds__(kStaged ? kStagedThreads : kThreads)
+    bf_probe_kernel(const uint32_t* __restrict__ words, int64_t n_words,
+                    const int64_t* __restrict__ salts, const Chain chain, const Keys keys,
+                    uint8_t* __restrict__ out) {
+  const int T = blockDim.x;
+  __shared__ uint32_t s_salt[kMaxSalts];
+  __shared__ uint64_t s_bar;
+  extern __shared__ __align__(16) uint32_t s_table[];
+  int64_t body = 0;
+  if constexpr (kStaged) {
+    body = (reinterpret_cast<uintptr_t>(words) & 15) == 0 ? n_words & ~int64_t{3} : 0;
+    if (threadIdx.x == 0) stage_init(&s_bar);
+    __syncthreads();
+    if (threadIdx.x == 0 && body > 0)
+      stage_start(s_table, words, static_cast<uint32_t>(4 * body), &s_bar);
+    for (int64_t j = body + threadIdx.x; j < n_words; j += T) s_table[j] = words[j];
+  }
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * T;
+  int64_t i = static_cast<int64_t>(blockIdx.x) * T + threadIdx.x;
+  const uint64_t first = i < keys.count ? key_at<kSource>(keys, i) : 0;  // under the salts' load
+  load_salts(s_salt, salts, chain.n_salts);
+  __syncthreads();
+  uint64_t key = first;
+  uint32_t idx = i < keys.count ? bit_index(s_salt[0], key, chain) : 0;
+  const uint32_t* table = words;
+  if constexpr (kStaged) {
+    if (body > 0) stage_wait(&s_bar);
+    table = s_table;
+  }
+  for (; i < keys.count; i += stride) {
+    out[i] = probe_key(table, key, idx, s_salt, chain);
+    if (i + stride < keys.count) {
+      key = key_at<kSource>(keys, i + stride);
+      idx = bit_index(s_salt[0], key, chain);
+    }
+  }
+}
+
+// An empty kernel, launched at the probe's geometry: the launch floor that
+// the probe's device time is read against.
+__global__ void bf_probe_floor_kernel() {}
+
+// SMs of the current device, read once a device.
+int sm_count() {
+  static int sms[kMaxDevices] = {};
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || device < 0 || device >= kMaxDevices) return 132;
+  if (sms[device] == 0) {
+    int n = 0;
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
+    sms[device] = n > 0 ? n : 132;
+  }
+  return sms[device];
+}
+
+// The probe's launch: staged or not, blocks, threads and dynamic shared memory.
+struct ProbeLaunch {
+  bool staged;
+  unsigned blocks;
+  int threads;
+  size_t smem;
+};
+
+// Staged: one block an SM, its threads the keys an SM gets rounded up to a
+// warp (at most kStagedThreads), so that the keys spread over every SM.
+ProbeLaunch probe_launch(int64_t n_words, int64_t count) {
+  const int64_t sms = sm_count();
+  if (n_words <= kStageWords) {
+    int64_t threads = (count + sms * kStagedBlocksPerSm - 1) / (sms * kStagedBlocksPerSm);
+    threads = threads < kStagedThreads ? (threads + 31) / 32 * 32 : kStagedThreads;
+    const int64_t blocks = (count + threads - 1) / threads;
+    return {true, static_cast<unsigned>(blocks < sms * kStagedBlocksPerSm ? blocks
+                                                                         : sms * kStagedBlocksPerSm),
+            static_cast<int>(threads), static_cast<size_t>(n_words) * sizeof(uint32_t)};
+  }
+  const int64_t blocks = (count + kThreads - 1) / kThreads;
+  const int64_t cap = sms * kDeviceBlocksPerSm;
+  return {false, static_cast<unsigned>(blocks < cap ? blocks : cap), kThreads, 0};
+}
+
+// Checks shared by the entry points; fills `chain` from the host array
+// `sizes`, each size's fastmod multiplier with it. Returns 0 or
+// cudaErrorInvalidValue.
 int make_chain(Chain* chain, int n_salts, const void* sizes, int n_sizes, int mixed,
                int source, int w_len, long long count) {
   if (n_salts < 1 || n_salts > kMaxSalts || n_sizes < 1 || n_sizes > kMaxSizes ||
@@ -336,6 +495,7 @@ int make_chain(Chain* chain, int n_salts, const void* sizes, int n_sizes, int mi
   for (int j = 0; j < n_sizes; ++j) {
     if (sz[j] == 0) return static_cast<int>(cudaErrorInvalidValue);
     chain->size[j] = sz[j];
+    chain->mul[j] = ~uint64_t{0} / sz[j] + 1;
   }
   chain->n_sizes = n_sizes;
   chain->n_salts = n_salts;
@@ -475,7 +635,7 @@ int pplp_bf_insert_apply(void* words, const void* stash, long long n, void* stre
 // words: int32 [n_words] on the device; salts, sizes as for pplp_bf_insert.
 // source kWords: lo, hi int64 [count]; kBlindDistances: lo the blind
 // distances int64 [count] (below 2^32), w, w_len. out: uint8 [count] on the
-// device, 1 where every salt's bit is set.
+// device, 1 where every salt's bit is set. One launch (none for count = 0).
 int pplp_bf_probe(const void* words, long long n_words, const void* salts, int n_salts,
                   const void* sizes, int n_sizes, int mixed, int source, const void* lo,
                   const void* hi, unsigned w, int w_len, long long count, void* out,
@@ -491,28 +651,31 @@ int pplp_bf_probe(const void* words, long long n_words, const void* salts, int n
   const auto* tw = static_cast<const uint32_t*>(words);
   const auto* sl = static_cast<const int64_t*>(salts);
   auto* o = static_cast<uint8_t*>(out);
-  int64_t blocks = (count + kThreads - 1) / kThreads;
-  if (n_words <= kStageWords) {
-    int device = 0, sms = 0;
-    cudaGetDevice(&device);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    const int64_t cap = static_cast<int64_t>(sms > 0 ? sms : 132) * kStagedBlocksPerSm;
-    if (blocks > cap) blocks = cap;
-    const size_t smem = static_cast<size_t>(n_words) * sizeof(uint32_t);
+  const ProbeLaunch l = probe_launch(n_words, count);
+  if (l.staged) {
     if (source == kWords)
-      bf_probe_kernel<kWords, true><<<static_cast<unsigned>(blocks), kThreads, smem, st>>>(
-          tw, n_words, sl, chain, keys, o);
+      bf_probe_kernel<kWords, true><<<l.blocks, l.threads, l.smem, st>>>(tw, n_words, sl, chain,
+                                                                         keys, o);
     else
-      bf_probe_kernel<kBlindDistances, true>
-          <<<static_cast<unsigned>(blocks), kThreads, smem, st>>>(tw, n_words, sl, chain, keys, o);
+      bf_probe_kernel<kBlindDistances, true><<<l.blocks, l.threads, l.smem, st>>>(
+          tw, n_words, sl, chain, keys, o);
   } else {
     if (source == kWords)
-      bf_probe_kernel<kWords, false><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-          tw, n_words, sl, chain, keys, o);
+      bf_probe_kernel<kWords, false><<<l.blocks, l.threads, 0, st>>>(tw, n_words, sl, chain,
+                                                                      keys, o);
     else
-      bf_probe_kernel<kBlindDistances, false>
-          <<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(tw, n_words, sl, chain, keys, o);
+      bf_probe_kernel<kBlindDistances, false><<<l.blocks, l.threads, 0, st>>>(
+          tw, n_words, sl, chain, keys, o);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The empty kernel at the geometry of a probe of `count` keys in a table of
+// `n_words` words (its blocks, threads and dynamic shared memory).
+int pplp_bf_probe_floor(long long n_words, long long count, void* stream) {
+  if (n_words < 1 || count < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const ProbeLaunch l = probe_launch(n_words, count);
+  bf_probe_floor_kernel<<<l.blocks, l.threads, l.smem, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

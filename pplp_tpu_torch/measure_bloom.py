@@ -4,6 +4,7 @@ kernels' bounds.
     python3 -m pplp_tpu_torch.measure_bloom [--radii 4096,8192] [--repeats 3] [--json PATH]
     python3 -m pplp_tpu_torch.measure_bloom --sweep [--json PATH]
     python3 -m pplp_tpu_torch.measure_bloom --inserts [--json PATH]
+    python3 -m pplp_tpu_torch.measure_bloom --probe [--json PATH]
 
 Runs the local demo (``run_local_demo``: seal, -d 13 -b 56, the near pair
 (1234, 1212) / (1000, 1000), seed 7, the CLI's defaults otherwise) once at
@@ -27,6 +28,20 @@ compressible filter's chain of three sizes): the device time of all the
 call's kernels (torch.profiler) and the call's CUDA-event time. It uses
 only the filters' own methods, so a copy of this file runs in a parent
 tree too.
+
+``--probe`` times the probe of each filter of the main paths: config[3]'s
+(``pipeline.bf_probe`` of the step's 102,400 blind distances, half of them
+inserted values) and the client/server filter (r = 4096, fpp 1e-4) and the
+demo's at r = 4096 and 8192 (fpp 1e-12), each through
+``BloomFilter.contains_u64_batch`` on 100,000 inserted and 100,000 outside
+keys (``probe_row``): the device time (torch.profiler,
+``measure_ntt.device_ms``) and the call's CUDA-event time, three rounds
+each, beside ``probe_bound``, its sector model on the (key, salt) bits the
+probe tests (``probe_reads``: a word read, one 32-byte sector, a tested
+bit) and an empty kernel's device time at the probe's geometry, the launch
+floor (where the tree has one). It uses only those two calls and
+``bloom_cuda``'s optional ``probe_floor_cuda``, so a copy of this file runs
+in a parent tree too.
 
 ``insert_bound`` and ``probe_bound`` are the bounds ``chip_smoke.py`` puts
 beside the kernels' times: the larger of the bytes the function must move
@@ -54,7 +69,8 @@ import time
 from .measure_multiply import BYTES_PER_S, MULS_PER_S
 
 __all__ = ["insert_bound", "probe_bound", "partition_bounds", "design_floor", "insert_split",
-           "demo_runs", "sweep", "inserts", "main"]
+           "probe_misses", "probe_reads", "probe_row", "demo_runs", "sweep", "inserts", "probes",
+           "main"]
 
 SECTOR = 32  # bytes
 HASH_OPS = 25  # integer operations an index: AP round, fmix32, reduction (an estimate)
@@ -86,11 +102,36 @@ def insert_bound(keys: int, salts: int, table_bits: int, mixed: bool, n_sizes: i
 def probe_bound(keys: int, tested: int, salts: int, table_bits: int, mixed: bool,
                 n_sizes: int = 1, key_bytes: int = 16) -> dict:
     """A probe of ``keys`` keys that tests ``tested`` (key, salt) bits in all
-    (it stops at a key's first clear bit): the keys, the table and the
-    salts read once, a bool written a key."""
+    (it stops at a key's first clear bit): the keys and the salts read once,
+    a bool written a key, and of the table what these keys need: the whole
+    table, or one 32-byte sector a tested bit where that is less (a table
+    far larger than the keys' sectors is not read whole)."""
     table = 4 * ((table_bits + 31) // 32)
-    return _bound(keys * (key_bytes + 1) + table + 8 * salts, tested, mixed, n_sizes,
-                  SECTOR * tested)
+    return _bound(keys * (key_bytes + 1) + min(table, SECTOR * tested) + 8 * salts, tested,
+                  mixed, n_sizes, SECTOR * tested)
+
+
+def probe_misses(words, klo, khi, salts, sizes, mixed: bool):
+    """[S, K] bool: salt j's bit of key k is clear in the packed table
+    ``words`` (int32 u32 words), from the plain version's indices."""
+    import torch
+
+    from .primitives import bloom
+
+    idx = bloom._indices(klo, khi, salts, tuple(sizes), mixed)
+    return ((words[idx >> 5].to(torch.int64) >> (idx & 31)) & 1) == 0
+
+
+def probe_reads(miss) -> int:
+    """Words a probe reads (one 32-byte sector each): the (key, salt) bits
+    it tests, every salt of a present key and an absent key's salts up to
+    its first clear bit. ``miss``: [S, K] bool (``probe_misses``)."""
+    import torch
+
+    n_salts = miss.shape[0]
+    first = torch.where(miss.any(0), miss.to(torch.int8).argmax(0),
+                        torch.full_like(miss[0], n_salts - 1, dtype=torch.int64))
+    return int((first + 1).sum())
 
 
 def partition_bounds(plan, mixed: bool, n_sizes: int = 1, key_bytes: int = 0) -> dict:
@@ -308,6 +349,94 @@ def inserts(dev, card: str) -> list[dict]:
     return rows
 
 
+PROBE_ROUNDS = 3  # device-time and CUDA-event rounds of each probe
+
+
+def probe_row(tag: str, call, words, keys, salts, sizes, mixed: bool, card: str,
+              key_bytes: int = 16, rounds: int = PROBE_ROUNDS) -> dict:
+    """One probe's row: ``call()`` probes the keys ``keys`` = (lo, hi) of
+    the packed table ``words``. Its device time (``device_ms``) and call
+    time (CUDA events over 20 calls), ``rounds`` rounds each after a
+    warm-up; the (key, salt) bits tested up to each key's first clear bit
+    (``probe_reads``); ``probe_bound`` and its sector model on those; the
+    launch floor (``bloom_cuda.probe_floor_cuda``'s device time) where the
+    tree has it."""
+    import statistics
+
+    from .device import window_ms
+    from .measure_ntt import device_ms
+    from .ops import bloom_cuda
+
+    miss = probe_misses(words, *keys, salts, sizes, mixed)
+    n_salts, count = miss.shape
+    tested = probe_reads(miss)
+    bound = probe_bound(count, tested, n_salts, sizes[-1], mixed, len(sizes), key_bytes)
+    for _ in range(3):
+        call()
+    dev = [device_ms(call) for _ in range(rounds)]
+    ev = [window_ms(call, 20) for _ in range(rounds)]
+    floor_fn = getattr(bloom_cuda, "probe_floor_cuda", None)
+    floor = ([device_ms(lambda: floor_fn(words, count)) for _ in range(rounds)]
+             if floor_fn else None)
+    row = {"filter": tag, "keys": count, "salts": n_salts, "table_bits": sizes[-1],
+           "device_ms": dev, "call_ms": ev, "tested": tested, **bound,
+           "launch_floor_ms": floor}
+    med = statistics.median(dev)
+    print(f"probe: {tag}: {count} keys, {n_salts} salts; device "
+          + ", ".join(f"{v:.5f}" for v in dev) + " ms (profiler); the call "
+          + ", ".join(f"{v:.5f}" for v in ev) + f" ms (CUDA events); {tested} (key, salt) bits "
+          f"tested, bound {bound['bound_ms']:.5f} ms ({bound['bound_by']}), "
+          f"{100 * bound['bound_ms'] / med:.2f}% of the median; sector model "
+          f"{bound['sector_ms']:.5f} ms; launch floor "
+          + (", ".join(f"{v:.5f}" for v in floor) + " ms" if floor else "not in this tree")
+          + f" [{card}]", flush=True)
+    return row
+
+
+def probes(dev, card: str) -> list[dict]:
+    """Each main-path filter's probe, as the module's note says."""
+    import torch
+
+    from .parallel import pipeline
+    from .primitives import Blinding, BloomFilter, BloomParameters
+    from .primitives.blinding import blinded_keys, distance_keys
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    rows = []
+    t, s, r, w = 1 << 20, 501, 99, 0xA5A5  # config[3] (bench.py:195-234)
+    w_len = w.bit_length()
+    bf = pipeline.build_pipeline_filter(t, s, r, w, dev)
+    table, salts = bf.bits_device, bf._salts_device()
+    bd_all = s * (torch.arange(r * r, device=dev) + r) % t
+    n = 25 * 4096  # the step's checks, half of them inserted values
+    bd = torch.where(torch.rand(n, generator=gen, device=dev) < 0.5,
+                     bd_all[torch.randint(0, r * r, (n,), generator=gen, device=dev)],
+                     torch.randint(0, t, (n,), generator=gen, device=dev)).reshape(25, 4096)
+    rows.append(probe_row(
+        f"config[3] r={r} ({bf.table_size} bits), pipeline.bf_probe",
+        lambda: pipeline.bf_probe(bd, w, w_len, table, salts, bf.table_size), table,
+        blinded_keys(bd.reshape(-1), w, w_len), salts, bf._sizes(), True, card, key_bytes=8))
+    del bf, table
+    for radius, fpp in ((4096, 1e-4), (4096, 1e-12), (8192, 1e-12)):
+        sq = radius * radius
+        p = BloomParameters(projected_element_count=sq, false_positive_probability=fpp,
+                            random_seed=0xA5A5A5A5, index_mode="mixed")
+        assert p.compute_optimal_parameters()
+        bf = BloomFilter(p, device=dev)
+        bl = Blinding.for_protocol(56, sq, seed=7)
+        bf.insert_blind_distances(bl, sq)
+        di = torch.cat([torch.randint(0, sq, (100_000,), generator=gen, device=dev),
+                        sq + torch.randint(0, 1 << 30, (100_000,), generator=gen, device=dev)])
+        klo, khi = distance_keys(di, bl.s, bl.r, bl.w, bl.w_len)
+        rows.append(probe_row(
+            f"r={radius} fpp {fpp:g} ({bf.table_size} bits), contains_u64_batch",
+            lambda bf=bf, klo=klo, khi=khi: bf.contains_u64_batch(klo, khi), bf.bits_device,
+            (klo, khi), bf._salts_device(), bf._sizes(), True, card))
+        del bf
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--radii", default="4096,8192")
@@ -317,6 +446,8 @@ def main(argv=None) -> int:
                     help="time the direct insert kernel against the table's size instead")
     ap.add_argument("--inserts", action="store_true",
                     help="time the main paths' filters' device inserts instead")
+    ap.add_argument("--probe", action="store_true",
+                    help="time the main paths' filters' probes instead")
     args = ap.parse_args(argv)
 
     import torch
@@ -326,9 +457,10 @@ def main(argv=None) -> int:
     dev = cuda_device(0)
     card = smi_line()
     print(f"measure_bloom: {card}", flush=True)
-    if args.sweep or args.inserts:
+    if args.sweep or args.inserts or args.probe:
         out = {"card": card, **({"sweep": sweep(dev, card)} if args.sweep else {}),
-               **({"inserts": inserts(dev, card)} if args.inserts else {})}
+               **({"inserts": inserts(dev, card)} if args.inserts else {}),
+               **({"probe": probes(dev, card)} if args.probe else {})}
         if args.json:
             with open(args.json, "w") as f:
                 json.dump(out, f, indent=1)

@@ -18,7 +18,11 @@ on a packed table of u32 words (an int32 tensor holding the bits,
   slice live in L2 at a time). ``insert_plan`` gives the route, the
   buckets, the chunks and the launches;
 * ``probe_cuda`` returns, per key, whether every salt's bit is set (bool),
-  in one launch.
+  in one launch of ``bf_probe``: a table of at most ``STAGE_WORDS`` words
+  is staged in shared memory, a larger one read from device memory; a
+  key's salts are tested one at a time, up to its first clear bit.
+  ``probe_floor_cuda`` launches an empty kernel at the same geometry (the
+  launch floor the probe's device time is read against).
 
 Keys come as int64 (lo, hi) 32-bit word tensors (``keys=(lo, hi)``), or are
 made by the kernel: ``blinded=(s, r, w, w_len, start, count)`` inserts the
@@ -28,13 +32,16 @@ int64 tensor bd of values below 2^32. ``sizes`` is the size chain (one size
 for a plain filter), ending at the table size. The plain versions are
 ``primitives.bloom``'s (the unpacked table, ``index_fill_``, a gather); the
 filter dispatches on its table's device. ``launches_by_kernel`` counts the
-launches by kernel. No insert waits for the card: the stash's offsets are
-scanned on the device.
+launches by kernel. No insert or probe waits for the card: the stash's
+offsets are scanned on the device, and the verdicts stay there. The size
+chain is checked once a size list (``chain_array``, cached); the C side
+makes each size's fastmod multiplier from it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -44,8 +51,9 @@ from . import cuda_build
 
 __all__ = ["insert_cuda", "insert_direct", "insert_partitioned", "insert_plan", "InsertPlan",
            "partition_buffers", "count_cuda", "scatter_cuda", "apply_cuda", "probe_cuda",
-           "words_for", "launches_by_kernel", "reset_launches", "MAX_SALTS", "MAX_SIZES",
-           "SLICE_LOG2", "DIRECT_MAX_BITS"]
+           "probe_floor_cuda", "chain_array", "words_for", "launches_by_kernel",
+           "reset_launches", "MAX_SALTS", "MAX_SIZES", "SLICE_LOG2", "DIRECT_MAX_BITS",
+           "STAGE_WORDS"]
 
 SOURCE = cuda_build.CSRC / "bloom.cu"
 MAX_SALTS = 128  # the reference's salt table (bloomfilter.h:468-490)
@@ -60,6 +68,9 @@ DIRECT_MAX_BITS = 352_000_000
 MAX_BUCKETS = 32  # csrc/bloom.cu: kMaxBuckets
 TILE_ELEMS = 10240  # indices a block sorts in shared memory (kTileElems)
 THREADS = 256  # keys a block at most (kThreads)
+# The probe stages a table of at most STAGE_WORDS words in shared memory
+# (csrc/bloom.cu: kStageWords).
+STAGE_WORDS = 11264
 
 launches_by_kernel = {"bf_insert": 0, "bf_insert_count": 0, "bf_insert_scatter": 0,
                       "bf_insert_apply": 0, "bf_probe": 0}
@@ -84,6 +95,8 @@ def _declare(lib):
     lib.pplp_bf_insert_apply.restype = ctypes.c_int
     lib.pplp_bf_probe.argtypes = [vp, ll, vp, i, vp, i, i, i, vp, vp, u, i, ll, vp, vp]
     lib.pplp_bf_probe.restype = ctypes.c_int
+    lib.pplp_bf_probe_floor.argtypes = [ll, ll, vp]
+    lib.pplp_bf_probe_floor.restype = ctypes.c_int
 
 
 def load():
@@ -96,9 +109,30 @@ def words_for(table_size: int) -> int:
     return (table_size + 31) // 32
 
 
-def _check_table(words: torch.Tensor, salts: torch.Tensor, sizes) -> np.ndarray:
+@functools.lru_cache(maxsize=256)
+def _chain(sizes: tuple) -> tuple:
+    if not 1 <= len(sizes) <= MAX_SIZES:
+        raise ValueError(f"a size chain of 1 to {MAX_SIZES} sizes, got {len(sizes)}")
+    if not all(0 < s < (1 << 32) for s in sizes):
+        raise ValueError(f"sizes must be in (0, 2^32): {sizes}")
+    chain = np.asarray(sizes, dtype=np.uint32)
+    chain.flags.writeable = False
+    return chain, chain.ctypes.data
+
+
+def chain_array(sizes: tuple) -> np.ndarray:
+    """The size chain ``sizes`` (a tuple ending at the table size) as the
+    kernels take it, a read-only u32 host array; raises unless it is 1 to
+    ``MAX_SIZES`` sizes in (0, 2^32). Checked and made once a size list (the
+    array and its address are cached): a compressed filter's new list is a
+    new key."""
+    return _chain(sizes)[0]
+
+
+def _check_table(words: torch.Tensor, salts: torch.Tensor, sizes) -> tuple:
     """Raise unless the table, salts and size chain are what the kernels
-    take; returns the chain as a u32 host array."""
+    take; returns the chain as a u32 host array (``chain_array``) and its
+    address."""
     if not words.is_cuda:
         raise ValueError(f"the Bloom kernels take CUDA tensors, got {words.device}")
     if words.dtype != torch.int32 or salts.dtype != torch.int64:
@@ -109,14 +143,10 @@ def _check_table(words: torch.Tensor, salts: torch.Tensor, sizes) -> np.ndarray:
         raise ValueError("table and salts must be contiguous")
     if not 1 <= salts.numel() <= MAX_SALTS:
         raise ValueError(f"1 to {MAX_SALTS} salts, got {salts.numel()}")
-    sizes = tuple(int(s) for s in sizes)
-    if not 1 <= len(sizes) <= MAX_SIZES:
-        raise ValueError(f"a size chain of 1 to {MAX_SIZES} sizes, got {len(sizes)}")
-    if not all(0 < s < (1 << 32) for s in sizes):
-        raise ValueError(f"sizes must be in (0, 2^32): {sizes}")
-    if words.numel() != words_for(sizes[-1]):
-        raise ValueError(f"{words.numel()} words for a table of {sizes[-1]} bits")
-    return np.asarray(sizes, dtype=np.uint32)
+    chain = _chain(sizes if type(sizes) is tuple else tuple(int(s) for s in sizes))
+    if words.numel() != words_for(int(chain[0][-1])):
+        raise ValueError(f"{words.numel()} words for a table of {int(chain[0][-1])} bits")
+    return chain
 
 
 def _check_keys(words: torch.Tensor, *keys: torch.Tensor) -> int:
@@ -136,7 +166,16 @@ def _check_w(w: int, w_len: int, limit: int):
 
 
 def _stream(words: torch.Tensor) -> int:
-    return torch.cuda.current_stream(words.device).cuda_stream
+    """The raw current stream of the tensor's device. It reads PyTorch's
+    private binding ``torch._C._cuda_getCurrentRawStream`` (the launch path
+    of PyTorch's own generated kernels), a few microseconds a call less
+    than ``torch.cuda.current_stream(device).cuda_stream``; a PyTorch
+    without it raises here."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        raise RuntimeError("this PyTorch has no torch._C._cuda_getCurrentRawStream; "
+                           "bloom_cuda._stream needs the current stream's handle")
+    return raw(words.get_device())
 
 
 @dataclass(frozen=True)
@@ -227,7 +266,7 @@ def insert_cuda(words: torch.Tensor, salts: torch.Tensor, sizes, mixed: bool, *,
     ``keys=(lo, hi)`` int64 word tensors [K], or ``blinded=(s, r, w, w_len,
     start, count)``. The direct kernel for a table of at most
     ``DIRECT_MAX_BITS`` bits, else the partitioned insert (``insert_plan``)."""
-    chain = _check_table(words, salts, sizes)
+    chain, _ = _check_table(words, salts, sizes)
     key_args = _key_args(words, keys, blinded)
     plan = insert_plan(int(chain[-1]), salts.numel(), key_args[-1])
     if plan.direct:
@@ -240,7 +279,7 @@ def insert_direct(words: torch.Tensor, salts: torch.Tensor, sizes, mixed: bool, 
                   keys=None, blinded=None):
     """``insert_cuda`` through the direct kernel at any table size: one
     launch (none for no key). ``measure_bloom --sweep`` times it."""
-    chain = _check_table(words, salts, sizes)
+    chain, _ = _check_table(words, salts, sizes)
     _direct(words, salts, chain, mixed, _key_args(words, keys, blinded))
 
 
@@ -248,7 +287,7 @@ def insert_partitioned(words: torch.Tensor, salts: torch.Tensor, sizes, mixed: b
                        keys=None, blinded=None, slice_log2: int | None = None):
     """``insert_cuda`` through the partitioned kernels at any table size
     that gives at most ``MAX_BUCKETS`` buckets of 2^``slice_log2`` bits."""
-    chain = _check_table(words, salts, sizes)
+    chain, _ = _check_table(words, salts, sizes)
     key_args = _key_args(words, keys, blinded)
     plan = insert_plan(int(chain[-1]), salts.numel(), key_args[-1], slice_log2=slice_log2,
                        partitioned=True)
@@ -322,7 +361,7 @@ def _partitioned(words, salts, chain, mixed, key_args, plan: InsertPlan):
 def _check_step(words, salts, sizes, plan: InsertPlan, keys, blinded, hist, counts, stash=None):
     """The checks of a step on one chunk: the table, the plan, the chunk's
     keys and the buffers; returns (chain, key arguments)."""
-    chain = _check_table(words, salts, sizes)
+    chain, _ = _check_table(words, salts, sizes)
     if plan.direct or (plan.table_size, plan.n_salts) != (int(chain[-1]), salts.numel()):
         raise ValueError(f"{plan} is not a partition of this table and these salts")
     key_args = _key_args(words, keys, blinded)
@@ -374,10 +413,12 @@ def apply_cuda(words, stash, n: int):
 
 def probe_cuda(words: torch.Tensor, salts: torch.Tensor, sizes, mixed: bool, *,
                keys=None, blind_distances=None) -> torch.Tensor:
-    """Membership in the packed table ``words`` -> bool [K]: ``keys=(lo,
-    hi)`` int64 word tensors [K], or ``blind_distances=(bd, w, w_len)`` with
-    bd int64 [K] below 2^32 and 0 < w_len < 32. One launch (none for no key)."""
-    chain = _check_table(words, salts, sizes)
+    """Membership in the packed table ``words`` -> bool: ``keys=(lo, hi)``
+    int64 word tensors [K] -> [K], or ``blind_distances=(bd, w, w_len)``
+    with bd a contiguous int64 tensor of any shape, values below 2^32, and
+    0 < w_len < 32 -> bool shaped like bd. One launch (none for no key); the
+    verdicts stay on the device."""
+    chain, address = _check_table(words, salts, sizes)
     if (keys is None) == (blind_distances is None):
         raise ValueError("give keys or blind_distances")
     if keys is not None:
@@ -385,17 +426,29 @@ def probe_cuda(words: torch.Tensor, salts: torch.Tensor, sizes, mixed: bool, *,
         count = _check_keys(words, lo, hi)
         args = (_WORDS, lo.data_ptr(), hi.data_ptr(), 0, 0, count)
     else:
-        bd, w, w_len = blind_distances
-        count = _check_keys(words, bd)
-        _check_w(int(w), int(w_len), 32)
-        args = (_BLIND_DISTANCES, bd.data_ptr(), None, int(w), int(w_len), count)
-    out = torch.empty(count, dtype=torch.bool, device=words.device)
+        lo, w, w_len = blind_distances
+        count = _check_keys(words, lo)
+        w, w_len = int(w), int(w_len)
+        _check_w(w, w_len, 32)
+        args = (_BLIND_DISTANCES, lo.data_ptr(), None, w, w_len, count)
+    out = torch.empty(lo.shape, dtype=torch.bool, device=words.device)
     if count == 0:
         return out
     lib = load()
     code = lib.pplp_bf_probe(words.data_ptr(), words.numel(), salts.data_ptr(), salts.numel(),
-                             chain.ctypes.data, chain.size, int(mixed), *args, out.data_ptr(),
+                             address, chain.size, mixed, *args, out.data_ptr(),
                              _stream(words))
     cuda_build.check(code, lib, "bf_probe")
     launches_by_kernel["bf_probe"] += 1
     return out
+
+
+def probe_floor_cuda(words: torch.Tensor, count: int):
+    """An empty kernel at the geometry of ``bf_probe`` on ``count`` keys in
+    the packed table ``words`` (blocks, threads, dynamic shared memory): the
+    probe's launch floor. Not a launch of ``bf_probe``, so not counted."""
+    if not words.is_cuda or count < 1:
+        raise ValueError("the launch floor takes a CUDA table and at least one key")
+    lib = load()
+    cuda_build.check(lib.pplp_bf_probe_floor(words.numel(), count, _stream(words)), lib,
+                     "bf_probe_floor")

@@ -45,7 +45,10 @@ NVCC_FLAGS = (
 # Per source file name: seconds nvcc took (0.0 if already built), its
 # ptxas report and the nvcc used.
 build_info: dict[str, dict] = {}
-_libs: dict[tuple[Path, Path], ctypes.CDLL] = {}
+# The loaded libraries by (source, build_dir) as the wrappers pass them
+# (module constants): a launch looks its library up without making two new
+# Paths.
+_libs: dict[tuple, ctypes.CDLL] = {}
 
 
 def find_nvcc() -> str:
@@ -119,14 +122,14 @@ def build(sources, build_dir=None) -> dict[Path, Path]:
 def load(source, declare, build_dir=None) -> ctypes.CDLL:
     """The library of ``source`` (built if needed); ``declare(lib)`` sets
     its entry points' argtypes on first load."""
-    key = (Path(source), Path(build_dir or BUILD_DIR))
-    lib = _libs.get(key)
+    lib = _libs.get((source, build_dir))
     if lib is None:
-        lib = ctypes.CDLL(str(build([key[0]], key[1])[key[0]]))
+        src = Path(source)
+        lib = ctypes.CDLL(str(build([src], Path(build_dir or BUILD_DIR))[src]))
         lib.pplp_cuda_error_string.argtypes = [ctypes.c_int]
         lib.pplp_cuda_error_string.restype = ctypes.c_char_p
         declare(lib)
-        _libs[key] = lib
+        _libs[(source, build_dir)] = lib
     return lib
 
 

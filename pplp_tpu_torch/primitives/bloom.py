@@ -312,15 +312,15 @@ def probe(table, salts, sizes, mixed: bool, *, keys=None,
     ``keys=(lo, hi)``: int64 word tensors [K] -> [K];
     ``blind_distances=(bd, w, w_len)``: the keys (bd << w_len) | w of blind
     distances bd < 2^32 (any shape; 0 < w_len < 32) -> bool shaped like bd.
-    A table on a CUDA device goes to the ``bf_probe`` kernel (one launch);
-    on the CPU the plain version gathers from the unpacked table."""
+    A table on a CUDA device goes to the ``bf_probe`` kernel (one launch,
+    which reads bd in place when it is contiguous); on the CPU the plain
+    version gathers from the unpacked table."""
     sizes = _chain(sizes)
     if blind_distances is not None:
         bd, w, w_len = blind_distances
         if table.is_cuda:
-            flat = bd.reshape(-1).contiguous()
             return bloom_cuda.probe_cuda(table, salts, sizes, mixed,
-                                         blind_distances=(flat, w, w_len)).reshape(bd.shape)
+                                         blind_distances=(bd.contiguous(), w, w_len))
         klo, khi = blinded_keys(bd.reshape(-1), w, w_len)
         return probe_plain(_plain_table(table, sizes[-1]), klo, khi, salts, sizes,
                            mixed).reshape(bd.shape)

@@ -60,14 +60,17 @@ def test_argtypes_match_the_c_entry_points(wrapper):
 
 def test_bloom_entry_points():
     """``csrc/bloom.cu`` exports the direct insert, the partitioned insert's
-    three steps and the probe, and ``bloom_cuda._declare`` declares each:
-    the steps take the chunk's keys and partition (17 arguments) before
-    their buffers and stream."""
+    three steps, the probe and the probe's launch floor (an empty kernel at
+    its geometry), and ``bloom_cuda._declare`` declares each: the steps take
+    the chunk's keys and partition (17 arguments) before their buffers and
+    stream; the probe takes 15 arguments, its floor the table's words, the
+    key count and the stream."""
     lib = _Library()
     bloom_cuda._declare(lib)
     c_side = _entry_points(bloom_cuda.SOURCE)
     names = {"pplp_bf_insert", "pplp_bf_insert_count", "pplp_bf_insert_scatter",
-             "pplp_bf_insert_apply", "pplp_bf_probe"}
+             "pplp_bf_insert_apply", "pplp_bf_probe", "pplp_bf_probe_floor"}
     assert set(c_side) - {"pplp_cuda_error_string"} == names == set(lib.functions)
     steps = [len(c_side[f"pplp_bf_insert_{k}"]) for k in ("count", "scatter", "apply")]
     assert steps == [20, 21, 4]
+    assert c_side["pplp_bf_probe_floor"] == ["i", "i", "p"] and len(c_side["pplp_bf_probe"]) == 15

@@ -379,3 +379,23 @@ def test_insert_plan_routes_and_refusals():
                                 blinded=blinded)
     with pytest.raises(ValueError, match="CUDA"):
         bloom_cuda.apply_cuda(words, stash, 4)
+
+
+def test_chain_is_checked_once_a_size_list():
+    """``bloom_cuda.chain_array``: one read-only u32 array a size list, made
+    and checked on its first use and shared after; a compressed filter's
+    new list is a new array; bad lists raise every time."""
+    from pplp_tpu_torch.ops import bloom_cuda
+
+    bf = prim.CompressibleBloomFilter(_params(prim, 5000, 1e-3, "mixed"), device="cpu",
+                                      packed=True)
+    before = bloom_cuda.chain_array(bf._sizes())
+    assert before is bloom_cuda.chain_array(bf._sizes()) and not before.flags.writeable
+    assert before.dtype == np.uint32 and before.tolist() == [bf.table_size]
+    assert bf.compress(40.0)
+    after = bloom_cuda.chain_array(bf._sizes())
+    assert after is not before and after.tolist() == bf.size_list and len(after) == 2
+    for bad in ((), (0,), (1 << 32,), (5,) * (bloom_cuda.MAX_SIZES + 1)):
+        for _ in range(2):
+            with pytest.raises(ValueError):
+                bloom_cuda.chain_array(bad)

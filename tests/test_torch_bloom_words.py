@@ -5,7 +5,8 @@ The model follows the kernels step for step: a key's (lo, hi) words from
 each key source (given words; the fused blinded range ((s (start + i + r)
 mod 2^64) << w_len) | w; the fused blind distances (bd << w_len) | w), one
 round of the AP hash per salt, fmix32 in "mixed" mode, the reduction by
-each size of the chain, then word idx >> 5 and bit idx & 31 of a packed
+each size of the chain (``fastmod``: the high word of (ceil(2^64 / d) h mod
+2^64) d, held against Python's ``%``), then word idx >> 5 and bit idx & 31 of a packed
 table of ceil(table_size / 32) u32 words, whose little-endian bytes are the
 wire's table. It is held against ``pplp_tpu.primitives.bloom``'s
 ``_indices`` / ``_chain_indices`` and the bytes of its ``_pack_bits_fn``,
@@ -21,10 +22,17 @@ and per-chunk counts, exclusive-scan offsets, a stash that holds every
 (key, salt) index once inside its bucket's range, and the stash applied in
 bucket order; held bit for bit against ``model_insert`` and the reference's
 bytes, on ragged last buckets and chunks, chains of sizes, chunk starts of
-the blinded source, and r = 8192's bucket ids past 2^31. Exact comparisons
-throughout; no card needed.
+the blinded source, and r = 8192's bucket ids past 2^31.
+
+The probe is modelled as ``bf_probe`` runs it: a key's salts one at a
+time, the key stopped at its first clear bit (``model_probe_early_exit``,
+with the words it reads, one 32-byte sector each, against
+``measure_bloom.probe_reads``). Exact comparisons throughout; no card
+needed.
 """
 
+import functools
+import re
 import sys
 
 import jax.numpy as jnp
@@ -35,6 +43,7 @@ import torch
 from pplp_tpu import primitives as rprim
 from pplp_tpu.primitives import bloom as rbloom
 from pplp_tpu_torch import primitives as prim
+from pplp_tpu_torch.measure_bloom import probe_reads
 from pplp_tpu_torch.ops import bloom_cuda
 from pplp_tpu_torch.primitives import bloom
 from pplp_tpu_torch.primitives.blinding import blinded_keys, distance_keys
@@ -62,6 +71,20 @@ def model_blind_distances(bd: np.ndarray, w, w_len) -> np.ndarray:
     return (bd.astype(np.uint64) << np.uint64(w_len)) | np.uint64(w)
 
 
+def model_multiplier(d: int) -> np.uint64:
+    """ceil(2^64 / d) mod 2^64, as ``make_chain`` makes it: ~0 / d + 1."""
+    return np.uint64((((1 << 64) - 1) // d + 1) & ((1 << 64) - 1))
+
+
+def model_fastmod(h: np.ndarray, mul: np.uint64, d: int) -> np.ndarray:
+    """``fastmod``: the high word of (mul h mod 2^64) d, from 32-bit halves
+    in u64 (hi d + (lo d >> 32) < 2^64 for d < 2^32)."""
+    d64 = np.uint64(d)
+    low = mul * h.astype(np.uint64)  # wraps mod 2^64
+    lo, hi = low & np.uint64(0xFFFFFFFF), low >> np.uint64(32)
+    return ((hi * d64 + ((lo * d64) >> np.uint64(32))) >> np.uint64(32)).astype(U32)
+
+
 def model_indices(keys: np.ndarray, salts: np.ndarray, sizes, mixed: bool) -> np.ndarray:
     """bit_index for every (salt, key): [S, K] u32."""
     i1, i2 = model_key_words(keys)
@@ -75,7 +98,7 @@ def model_indices(keys: np.ndarray, salts: np.ndarray, sizes, mixed: bool) -> np
             h = h * U32(0xC2B2AE35)
             h = h ^ (h >> U32(16))
     for size in sizes:
-        h = h % U32(size)
+        h = model_fastmod(h, model_multiplier(size), size)
     return h
 
 
@@ -88,6 +111,21 @@ def model_insert(words: np.ndarray, idx: np.ndarray):
 def model_probe(words: np.ndarray, idx: np.ndarray) -> np.ndarray:
     """Every salt's bit set (the kernel stops at the first clear one)."""
     return ((words[idx >> U32(5)] >> (idx & U32(31))) & U32(1)).astype(bool).all(axis=0)
+
+
+def model_probe_early_exit(words: np.ndarray, idx: np.ndarray):
+    """``probe_key``: each key's salts one at a time, the key stopped at its
+    first clear bit. Returns (verdicts [K], words read a key [K])."""
+    n_salts, count = idx.shape
+    verdicts = np.ones(count, bool)
+    reads = np.zeros(count, np.int64)
+    for k in range(count):
+        for j in range(n_salts):
+            reads[k] += 1
+            if not (words[idx[j, k] >> U32(5)] >> (idx[j, k] & U32(31))) & U32(1):
+                verdicts[k] = False
+                break
+    return verdicts, reads
 
 
 def model_bytes(words: np.ndarray, table_size: int) -> bytes:
@@ -428,3 +466,106 @@ def test_partitioned_buckets_above_2_31(mode):
     hist, totals = model_count(idx, plan.tile_keys, plan.slice_log2, plan.buckets)
     assert int(totals.sum()) == idx.size
     assert hist.shape == (-(-keys.size // plan.tile_keys), plan.buckets)
+
+
+# --- the probe's reduction and early exit ----------------------------------
+
+def _sizes_on_the_paths() -> dict:
+    """Every table size ``chip_smoke.py`` builds: the demo's at r = 4096 and
+    8192 (fpp 1e-12), the client/server one (r = 4096, fpp 1e-4), config[3]'s
+    (r = 99, fpp 1e-4) and a compressed chain of three sizes."""
+    out = {f"r={r} fpp {f:g}": _params(prim, r * r, f, "mixed").table_size
+           for r, f in ((4096, 1e-12), (8192, 1e-12), (4096, 1e-4), (99, 1e-4))}
+    bf = prim.CompressibleBloomFilter(_params(prim, 200_000, 1e-4, "mixed"), device="cpu")
+    assert bf.compress(30.0) and bf.compress(20.0)
+    out.update({f"chain {j}": size for j, size in enumerate(bf.size_list)})
+    return out
+
+
+_PATH_SIZES = _sizes_on_the_paths()
+_EDGE_SIZES = {"1": 1, "2": 2, "3": 3, "2^31": 1 << 31, "2^31 + 1": (1 << 31) + 1,
+               "2^32 - 1": (1 << 32) - 1}
+
+
+@pytest.mark.parametrize("d", list({**_EDGE_SIZES, **_PATH_SIZES}.values()),
+                         ids=list({**_EDGE_SIZES, **_PATH_SIZES}))
+def test_fastmod_is_the_remainder(d):
+    """``fastmod`` equals Python's ``%`` at h in {0, 1, d - 1, d, 2^32 - 1}
+    (those below 2^32) and 10^5 random u32s, at the edge divisors and every
+    size of the main paths."""
+    assert _PATH_SIZES["r=4096 fpp 1e-12"] == 964_867_048
+    assert _PATH_SIZES["r=8192 fpp 1e-12"] == R8192_BITS
+    assert _PATH_SIZES["r=4096 fpp 0.0001"] == 321_668_808
+    assert _PATH_SIZES["r=99 fpp 0.0001"] == 187_920
+    edge = [h for h in (0, 1, d - 1, d, (1 << 32) - 1) if 0 <= h < 1 << 32]
+    rng = np.random.default_rng(d % 1_000_003)
+    h = np.concatenate([np.asarray(edge, np.uint64),
+                        rng.integers(0, 1 << 32, 100_000, dtype=np.uint64)]).astype(U32)
+    got = model_fastmod(h, model_multiplier(d), d)
+    assert got.dtype == U32
+    assert np.array_equal(got, (h.astype(np.uint64) % np.uint64(d)).astype(U32))
+    assert [int(x) for x in got[:len(edge)]] == [x % d for x in edge]
+
+
+@pytest.mark.parametrize("mode", ["reference", "mixed"])
+def test_fastmod_chain_matches_reference(mode):
+    """``model_indices`` on the reciprocal equals the reference's
+    ``_chain_indices`` on the compressed chain of three sizes that
+    ``chip_smoke.py`` builds."""
+    sizes = tuple(v for k, v in _PATH_SIZES.items() if k.startswith("chain"))
+    assert len(sizes) == 3
+    keys = _keys(4000, 11)
+    salts = np.asarray(bloom._PREDEF_SALT[:13], U32)
+    lo, hi = model_key_words(keys)
+    want = rbloom._chain_indices(jnp.asarray(lo), jnp.asarray(hi), jnp.asarray(salts), sizes,
+                                 mode == "mixed")
+    assert np.array_equal(model_indices(keys, salts, sizes, mode == "mixed"), np.asarray(want))
+
+
+_PROBE_CASES = {1: 0.5, 13: 0.9, 40: 0.97, 128: 0.992}  # salts: the table's density
+
+
+@functools.lru_cache(maxsize=None)
+def _probe_case(n_salts: int):
+    """A table of 40,000 bits at the density that leaves both verdicts
+    common, 1,500 keys, their indices, and the reference's verdicts."""
+    rng = np.random.default_rng(n_salts)
+    ts = 40_000
+    bits = (rng.random(ts) < _PROBE_CASES[n_salts]).astype(np.uint8)
+    words = np.zeros(bloom_cuda.words_for(ts), U32)
+    words.view(np.uint8)[:ts // 8] = np.packbits(bits, bitorder="little")
+    keys = _keys(1500, n_salts)
+    salts = np.asarray(bloom._PREDEF_SALT[:n_salts], U32)
+    idx = model_indices(keys, salts, (ts,), True)
+    lo, hi = model_key_words(keys)
+    want = np.asarray(rbloom._contains_fn(True)(jnp.asarray(bits), jnp.asarray(lo),
+                                                jnp.asarray(hi), jnp.asarray(salts),
+                                                jnp.uint32(ts)))
+    return words, idx, want
+
+
+@pytest.mark.parametrize("n_salts", list(_PROBE_CASES))
+def test_probe_early_exit_matches_reference(n_salts):
+    """The probe that stops a key at its first clear bit gives the verdicts
+    of ``model_probe`` (every salt tested) and the reference's
+    ``_contains_fn``, at 1, 13, 40 and 128 salts; it reads what
+    ``measure_bloom.probe_reads`` counts: every salt of a present key, an
+    absent key's salts up to its first clear bit."""
+    words, idx, want = _probe_case(n_salts)
+    got, reads = model_probe_early_exit(words, idx)
+    assert np.array_equal(got, model_probe(words, idx)) and np.array_equal(got, want)
+    assert 0 < got.sum() < got.size or n_salts == 1
+    miss = ((words[idx >> U32(5)] >> (idx & U32(31))) & U32(1)) == 0
+    first = np.where(miss.any(0), miss.argmax(0) + 1, n_salts)  # salts up to the first clear
+    assert (reads[got] == n_salts).all() and np.array_equal(reads, first)
+    assert probe_reads(torch.from_numpy(miss)) == int(reads.sum())
+
+
+def test_probe_constants_are_the_kernels():
+    """``bloom_cuda``'s stage limit is ``bloom.cu``'s, and a staged table,
+    the salts and the copy's barrier fit the 48 KB of static and default
+    dynamic shared memory."""
+    text = bloom_cuda.SOURCE.read_text()
+    stage = int(re.search(r"constexpr \w+ kStageWords = (\d+);", text).group(1))
+    assert stage == bloom_cuda.STAGE_WORDS
+    assert 4 * bloom_cuda.STAGE_WORDS <= 48 * 1024 - 4 * bloom_cuda.MAX_SALTS - 8

@@ -31,7 +31,7 @@ import torch
 from pplp_tpu_torch import bfv
 from pplp_tpu_torch.bfv import behz, behz_fused
 from pplp_tpu_torch.bfv.behz_fused import FusedMultiplier
-from pplp_tpu_torch.ops import behz64_cuda, behz_cuda, mulmod_chain, ntt, ntt_cuda
+from pplp_tpu_torch.ops import behz64_cuda, behz_cuda, bloom_cuda, mulmod_chain, ntt, ntt_cuda
 from pplp_tpu_torch.ops.modmath import m31
 from pplp_tpu_torch.ops.primes import Modulus, bfv_default, get_primes, tpu_default
 
@@ -1782,3 +1782,137 @@ def test_partitioned_insert_just_above_one_slice(dev):
             bloom.insert_plain(plain, klo, khi, salts, (bits,), mixed)
             assert torch.equal(words, direct)
             assert torch.equal(words.view(torch.uint8)[:bits // 8], bloom.pack_bits(plain))
+
+
+# --- The probe's routes and edges (bf_probe: staged, device memory) ---
+
+def _probe_table(dev, bits, n_salts, density, seed, offset=0):
+    """A packed table of ``bits`` bits, each set with probability
+    ``density`` (default: the one that leaves ~30% of keys present at
+    ``n_salts`` salts), ``offset`` words into its storage."""
+    from pplp_tpu_torch.primitives import bloom
+
+    rng = np.random.default_rng(seed)
+    p = 0.3 ** (1 / n_salts) if density is None else density
+    packed = np.packbits(rng.random(bits) < p, bitorder="little")
+    words = bloom.words_of_bytes(packed, dev)[:bloom_cuda.words_for(bits)]
+    if offset:
+        store = torch.zeros(words.numel() + offset, dtype=torch.int32, device=dev)
+        store[offset:] = words
+        words = store[offset:]
+    return words
+
+
+def _probe_against_plain(dev, words, bits, n_salts, count, seed, sizes=None, mixed=True):
+    from pplp_tpu_torch.primitives import bloom
+
+    sizes = sizes or (bits,)
+    salts = torch.tensor(bloom._PREDEF_SALT[:n_salts], dtype=torch.int64, device=dev)
+    rng = np.random.default_rng(seed + 1)
+    lo, hi = (torch.from_numpy(rng.integers(0, 1 << 32, count, dtype=np.uint64)
+                               .astype(np.int64)).to(dev) for _ in range(2))
+    bloom_cuda.reset_launches()
+    got = bloom_cuda.probe_cuda(words, salts, sizes, mixed, keys=(lo, hi))
+    assert bloom_cuda.launches_by_kernel["bf_probe"] == 1
+    want = bloom.probe_plain(bloom.unpack_words(words, sizes[-1]), lo, hi, salts, sizes, mixed)
+    assert torch.equal(got, want)
+    return got
+
+
+_STAGE = bloom_cuda.STAGE_WORDS
+PROBE_EDGES = {  # name: (table bits, salts, keys, density, offset in words)
+    "staged 1 mod 4": (32 * 4001 - 5, 13, 100_003, None, 0),
+    "staged 2 mod 4": (32 * 4002, 13, 100_003, None, 0),
+    "staged 3 mod 4": (32 * 4003 - 31, 13, 1025, None, 0),
+    "config[3] words": (187_920, 13, 102_400, None, 0),
+    "exactly the stage": (32 * _STAGE, 13, 50_001, None, 0),
+    "one word past the stage": (32 * _STAGE + 1, 13, 50_001, None, 0),
+    "staged, storage not 16-byte aligned": (32 * 4001, 13, 30_000, None, 1),
+    "device, storage not 16-byte aligned": (32 * 40_001, 13, 30_000, None, 1),
+    "one key, staged": (100_000, 13, 1, None, 0),
+    "one key, device": (10_000_000, 40, 1, None, 0),
+    "all ones, staged": (100_000, 40, 3333, 1.0, 0),
+    "all ones, device": (10_000_003, 40, 3333, 1.0, 0),
+    "all zero, staged": (100_000, 13, 3333, 0.0, 0),
+    "all zero, device": (10_000_003, 13, 3333, 0.0, 0),
+    **{f"{s} salts, staged": (150_000, s, 20_000, None, 0) for s in (1, 13, 40, 128)},
+    **{f"{s} salts, device": (20_000_000, s, 20_000, None, 0) for s in (1, 13, 40, 128)},
+}
+
+
+@pytest.mark.parametrize("case", list(PROBE_EDGES))
+def test_probe_edges_match_plain(dev, case):
+    """``bf_probe`` on both routes and at their edges (word counts 1, 2
+    and 3 mod 4, exactly ``STAGE_WORDS`` words and one past them, storage
+    that is not 16-byte aligned, one key, key counts that are not a
+    multiple of the block, tables all set and all clear, 1, 13, 40 and 128
+    salts): the verdicts equal ``probe_plain``'s, in one launch."""
+    bits, n_salts, count, density, offset = PROBE_EDGES[case]
+    words = _probe_table(dev, bits, n_salts, density, bits % 1009, offset)
+    assert (words.data_ptr() % 16 != 0) == (offset != 0)
+    got = _probe_against_plain(dev, words, bits, n_salts, count, bits % 1013)
+    if density is not None:
+        assert bool(got.all()) if density == 1.0 else not bool(got.any())
+    elif count > 1000:
+        assert 0 < int(got.sum()) < count
+
+
+@pytest.mark.parametrize("w_len,bits", [(1, 187_920), (31, 187_920), (1, 10_000_000),
+                                        (31, 10_000_000)])
+def test_probe_blind_distances_at_w_len_edges(dev, w_len, bits):
+    """The blind-distance source at w_len 1 and 31, staged and from device
+    memory, on a [25, 4096] batch read in place: the verdicts are
+    ``probe_plain``'s of ``blinded_keys`` and shaped like the batch."""
+    from pplp_tpu_torch.primitives import bloom
+    from pplp_tpu_torch.primitives.blinding import blinded_keys
+
+    w = (1 << w_len) - 1
+    words = _probe_table(dev, bits, 13, None, w_len)
+    salts = torch.tensor(bloom._PREDEF_SALT[:13], dtype=torch.int64, device=dev)
+    g = torch.Generator(device=dev).manual_seed(w_len)
+    bd = torch.randint(0, 1 << 32, (25, 4096), generator=g, device=dev)
+    bloom_cuda.reset_launches()
+    got = bloom.probe(words, salts, bits, True, blind_distances=(bd, w, w_len))
+    assert bloom_cuda.launches_by_kernel["bf_probe"] == 1 and got.shape == bd.shape
+    want = bloom.probe_plain(bloom.unpack_words(words, bits), *blinded_keys(bd.reshape(-1), w,
+                                                                           w_len), salts, (bits,),
+                             True)
+    assert torch.equal(got.reshape(-1), want) and 0 < int(got.sum()) < got.numel()
+
+
+def test_probe_follows_a_compressed_chain(dev):
+    """A compressed filter's probe before and after ``compress``: the chain
+    that the wrapper checked and cached for the old sizes gives way to the
+    new list, and the verdicts equal ``probe_plain``'s on the folded table
+    each time."""
+    from pplp_tpu_torch.primitives import bloom
+
+    rng = np.random.default_rng(17)
+    lo, hi = (torch.from_numpy(rng.integers(0, 1 << 32, 60_000, dtype=np.uint64)
+                               .astype(np.int64)).to(dev) for _ in range(2))
+    bf = _bf(dev, 40_000, 1e-4, "mixed", "CompressibleBloomFilter")
+    bf.insert_u64_batch(lo[:40_000], hi[:40_000])
+    salts = bf._salts_device()
+    for cut in (None, 30.0, 20.0):
+        if cut:
+            assert bf.compress(cut)
+        sizes = bf._sizes()
+        assert bloom_cuda.chain_array(sizes).tolist() == list(sizes)
+        bloom_cuda.reset_launches()
+        got = bf.contains_u64_batch(lo, hi)
+        assert bloom_cuda.launches_by_kernel["bf_probe"] == 1
+        plain = bloom.unpack_words(bf.bits_device, bf.table_size)
+        assert torch.equal(got, bloom.probe_plain(plain, lo, hi, salts, sizes, True))
+        assert bool(got[:40_000].all())
+    assert len(bf.size_list) == 3
+
+
+def test_probe_launch_floor_is_not_a_probe(dev):
+    """The empty kernel at the probe's geometry launches on both routes and
+    counts no ``bf_probe`` launch."""
+    bloom_cuda.reset_launches()
+    for bits in (187_920, 10_000_000):
+        words = torch.zeros(bloom_cuda.words_for(bits), dtype=torch.int32, device=dev)
+        bloom_cuda.probe_floor_cuda(words, 102_400)
+    torch.cuda.synchronize()
+    assert not any(bloom_cuda.launches_by_kernel.values())
