@@ -29,13 +29,18 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
                ``index_fill_``): the demo's filter at r = 4096 and 8192 (fpp
                1e-12, ``mixed`` as the CLI runs it and the reference's
                indexing; the partitioned insert), the client/server filter
-               at r = 4096 (fpp 1e-4; the direct kernel), BASELINE
-               config[3]'s (r = 99, ``mixed``, probed from blind distances)
-               and a ``CompressibleBloomFilter`` compressed twice;
+               at r = 4096 (fpp 1e-4; the sub-slice insert, 614 sub-slices),
+               BASELINE config[3]'s (r = 99, ``mixed``, probed from blind
+               distances; the direct kernel) and a
+               ``CompressibleBloomFilter`` compressed twice;
                ``serialize()`` equal byte for byte and the probe verdicts
                equal on 100,000 inserted and 100,000 outside keys; each
                partitioned kernel against its plain step on the demo's first
-               chunk; each insert kernel's device time and the call's
+               chunk, each sub-slice kernel against its plain step on the
+               client/server filter's first chunk into a table that already
+               holds bits, and the direct kernel forced on the client/server
+               filter's keys beside the route; each insert kernel's device
+               time and the call's
                CUDA-event time beside the bound, the sector model and the
                design's floor (``measure_bloom``), and the plain versions'
                times; each filter's probe (``measure_bloom.probe_row``): its
@@ -294,9 +299,11 @@ BLOOM_FILTERS = ((4096, "mixed", 1e-12), (4096, "reference", 1e-12), (8192, "mix
                  (8192, "reference", 1e-12), (4096, "mixed", 1e-4))
 BLOOM_KEYS = 100_000  # inserted keys probed, and as many outside keys
 BLOOM_COMPRESSED = (200_000, (30.0, 20.0))  # keys, the compressions between thirds
-# The insert kernels: direct (one launch, a table of at most DIRECT_MAX_BITS
-# bits) and partitioned (count, scatter, apply a chunk of keys).
-BLOOM_INSERT = ("bf_insert", "bf_insert_count", "bf_insert_scatter", "bf_insert_apply")
+# The insert kernels: direct (one launch), sub-slice (count, scatter, apply
+# a chunk of keys into a table of SUBSLICE_MIN_BITS to DIRECT_MAX_BITS bits)
+# and partitioned (count, scatter, apply a chunk, a larger table).
+BLOOM_INSERT = ("bf_insert", "bf_insert_sub_count", "bf_insert_sub_scatter",
+                "bf_insert_sub_apply", "bf_insert_count", "bf_insert_scatter", "bf_insert_apply")
 BLOOM_XLA = {**dict.fromkeys(BLOOM_INSERT, "pplp_tpu/primitives/bloom.py:200"),  # _insert_scan_fn
              "bf_probe": "pplp_tpu/primitives/bloom.py:224"}  # _contains_fn
 # Launches of the Bloom kernels on the main paths (slice, pipeline, network,
@@ -570,6 +577,83 @@ def _partition_steps(tag, kbf, bl, plan, card) -> dict:
     return {k: (err[k], plain[k]) for k in err}
 
 
+def _subslice_steps(tag, kbf, bl, plan, card) -> dict:
+    """The sub-slice kernels, one launch each on the first chunk of the
+    filter's keys (blinded, from 0) into a table that already holds bits
+    (a quarter of them, random), each against its plain version: the
+    chunk's totals against a bincount of idx >> slice_log2; the stash (u32)
+    against the chunk's indices, equal as sorted sets, in bucket order, and
+    its offsets against the totals' exclusive scan; the table after the
+    apply against ``index_fill_`` of the chunk's indices into the unpacked
+    table, byte for byte, the last word's bits above the table as they
+    were. Returns (max error, plain ms) by kernel."""
+    import torch
+
+    from pplp_tpu_torch.ops import bloom_cuda
+    from pplp_tpu_torch.primitives import bloom
+    from pplp_tpu_torch.primitives.blinding import distance_keys
+
+    dev = kbf.bits_device.device
+    salts, sizes, mixed = kbf._salts_device(), kbf._sizes(), kbf.index_mode == "mixed"
+    n, nb, ts = plan.chunk_keys, plan.buckets, kbf.table_size
+    blinded = (bl.s, bl.r, bl.w, bl.w_len, 0, n)
+    gen = torch.Generator(device=dev).manual_seed(18)
+
+    def random_words():
+        return torch.randint(-(1 << 31), 1 << 31, kbf.bits_device.shape, generator=gen,
+                             dtype=torch.int32, device=dev)
+
+    words = random_words() & random_words()
+    before = words.clone()
+    stash, counts = bloom_cuda.subslice_buffers(plan, dev)
+    bloom_cuda.sub_count_cuda(words, salts, sizes, mixed, plan, counts[0], blinded=blinded)
+    bloom_cuda.sub_scatter_cuda(words, salts, sizes, mixed, plan, counts[0], stash,
+                                blinded=blinded)
+    bloom_cuda.sub_apply_cuda(words, salts, sizes, plan, counts[0], stash)
+    klo, khi = distance_keys(torch.arange(n, device=dev), bl.s, bl.r, bl.w, bl.w_len)
+    flat = bloom._indices(klo, khi, salts, sizes, mixed).reshape(-1)
+    bucket = flat >> plan.slice_log2
+    bits = bloom.unpack_words(before, ts)
+
+    def plain_count():
+        return torch.bincount(bucket, minlength=nb)
+
+    def plain_scatter():
+        return flat[torch.argsort(bucket, stable=True)]
+
+    want_totals, want_stash = plain_count(), plain_scatter()
+
+    def plain_apply():
+        bits.index_fill_(0, want_stash, 1)
+
+    plain_apply()
+    got_counts = counts[0].to(torch.int64) & 0xFFFFFFFF
+    got = stash.to(torch.int64) & 0xFFFFFFFF
+    got_b = got >> plan.slice_log2
+    offsets = torch.cumsum(want_totals, 0) - want_totals
+    top = ~((1 << (ts % 32)) - 1) if ts % 32 else 0
+    err = {"bf_insert_sub_count": int((got_counts[:nb] - want_totals).abs().max()),
+           "bf_insert_sub_scatter": max(
+               int((torch.sort(got).values - torch.sort(want_stash).values).abs().max()),
+               int((got_counts[2 * nb:] - offsets).abs().max())),
+           "bf_insert_sub_apply": max(
+               int((words.view(torch.uint8)[:ts // 8].to(torch.int16)
+                    - bloom.pack_bits(bits).to(torch.int16)).abs().max()),
+               int((words[-1] & top) != (before[-1] & top)))}
+    torch.cuda.synchronize()
+    assert not any(err.values()), f"{tag}: a sub-slice kernel differs from plain: {err}"
+    assert bool((got_b[1:] >= got_b[:-1]).all()), f"{tag}: the stash is not in bucket order"
+    plain = {"bf_insert_sub_count": cuda_ms(plain_count, 3, 1),
+             "bf_insert_sub_scatter": cuda_ms(plain_scatter, 3, 1),
+             "bf_insert_sub_apply": cuda_ms(plain_apply, 3, 1)}
+    log(f"[bloom] {tag}: the sub-slice kernels on the first chunk ({n} keys, {nb} buckets of "
+        f"2^{plan.slice_log2} bits) into a table a quarter full equal their plain versions "
+        f"(totals; the stash of {got.numel()} indices in bucket order and its offsets; the "
+        f"table's bytes); plain ms a chunk " + ", ".join(f"{k} {v:.4f}" for k, v in plain.items())
+        + f" [{card}]")
+    return {k: (err[k], plain[k]) for k in err}
+
+
 def _bloom_check(tag, kbf, plain, inserted, outside, sizes, card):
     """``kbf`` (kernel filter) against the unpacked ``plain`` table on the
     card: serialize() bytes, then the probe verdicts of the inserted and the
@@ -614,7 +698,7 @@ def phase_bloom(dev):
     import torch
 
     from pplp_tpu_torch.measure_bloom import (design_floor, insert_bound, insert_split,
-                                              partition_bounds, probe_row)
+                                              partition_bounds, probe_row, subslice_bounds)
     from pplp_tpu_torch.measure_ntt import device_ms
     from pplp_tpu_torch.ops import bloom_cuda
     from pplp_tpu_torch.parallel import pipeline
@@ -680,8 +764,8 @@ def phase_bloom(dev):
         ms = sum(split[k] for k in plan.launches())
         ib = insert_bound(sq, kbf.salt_count, kbf.table_size, mixed, key_bytes=0)
         floor = design_floor(plan)
-        route = ("direct, one launch" if plan.direct else
-                 f"partitioned: {plan.chunks} chunks of {plan.chunk_keys} keys, {plan.buckets} "
+        route = ("direct, one launch" if plan.route == "direct" else
+                 f"{plan.route}: {plan.chunks} chunks of {plan.chunk_keys} keys, {plan.buckets} "
                  f"buckets of 2^{plan.slice_log2} bits")
         log(f"[bloom] {tag}: insert ({route}) {ms:.4f} ms of kernels (profiler: "
             + ", ".join(f"{k} {split[k]:.4f}" for k in plan.launches())
@@ -698,9 +782,30 @@ def phase_bloom(dev):
                 err[name] = max(err[name], s_err)
                 rows[name] = {"max_abs_err": 0, "ms": split[name] / plan.chunks,
                               "ms_source": "profiler", "plain_ms": s_plain, **bounds[name]}
-        if (radius, mode, fpp) == BLOOM_FILTERS[-1]:  # the C/S filter: the direct kernel's
-            rows["bf_insert"] = {"max_abs_err": 0, "ms": split["bf_insert"],
+        if (radius, mode, fpp) == BLOOM_FILTERS[-1]:  # the C/S filter: the sub-slice route
+            assert plan.route == "subslice", f"{tag}: {plan}"
+            steps = _subslice_steps(tag, kbf, bl, plan, card)
+            bounds = subslice_bounds(plan, mixed)
+            for name, (s_err, s_plain) in steps.items():
+                err[name] = max(err[name], s_err)
+                rows[name] = {"max_abs_err": 0, "ms": split[name] / plan.chunks,
+                              "ms_source": "profiler", "plain_ms": s_plain, **bounds[name]}
+            # ... beside the direct kernel, forced on the same keys.
+            direct = torch.zeros_like(kbf.bits_device)
+
+            def insert_direct():
+                bloom_cuda.insert_direct(direct, salts, sizes, mixed,
+                                         blinded=(bl.s, bl.r, bl.w, bl.w_len, 0, sq))
+
+            split_d = insert_split(insert_direct)
+            err["bf_insert"] = max(err["bf_insert"], int(not torch.equal(direct,
+                                                                         kbf.bits_device)))
+            rows["bf_insert"] = {"max_abs_err": 0, "ms": split_d["bf_insert"],
                                  "ms_source": "profiler", "plain_ms": 1e3 * t_p, **ib}
+            log(f"[bloom] {tag}: the direct kernel forced on the same keys "
+                f"{split_d['bf_insert']:.4f} ms (profiler), its words equal the route's; the "
+                f"sub-slice route {ms:.4f} ms, {split_d['bf_insert'] / ms:.2f}x [{card}]")
+            del direct
         del kbf, plain, keys
         torch.cuda.empty_cache()
 
@@ -2246,8 +2351,16 @@ def phase_dgk(dev):
     # The BSGS giant step's one-product form on the BSGS lanes' own inputs,
     # and the BSGS call's split.
     zb = out[:DGK_BSGS_B]
-    prof = _profile_with(lambda: dgk_cuda.mulmod_const(mc, zb, giant), ["dgk_mulmod"], calls=5)
-    giant_ms = prof["dgk_mulmod"]["ms_per_call"] / prof["dgk_mulmod"]["launches_per_call"]
+
+    def giant_step():
+        return dgk_cuda.mulmod_const(mc, zb, giant)
+
+    prof = _profile_with(giant_step, ["dgk_mulmod"], calls=5)
+    if "dgk_mulmod" in prof:
+        giant_ms = prof["dgk_mulmod"]["ms_per_call"] / prof["dgk_mulmod"]["launches_per_call"]
+        giant_source = "profiler"
+    else:  # the profiler missed it: the wrapper call by CUDA events
+        giant_ms, giant_source = cuda_ms(giant_step, iters=5, warmup=1), "events"
     giant_bound = md.kernel_bounds(W, mc.D, DGK_BSGS_B, priv.vpq)["giant step"]
     got = dgk_cuda.mulmod_const(mc, zb, giant)
     want = dgk_cuda.mulmod_const_plain(mc, zb, giant)
@@ -2256,7 +2369,7 @@ def phase_dgk(dev):
         "giant_step_ms": giant_ms, "giant_step_bound_ms": giant_bound["bound_ms"],
         "giant_step_max_abs_err": int((got - want).abs().max())})
     say(f"dgk_mulmod, the BSGS giant step at B = {DGK_BSGS_B} (one product a lane by G^-m R' "
-        f"mod n): bit-exact against plain; {giant_ms:.4f} ms per launch (profiler), bound "
+        f"mod n): bit-exact against plain; {giant_ms:.4f} ms per launch ({giant_source}), bound "
         f"{giant_bound['bound_ms']:.4f} ms ({giant_bound['bound_by']}), "
         f"{100 * giant_bound['bound_ms'] / giant_ms:.1f}% of bound [{card}]")
     say(f"decrypt_batch_device_bsgs at B = {DGK_BSGS_B}: "
@@ -2821,9 +2934,13 @@ def main() -> int:
         f"demo's setBF (r = {BLOOM_FILTERS[0][0]}, {BLOOM_FILTERS[0][1]}, fpp "
         f"{BLOOM_FILTERS[0][2]:g}: the mean of a chunk's launch over the insert, r^2 keys made "
         f"in the kernels), their plain_ms the plain step on the first chunk (index_put_ "
-        f"counts, a stable argsort by bucket, index_fill_); bf_insert, the direct kernel, at "
-        f"the client/server filter (r = {BLOOM_FILTERS[-1][0]}, fpp {BLOOM_FILTERS[-1][2]:g}: "
-        f"one launch), its plain_ms blind_distance_keys + index_fill_; bf_probe at config[3]'s "
+        f"counts, a stable argsort by bucket, index_fill_); the sub-slice insert kernels "
+        f"(bf_insert_sub_count, _scatter, _apply) a launch at the client/server filter "
+        f"(r = {BLOOM_FILTERS[-1][0]}, fpp {BLOOM_FILTERS[-1][2]:g}), their plain_ms the plain "
+        f"step on the first chunk (bincount, a stable argsort by bucket, index_fill_ into a "
+        f"table a quarter full); bf_insert, the direct kernel, forced on the same filter's "
+        f"keys (one launch), its plain_ms blind_distance_keys + index_fill_; bf_probe at "
+        f"config[3]'s "
         f"step ({PIPE_ROWS * PIPE_N} blind distances, the table staged in shared memory; "
         f"its launch_floor_ms an empty kernel's device time at the probe's geometry); "
         f"library_ms null: no PyTorch "

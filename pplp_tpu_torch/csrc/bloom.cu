@@ -29,11 +29,25 @@
 // The salts (at most 128) and the size chain (at most 32) are copied into
 // shared memory by each block.
 //
-// The insert takes one of two routes, by the table's size (the wrapper,
-// ops/bloom_cuda.py, decides; its constants come from the measurement below):
+// The insert takes one of three routes, by the table's size (the wrapper,
+// ops/bloom_cuda.py, decides; its constants come from the measurements below):
 // * direct (bf_insert): one thread a key, each bit an atomicOr whose result
-//   is unused (a RED), one launch. For a table of at most 44 MB, which stays
-//   in L2, it runs at the L2's rate of REDs.
+//   is unused (a RED), one launch. A table of at most 44 MB stays in L2,
+//   and there it runs at the L2's rate of REDs; it takes the tables below
+//   16.8 MB, and those that get fewer than two indices a word.
+// * sub-slice, for a table of 16.8 to 44 MB: the table is cut into buckets,
+//   sub-slices of 2^sub_log = 2^19 bits (64 KB, the shared memory of a
+//   block), at most kMaxSubBuckets of them (614 at the client/server
+//   filter), and the keys into chunks whose stash of u32 indices is at most
+//   3.75 tables. Each chunk is three launches: bf_insert_sub_count
+//   hashes every (key, salt), a key a thread, and counts its bucket in
+//   shared memory; bf_insert_sub_scatter hashes again into a raw tile in
+//   shared memory, reserves each bucket's run of the stash (offset: the
+//   exclusive scan of the totals, taken on the device; plus one atomicAdd
+//   on its cursor), sorts the tile by bucket and writes it out in runs;
+//   bf_insert_sub_apply runs one block a bucket: the bucket's words into
+//   shared memory, its run of the stash set by shared-memory atomicOr, each
+//   word stored back once, no global atomic.
 // * partitioned: the table is cut into buckets, slices of S = 2^27 bits
 //   (16.8 MB), at most kMaxBuckets of them, and the keys into chunks whose
 //   stash of u32 indices (chunk keys x salts x 4 B, with the blocks'
@@ -66,8 +80,8 @@
 // 89.1G bit sets/s at 8 MB, 90.5G at 2^27 bits (16.8 MB), 82.0G at 2^28
 // (33.6 MB), 80.8G at 40 MB, 80.5G at 44 MB, 67.0-74.0G at 48 MB (two
 // runs), 24.2G at 2^29 (67.1 MB) and 17.9G at 120 MB. So a table of at most
-// 44 MB (352,000,000 bits) is direct: the largest at the L2 rate, which
-// takes the client/server filter (40.2 MB, 13 salts). The rule "the largest
+// 44 MB (352,000,000 bits) is not partitioned: the largest at the L2 rate,
+// which takes the client/server filter (40.2 MB, 13 salts). The rule "the largest
 // power of two within 80% of the smallest table's rate" gives 2^28, but the
 // same sweep's partitioned inserts ran 2^27 faster: at r = 4096, 14.06 ms
 // against 18.15 ms at 2^28 (r = 8192: 54.92 against 73.22 ms), because
@@ -76,6 +90,34 @@
 // still but needs 58 buckets at r = 8192, above kMaxBuckets. One 16-byte
 // load a thread in the apply ran 7% (r = 4096) and 14% (r = 8192) faster
 // than four, which put ~4M indices in flight.
+//
+// The sub-slice route's constants, measured on an NVIDIA H100 80GB HBM3 at
+// 700.00 W (measure_bloom --sweep: the route beside the direct kernel on the
+// same blinded keys, each table at its optimal keys, medians of 3 rounds,
+// the words held equal): at 2^19-bit sub-slices and a stash of 4x the table
+// the direct kernel's time over the route's was 0.06-0.16x at 0.125-0.5 MB
+// (the route's three launches and the counts' zero fill), 0.25 at 1 MB,
+// 0.38-0.39 at 2 MB, 0.53-0.54 at 4 MB, 0.76-0.80 at 8 MB, 1.02-1.07 at
+// 16 MB, 1.14-1.21 at 24 MB, 1.12-1.13 at 32 MB, 1.17-1.19 at the
+// client/server table (40.2 MB) and 1.19-1.22 at 44 MB, at 40 and 13
+// salts. So the route starts at 2^27 bits (16.8 MB). At 2^20 bits it lost
+// everywhere (0.84-0.94x from 32 MB up): one 128 KB block an SM in the
+// apply. On the client/server table the stash caps of
+// 1x, 2x and 4x (23, 12 and 6 chunks) ran 0.90, 1.06 and 1.19x: each chunk
+// moves the table through shared memory. The cap is 3.75 tables: the
+// same 6 chunks as 4 there, and room in four tables for the allocator's
+// rounding of the stash's block (at 4x the insert added 161,525,248 B, four
+// tables and 690,832 B). A sixteenth of the table's optimal keys (1.4
+// indices a word) ran 1.01x, a sixty-fourth 0.58x, hence two indices a word.
+// Design experiments (measure_bloom --split on copies of this file, the
+// client/server table, device ms of count, scatter, apply; direct 2.76):
+// as built 0.35, 1.17, 0.79, 2.31 in all; the count over a thread's sixteen
+// consecutive (key, salt) elements, the key reloaded inside the loop, 0.64
+// (a key a thread, its salts unrolled by 4 and the salts' terms the same
+// for the warp, lets the hashes overlap); 1,024 apply threads 0.96 against
+// 512's 0.79 (three 64 KB blocks an SM; at 2^20 bits 1.07 against 1.83,
+// but 2.40 in all); tiles of 4,096 indices 1.59 in the scatter, of 16,384
+// 1.19.
 //
 // The probe's constants, measured on an NVIDIA H100 80GB HBM3 at 700.00 W
 // (measure_bloom --probe on copies of this file with a key's salts tested in
@@ -108,6 +150,14 @@
 // (671M / 2.68G at ~80G/s: 8.4 / 33.5 ms) set the pace. The probe reads one
 // sector per salt it tests.
 //
+// The sub-slice route at the client/server table (218M indices, 6 chunks)
+// moves the stash once each way (8 B an index: 0.52 ms) and the table into
+// shared memory and back once a chunk (0.14 ms), and hashes each index
+// twice: measured, a pass of hashing costs ~0.35 ms (the count kernel),
+// about twice the ~25 integer operations an index at MULS_PER_S that
+// measure_bloom.design_floor counts (1.32 ms in all); the direct kernel's
+// REDs take 2.76 ms.
+//
 // Rejected: hashing every key again for each L2-sized pass, with no stash.
 // At r = 8192 that is 15-30 passes of 2.68G indices at ~25 integer
 // operations each; at MULS_PER_S = 1.67e13/s ~4 ms a pass, 60-120 ms of
@@ -137,6 +187,27 @@ constexpr int kMaxDevices = 64;
 constexpr int kMaxBuckets = 32;
 constexpr int kTileElems = 10240;
 constexpr int kApplyElems = kThreads * 4;  // indices a block applies
+// The sub-slice insert: buckets of 2^sub_log bits (kMinSubLog to kMaxSubLog:
+// 16 bytes to 128 KB of words), at most kMaxSubBuckets of them. The count
+// kernel runs as many blocks of kSubThreads as are resident at once over the
+// chunk's keys, a key a thread; the scatter one block of kSubScatterThreads a
+// tile of sub_tile_keys(n_salts) keys (at most kSubTile indices); the apply
+// one block of kSubApplyThreads a bucket.
+constexpr int kSubThreads = 512;
+constexpr int kSubScatterThreads = 512;
+constexpr int kSubTile = 8192;
+constexpr int kMaxSubBuckets = 1024;
+constexpr int kMinSubLog = 7;
+constexpr int kMaxSubLog = 20;
+constexpr int kSubApplyThreads = 512;
+
+// Keys in a scatter block's tile: kSubTile / n_salts, rounded down to whole
+// rounds of kSubScatterThreads where that leaves at least one.
+__host__ __device__ constexpr int sub_tile_keys(int n_salts) {
+  return kSubTile / n_salts >= kSubScatterThreads
+             ? kSubTile / n_salts / kSubScatterThreads * kSubScatterThreads
+             : kSubTile / n_salts;
+}
 
 enum Source : int { kWords = 0, kBlinded = 1, kBlindDistances = 2 };
 
@@ -185,13 +256,9 @@ __device__ __forceinline__ uint32_t fastmod(uint32_t h, uint64_t mul, uint32_t d
   return static_cast<uint32_t>((hi * d + ((lo * d) >> 32)) >> 32);
 }
 
-// The bit index of `key` at `salt`: one AP round, fmix32 in "mixed" mode,
-// the reduction by each size of the chain in turn. Every Bloom kernel takes
-// its indices from here.
-__device__ __forceinline__ uint32_t bit_index(uint32_t h, uint64_t key, const Chain& c) {
-  const uint32_t i1 = static_cast<uint32_t>(key);
-  const uint32_t i2 = static_cast<uint32_t>(key >> 32);
-  h ^= (h << 7) ^ (i1 * (h >> 3)) ^ (~((h << 11) + (i2 ^ (h >> 5))));
+// The bit index from the AP round's result h: fmix32 in "mixed" mode, then
+// the reduction by each size of the chain in turn.
+__device__ __forceinline__ uint32_t mix_reduce(uint32_t h, const Chain& c) {
   if (c.mixed) {  // murmur3 fmix32
     h ^= h >> 16;
     h *= 0x85EBCA6Bu;
@@ -204,10 +271,38 @@ __device__ __forceinline__ uint32_t bit_index(uint32_t h, uint64_t key, const Ch
   return h;
 }
 
+// The bit index of `key` at salt h: one AP round, then mix_reduce. Every
+// Bloom kernel takes its indices from here or from salt_terms.
+__device__ __forceinline__ uint32_t bit_index(uint32_t h, uint64_t key, const Chain& c) {
+  const uint32_t i1 = static_cast<uint32_t>(key);
+  const uint32_t i2 = static_cast<uint32_t>(key >> 32);
+  return mix_reduce(h ^ (h << 7) ^ (i1 * (h >> 3)) ^ (~((h << 11) + (i2 ^ (h >> 5)))), c);
+}
+
+// A salt's AP-round terms that do not depend on the key, (h ^ (h << 7),
+// h >> 3, h << 11, h >> 5), so that bit_index(h, key, c) is
+// mix_reduce(t.x ^ (i1 t.y) ^ ~(t.z + (i2 ^ t.w)), c): one 16-byte shared
+// load and four operations for the round's nine.
+__device__ __forceinline__ uint4 salt_terms(uint32_t h) {
+  return make_uint4(h ^ (h << 7), h >> 3, h << 11, h >> 5);
+}
+
+__device__ __forceinline__ uint32_t bit_index(const uint4& t, uint64_t key, const Chain& c) {
+  const uint32_t i1 = static_cast<uint32_t>(key);
+  const uint32_t i2 = static_cast<uint32_t>(key >> 32);
+  return mix_reduce(t.x ^ (i1 * t.y) ^ (~(t.z + (i2 ^ t.w))), c);
+}
+
 __device__ __forceinline__ void load_salts(uint32_t* s_salt, const int64_t* __restrict__ salts,
                                            int n_salts) {
   for (int j = threadIdx.x; j < n_salts; j += blockDim.x)
     s_salt[j] = static_cast<uint32_t>(salts[j]);
+}
+
+__device__ __forceinline__ void load_salt_terms(uint4* s_terms, const int64_t* __restrict__ salts,
+                                                int n_salts) {
+  for (int j = threadIdx.x; j < n_salts; j += blockDim.x)
+    s_terms[j] = salt_terms(static_cast<uint32_t>(salts[j]));
 }
 
 template <int kSource>
@@ -339,6 +434,197 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// By value: the sub-slice insert's buckets. bucket = idx >> sub_log.
+struct Sub {
+  int sub_log;
+  int n_buckets;
+};
+
+// a[0, n) <- its exclusive prefix sums (n <= kMaxSubBuckets), by the block's
+// kT threads, each a run of kSubRun(kT) entries: the runs' sums scanned
+// by warp shuffles, the warps' sums in `part` (kT / 32 words) by warp 0.
+// Ends synchronized.
+template <int kT>
+constexpr int kSubRun = (kMaxSubBuckets + kT - 1) / kT;
+
+template <int kT>
+__device__ void block_exclusive_scan(uint32_t* a, int n, uint32_t* part) {
+  static_assert(kT % 32 == 0 && kT / 32 <= 32, "a scan of at most 32 warps");
+  constexpr int kRun = kSubRun<kT>;
+  const int t = threadIdx.x, first = t * kRun, lane = t & 31, warp = t >> 5;
+  uint32_t v[kRun], sum = 0;
+#pragma unroll
+  for (int q = 0; q < kRun; ++q) {
+    v[q] = first + q < n ? a[first + q] : 0u;
+    sum += v[q];
+  }
+  uint32_t x = sum;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) part[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    uint32_t w = lane < kT / 32 ? part[lane] : 0u;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, w, d);
+      if (lane >= d) w += y;
+    }
+    if (lane < kT / 32) part[lane] = w;
+  }
+  __syncthreads();
+  uint32_t run = x - sum + (warp ? part[warp - 1] : 0u);
+#pragma unroll
+  for (int q = 0; q < kRun; ++q) {
+    if (first + q < n) a[first + q] = run;
+    run += v[q];
+  }
+  __syncthreads();
+}
+
+// d. sub-slice count: a grid-stride loop over the chunk's keys, a key a
+// thread and its salts in turn (four hashed at once: the salts' terms are
+// the same for the warp), each block's histogram of buckets in shared
+// memory, added into totals[b] by one atomicAdd a (block, bucket).
+template <int kSource>
+__global__ void __launch_bounds__(kSubThreads)
+    bf_insert_sub_count_kernel(const int64_t* __restrict__ salts, const Chain chain,
+                               const Keys keys, const Sub sub, uint32_t* __restrict__ totals) {
+  __shared__ uint4 s_terms[kMaxSalts];
+  __shared__ uint32_t s_hist[kMaxSubBuckets];
+  load_salt_terms(s_terms, salts, chain.n_salts);
+  for (int b = threadIdx.x; b < sub.n_buckets; b += kSubThreads) s_hist[b] = 0;
+  __syncthreads();
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kSubThreads + threadIdx.x; i < keys.count;
+       i += static_cast<int64_t>(gridDim.x) * kSubThreads) {
+    const uint64_t k = key_at<kSource>(keys, i);
+#pragma unroll 4
+    for (int j = 0; j < chain.n_salts; ++j)
+      atomicAdd(s_hist + (bit_index(s_terms[j], k, chain) >> sub.sub_log), 1u);
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < sub.n_buckets; b += kSubThreads)
+    if (s_hist[b]) atomicAdd(totals + b, s_hist[b]);
+}
+
+// e. sub-slice scatter, one block a tile of sub_tile_keys(n_salts) keys. counts:
+// totals, cursors and offsets, n_buckets u32 each. Every block scans totals
+// into the buckets' offsets in the stash (block 0 also writes them for the
+// apply); hashes its tile, a key a thread as the count does, into a raw tile
+// in shared memory (salt-major, so a warp's stores are consecutive) and
+// counts it by bucket; reserves each bucket's run with one atomicAdd on its
+// cursor; sorts the raw tile by bucket into a second one (a shared atomicAdd
+// for each index picks its slot; order inside a bucket is free, since OR
+// commutes) and writes it out in order, consecutive threads on consecutive
+// words of a run.
+template <int kSource>
+__global__ void __launch_bounds__(kSubScatterThreads)
+    bf_insert_sub_scatter_kernel(const int64_t* __restrict__ salts, const Chain chain,
+                                 const Keys keys, const Sub sub, uint32_t* __restrict__ counts,
+                                 uint32_t* __restrict__ stash) {
+  constexpr int kT = kSubScatterThreads;
+  extern __shared__ uint32_t s_raw[];           // kSubTile, then the sorted tile
+  uint32_t* s_tile = s_raw + kSubTile;
+  __shared__ uint4 s_terms[kMaxSalts];
+  __shared__ uint32_t s_dst[kMaxSubBuckets];    // the bucket's run's first index in the stash
+  __shared__ uint32_t s_local[kMaxSubBuckets];  // its count in the tile, then its first slot
+  __shared__ uint32_t s_fill[kMaxSubBuckets];   // its next free slot
+  __shared__ uint32_t s_part[kT / 32];
+  const int nb = sub.n_buckets, n_salts = chain.n_salts;
+  const uint32_t* totals = counts;
+  uint32_t* cursors = counts + nb;
+  load_salt_terms(s_terms, salts, n_salts);
+  for (int b = threadIdx.x; b < nb; b += kT) {
+    s_dst[b] = totals[b];
+    s_local[b] = 0;
+  }
+  __syncthreads();
+  block_exclusive_scan<kT>(s_dst, nb, s_part);
+  if (blockIdx.x == 0)
+    for (int b = threadIdx.x; b < nb; b += kT) counts[2 * nb + b] = s_dst[b];
+  const int tile_keys = sub_tile_keys(n_salts);
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * tile_keys;
+  const int n_keys = keys.count - first < tile_keys ? static_cast<int>(keys.count - first)
+                                                    : tile_keys;
+  for (int i = threadIdx.x; i < n_keys; i += kT) {
+    const uint64_t k = key_at<kSource>(keys, first + i);
+#pragma unroll 4
+    for (int j = 0; j < n_salts; ++j) {
+      const uint32_t idx = bit_index(s_terms[j], k, chain);
+      s_raw[j * n_keys + i] = idx;
+      atomicAdd(s_local + (idx >> sub.sub_log), 1u);
+    }
+  }
+  __syncthreads();
+  // Each bucket's run: the reservations are all issued before the tile's
+  // scan, and their results taken after it.
+  uint32_t got[kSubRun<kT>];
+#pragma unroll
+  for (int q = 0; q < kSubRun<kT>; ++q) {
+    const int b = threadIdx.x + q * kT;
+    got[q] = b < nb && s_local[b] ? atomicAdd(cursors + b, s_local[b]) : 0u;
+  }
+  block_exclusive_scan<kT>(s_local, nb, s_part);
+#pragma unroll
+  for (int q = 0; q < kSubRun<kT>; ++q) {
+    const int b = threadIdx.x + q * kT;
+    if (b < nb) {
+      s_dst[b] += got[q];
+      s_fill[b] = s_local[b];
+    }
+  }
+  __syncthreads();
+  const int n = n_keys * n_salts;
+  for (int e = threadIdx.x; e < n; e += kT) {
+    const uint32_t v = s_raw[e];
+    s_tile[atomicAdd(s_fill + (v >> sub.sub_log), 1u)] = v;
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < n; j += kT) {
+    const uint32_t v = s_tile[j];
+    const uint32_t b = v >> sub.sub_log;
+    __stcs(stash + (s_dst[b] + (static_cast<uint32_t>(j) - s_local[b])), v);
+  }
+}
+
+// f. sub-slice apply, one block a bucket with indices: the bucket's words
+// (2^sub_log bits, fewer in the table's last one) copied into shared memory
+// with 16-byte loads, its run of the stash (streaming loads) set by
+// shared-memory atomicOr, the words stored back once with plain stores. A
+// block owns its words, so no global atomic; the last word's bits above the
+// table size are stored as they were read.
+__global__ void __launch_bounds__(kSubApplyThreads)
+    bf_insert_sub_apply_kernel(uint32_t* __restrict__ words, uint32_t n_words,
+                               const uint32_t* __restrict__ stash,
+                               const uint32_t* __restrict__ counts, const Sub sub) {
+  extern __shared__ __align__(16) uint32_t s_words[];
+  const int b = blockIdx.x;
+  const uint32_t n = counts[b];
+  if (n == 0) return;
+  const uint32_t start = counts[2 * sub.n_buckets + b];
+  const uint32_t w0 = static_cast<uint32_t>(b) << (sub.sub_log - 5);
+  const uint32_t span = 1u << (sub.sub_log - 5);
+  const uint32_t nw = n_words - w0 < span ? n_words - w0 : span;
+  const uint32_t body = nw / 4;
+  auto* s4 = reinterpret_cast<uint4*>(s_words);
+  auto* g4 = reinterpret_cast<uint4*>(words + w0);
+  for (uint32_t j = threadIdx.x; j < body; j += kSubApplyThreads) s4[j] = g4[j];
+  for (uint32_t j = 4 * body + threadIdx.x; j < nw; j += kSubApplyThreads)
+    s_words[j] = words[w0 + j];
+  __syncthreads();
+  for (uint32_t j = threadIdx.x; j < n; j += kSubApplyThreads) {
+    const uint32_t idx = __ldcs(stash + start + j);
+    atomicOr(s_words + ((idx >> 5) - w0), 1u << (idx & 31));
+  }
+  __syncthreads();
+  for (uint32_t j = threadIdx.x; j < body; j += kSubApplyThreads) g4[j] = s4[j];
+  for (uint32_t j = 4 * body + threadIdx.x; j < nw; j += kSubApplyThreads)
+    words[w0 + j] = s_words[j];
+}
+
 // The staged table's copy into shared memory, the probe's only inline PTX.
 // stage_init: thread 0 sets up the mbarrier that the copy completes (one
 // arrival, the thread that starts it). stage_start: thread 0 starts one
@@ -458,6 +744,15 @@ int sm_count() {
   return sms[device];
 }
 
+// Blocks of `kernel` resident on an SM at once, at `threads` threads and
+// `smem` bytes of dynamic shared memory (at least 1).
+template <class K>
+int resident_blocks(K kernel, int threads, size_t smem) {
+  int n = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem);
+  return n > 0 ? n : 1;
+}
+
 // The probe's launch: staged or not, blocks, threads and dynamic shared memory.
 struct ProbeLaunch {
   bool staged;
@@ -521,6 +816,25 @@ int make_chunk(Chain* chain, Part* part, int n_salts, const void* sizes, int n_s
   part->tile_keys = tile_keys;
   part->slice_log = slice_log;
   part->n_buckets = n_buckets;
+  return 0;
+}
+
+// Checks of one chunk of a sub-slice insert (see pplp_bf_insert_sub_count):
+// fills `chain` as make_chain does and `sub`. Returns 0 or
+// cudaErrorInvalidValue.
+int make_sub(Chain* chain, Sub* sub, int n_salts, const void* sizes, int n_sizes, int mixed,
+             int source, int w_len, long long count, int sub_log, int n_buckets) {
+  const int bad = make_chain(chain, n_salts, sizes, n_sizes, mixed, source, w_len, count);
+  if (bad) return bad;
+  const uint64_t table = chain->size[n_sizes - 1];
+  if (source == kBlindDistances || sub_log < kMinSubLog || sub_log > kMaxSubLog ||
+      n_buckets < 1 || n_buckets > kMaxSubBuckets ||
+      table > (static_cast<uint64_t>(n_buckets) << sub_log) ||
+      table <= (static_cast<uint64_t>(n_buckets - 1) << sub_log) ||
+      static_cast<uint64_t>(count) * n_salts > 0x7FFFFFFFull)
+    return static_cast<int>(cudaErrorInvalidValue);
+  sub->sub_log = sub_log;
+  sub->n_buckets = n_buckets;
   return 0;
 }
 
@@ -629,6 +943,89 @@ int pplp_bf_insert_apply(void* words, const void* stash, long long n, void* stre
   const auto blocks = static_cast<unsigned>((n + kApplyElems - 1) / kApplyElems);
   bf_insert_apply_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint32_t*>(words), static_cast<const uint32_t*>(stash), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The sub-slice insert of one chunk of keys, in three launches on one
+// stream: pplp_bf_insert_sub_count, pplp_bf_insert_sub_scatter,
+// pplp_bf_insert_sub_apply. salts, sizes, source and the key arguments as
+// for pplp_bf_insert, for the chunk's keys (lo, hi offset to its first key;
+// start its first blinded step); count * n_salts < 2^31. Every bucket is a
+// sub-slice of 2^sub_log bits (kMinSubLog <= sub_log <= kMaxSubLog);
+// n_buckets = ceil(table_size / 2^sub_log) <= kMaxSubBuckets. counts: u32
+// [3, n_buckets], the chunk's totals, cursors and offsets, the first two
+// zero before the count; stash: u32 [count * n_salts], the chunk's indices
+// sorted by bucket.
+int pplp_bf_insert_sub_count(const void* salts, int n_salts, const void* sizes, int n_sizes,
+                             int mixed, int source, const void* lo, const void* hi,
+                             unsigned long long s, unsigned long long r,
+                             unsigned long long start, unsigned w, int w_len, long long count,
+                             int sub_log, int n_buckets, void* counts, void* stream) {
+  Chain chain;
+  Sub sub;
+  const int bad = make_sub(&chain, &sub, n_salts, sizes, n_sizes, mixed, source, w_len, count,
+                           sub_log, n_buckets);
+  if (bad || count == 0) return bad;
+  const Keys keys{static_cast<const int64_t*>(lo), static_cast<const int64_t*>(hi), s, r,
+                  start, w, w_len, count};
+  const auto kernel = source == kWords ? bf_insert_sub_count_kernel<kWords>
+                                       : bf_insert_sub_count_kernel<kBlinded>;
+  const int64_t tiles = (count * n_salts + kSubTile - 1) / kSubTile;
+  const int64_t cap = static_cast<int64_t>(sm_count()) * resident_blocks(kernel, kSubThreads, 0);
+  const auto blocks = static_cast<unsigned>(tiles < cap ? tiles : cap);
+  kernel<<<blocks, kSubThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(salts), chain, keys, sub, static_cast<uint32_t*>(counts));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int pplp_bf_insert_sub_scatter(const void* salts, int n_salts, const void* sizes, int n_sizes,
+                               int mixed, int source, const void* lo, const void* hi,
+                               unsigned long long s, unsigned long long r,
+                               unsigned long long start, unsigned w, int w_len, long long count,
+                               int sub_log, int n_buckets, void* counts, void* stash,
+                               void* stream) {
+  Chain chain;
+  Sub sub;
+  const int bad = make_sub(&chain, &sub, n_salts, sizes, n_sizes, mixed, source, w_len, count,
+                           sub_log, n_buckets);
+  if (bad || count == 0) return bad;
+  const Keys keys{static_cast<const int64_t*>(lo), static_cast<const int64_t*>(hi), s, r,
+                  start, w, w_len, count};
+  const int64_t tile_keys = sub_tile_keys(n_salts);
+  const auto blocks = static_cast<unsigned>((count + tile_keys - 1) / tile_keys);
+  constexpr size_t smem = 2 * kSubTile * sizeof(uint32_t);
+  const auto kernel = source == kWords ? bf_insert_sub_scatter_kernel<kWords>
+                                       : bf_insert_sub_scatter_kernel<kBlinded>;
+  const cudaError_t set =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  kernel<<<blocks, kSubScatterThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(salts), chain, keys, sub, static_cast<uint32_t*>(counts),
+      static_cast<uint32_t*>(stash));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// words: int32 [n_words] on the device (16-byte aligned), updated in place;
+// stash and counts as the scatter left them. One launch of n_buckets blocks
+// (a bucket without indices returns at once).
+int pplp_bf_insert_sub_apply(void* words, long long n_words, const void* stash,
+                             const void* counts, int sub_log, int n_buckets, void* stream) {
+  if (sub_log < kMinSubLog || sub_log > kMaxSubLog || n_buckets < 1 ||
+      n_buckets > kMaxSubBuckets || n_words < 1 ||
+      n_words > (static_cast<long long>(n_buckets) << (sub_log - 5)) ||
+      n_words <= (static_cast<long long>(n_buckets - 1) << (sub_log - 5)) ||
+      (reinterpret_cast<uintptr_t>(words) & 15) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(uint32_t) << (sub_log - 5);
+  const cudaError_t set =
+      cudaFuncSetAttribute(bf_insert_sub_apply_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           sizeof(uint32_t) << (kMaxSubLog - 5));
+  if (set != cudaSuccess) return static_cast<int>(set);
+  bf_insert_sub_apply_kernel<<<n_buckets, kSubApplyThreads, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(words), static_cast<uint32_t>(n_words),
+      static_cast<const uint32_t*>(stash), static_cast<const uint32_t*>(counts),
+      Sub{sub_log, n_buckets});
   return static_cast<int>(cudaGetLastError());
 }
 

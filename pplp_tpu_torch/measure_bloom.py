@@ -5,6 +5,7 @@ kernels' bounds.
     python3 -m pplp_tpu_torch.measure_bloom --sweep [--json PATH]
     python3 -m pplp_tpu_torch.measure_bloom --inserts [--json PATH]
     python3 -m pplp_tpu_torch.measure_bloom --probe [--json PATH]
+    python3 -m pplp_tpu_torch.measure_bloom --split [--json PATH]
 
 Runs the local demo (``run_local_demo``: seal, -d 13 -b 56, the near pair
 (1234, 1212) / (1000, 1000), seed 7, the CLI's defaults otherwise) once at
@@ -19,15 +20,30 @@ change, change, parent in one call to compare them.
 ``--sweep`` instead times the direct insert kernel (``bloom_cuda.insert_direct``,
 one thread a key, a RED a bit) against the table's size, at 40 and 13 salts:
 bit sets/s into tables of 8 to 120 MB (and of 2^27, 2^28 and 2^29 bits),
-each filled to its optimum (keys = bits ln 2 / salts, half the bits set).
-``bloom.cu``'s slice size and direct threshold come from it.
+each filled to its optimum (keys = bits ln 2 / salts, half the bits set);
+then the sub-slice route (``insert_subslice``) beside the direct kernel on
+tables of 32 KB to 44 MB at sub-slices of 2^19 and 2^20 bits, the
+client/server table at stashes of 1, 2 and 4 times the table, and at a
+sixty-fourth and a sixteenth of its keys (``SUB_SWEEP_*``); last, the
+partitioned insert of the demo's tables at ``SWEEP_SLICES``. Every route's
+words are held equal to the direct kernel's. ``bloom.cu``'s slice and
+sub-slice sizes, stash cap and thresholds come from it.
 
 ``--inserts`` times the device insert of each filter of the main paths
-(the demo's at r = 4096, the client/server one, config[3]'s and a
-compressible filter's chain of three sizes): the device time of all the
-call's kernels (torch.profiler) and the call's CUDA-event time. It uses
-only the filters' own methods, so a copy of this file runs in a parent
+(the demo's at r = 4096 and 8192, the client/server one, config[3]'s and a
+compressible filter's chain of three sizes): the kernels it launched (its
+route), the device time of all the call's kernels (torch.profiler), the
+call's CUDA-event time and the device memory the call adds at its peak
+beside the peak itself. It uses only the filters' own methods and
+``bloom_cuda``'s launch counts, so a copy of this file runs in a parent
 tree too.
+
+``--split`` times the sub-slice route's kernels one by one (torch.profiler,
+``insert_split``) on the client/server table (its optimal keys, blinded,
+at 13 salts) at each sub-slice of ``SUB_SWEEP_LOG2`` and a stash of
+``STASH_FACTOR`` times the table, beside the direct kernel's device time,
+the words held equal; run on copies of the package with a constant of
+``csrc/bloom.cu`` patched, it gives the design experiments' figures.
 
 ``--probe`` times the probe of each filter of the main paths: config[3]'s
 (``pipeline.bf_probe`` of the step's 102,400 blind distances, half of them
@@ -50,12 +66,14 @@ the 32-bit multiplies of its indices (one in the AP hash, two in fmix32,
 two a reduction by a size) over ``MULS_PER_S``. ``sector_ms`` is the model
 for a table larger than the 50 MB L2, where each bit set reads and writes
 one random 32-byte sector and each probed bit reads one.
-``partition_bounds`` bounds each kernel of the partitioned insert a launch,
-and ``design_floor`` is the floor of an insert's own design: the bytes it
-moves (the table in and out once, for a partitioned insert once a chunk,
-and the stash written and read, 8 B an index) over ``BYTES_PER_S``, plus
-its hashing (``HASH_OPS`` integer operations an index, once, or twice when
-partitioned) over ``MULS_PER_S``.
+``partition_bounds`` bounds each kernel of the partitioned insert a launch
+and ``subslice_bounds`` each of the sub-slice route's, and
+``design_floor`` is the floor of an insert's own design: the bytes it
+moves (the table in and out once; for a partitioned or sub-slice insert
+once a chunk, and the stash written and read, 8 B an index) over
+``BYTES_PER_S``, plus its hashing (``HASH_OPS`` integer operations an
+index, once, or twice when the indices go through a stash) over
+``MULS_PER_S``.
 """
 
 from __future__ import annotations
@@ -68,9 +86,10 @@ import time
 
 from .measure_multiply import BYTES_PER_S, MULS_PER_S
 
-__all__ = ["insert_bound", "probe_bound", "partition_bounds", "design_floor", "insert_split",
-           "probe_misses", "probe_reads", "probe_row", "demo_runs", "sweep", "inserts", "probes",
-           "main"]
+__all__ = ["insert_bound", "probe_bound", "partition_bounds", "subslice_bounds", "design_floor",
+           "insert_split",
+           "probe_misses", "probe_reads", "probe_row", "demo_runs", "sweep", "inserts", "split",
+           "probes", "main"]
 
 SECTOR = 32  # bytes
 HASH_OPS = 25  # integer operations an index: AP round, fmix32, reduction (an estimate)
@@ -79,7 +98,19 @@ SWEEP_POW2 = (27, 28, 29)  # and tables of 2^k bits
 SWEEP_SALTS = (40, 13)  # the demo's filter (fpp 1e-12), the client/server one (1e-4)
 SWEEP_KEYS = (0x3FFFFFFB, 0x12345, 0xBEEF, 16)  # a blinded range's s, r, w, w_len
 SWEEP_SLICES = (26, 27, 28)  # slices of 2^k bits tried on the demo's tables
-INSERT_KERNELS = ("bf_insert", "bf_insert_count", "bf_insert_scatter", "bf_insert_apply")
+# The sub-slice route beside the direct kernel: table sizes (10^6 bytes; 40.2
+# is the client/server filter's 321,668,808 bits), sub-slices of 2^k bits,
+# the stash caps tried on the client/server table, and the fractions of its
+# optimal keys tried there.
+SUB_SWEEP_MB = (0.032, 0.125, 0.25, 0.5, 1, 2, 4, 8, 16, 24, 32, 40.2, 44)
+SUB_SWEEP_LOG2 = (19, 20)
+SUB_SWEEP_STASH = (1, 2, 4)
+SUB_SWEEP_SPARSE = (64, 16)
+SUB_SWEEP_ROUNDS = 3
+CS_BITS = 321_668_808  # the client/server filter: r = 4096, fpp 1e-4, 13 salts
+INSERT_KERNELS = ("bf_insert", "bf_insert_sub_count", "bf_insert_sub_scatter",
+                  "bf_insert_sub_apply", "bf_insert_count", "bf_insert_scatter",
+                  "bf_insert_apply")
 
 
 def _bound(nbytes: int, indices: int, mixed: bool, n_sizes: int, sector_bytes: int) -> dict:
@@ -152,13 +183,33 @@ def partition_bounds(plan, mixed: bool, n_sizes: int = 1, key_bytes: int = 0) ->
     return out
 
 
+def subslice_bounds(plan, mixed: bool, n_sizes: int = 1, key_bytes: int = 0) -> dict:
+    """The bound of each sub-slice kernel's launch on a mean chunk of
+    ``plan`` (``plan.count / plan.chunks`` keys): count reads the keys and
+    writes the totals; scatter reads the keys and the totals, writes the
+    stash and the offsets; apply reads the stash, the counts and the table
+    and writes the table; count and scatter hash every index."""
+    keys = plan.count / plan.chunks
+    idx = keys * plan.n_salts
+    counts = 4 * plan.buckets
+    table = 4 * ((plan.table_size + 31) // 32)
+    out = {"bf_insert_sub_count": _bound(keys * key_bytes + counts, idx, mixed, n_sizes, 0),
+           "bf_insert_sub_scatter": _bound(keys * key_bytes + 2 * counts + 4 * idx, idx, mixed,
+                                           n_sizes, 0),
+           "bf_insert_sub_apply": _bound(4 * idx + 2 * counts + 2 * table, 0, mixed, n_sizes, 0)}
+    for b in out.values():
+        del b["sector_ms"]
+    return out
+
+
 def design_floor(plan) -> float:
     """Milliseconds of the insert's own floor (see the module's note)."""
     idx = plan.count * plan.n_salts
     table = 4 * ((plan.table_size + 31) // 32)
-    passes = 1 if plan.direct else plan.chunks
-    nbytes = 2 * table * passes + (0 if plan.direct else 8 * idx)
-    hashes = 1 if plan.direct else 2
+    staged = plan.route != "direct"
+    passes = plan.chunks if staged else 1
+    nbytes = 2 * table * passes + (8 * idx if staged else 0)
+    hashes = 2 if staged else 1
     return (nbytes / BYTES_PER_S + hashes * HASH_OPS * idx / MULS_PER_S) * 1e3
 
 
@@ -244,7 +295,82 @@ def sweep(dev, card: str) -> list[dict]:
                   f"{keys} keys: {ms:.4f} ms, {row['bit_sets_per_s'] / 1e9:.2f}G bit sets/s "
                   f"[{card}]", flush=True)
             del words
+    rows += _sweep_subslice(dev, card)
     rows += _sweep_slices(dev, card)
+    return rows
+
+
+def _sweep_subslice(dev, card: str) -> list[dict]:
+    """The sub-slice route beside the direct kernel (CUDA events over
+    back-to-back calls of the same blinded range, after one untimed call of
+    each; ``SUB_SWEEP_ROUNDS`` rounds, the two in turn, medians), each
+    table's words after it held equal to the direct kernel's: tables of
+    ``SUB_SWEEP_MB`` at 13 and 40 salts and their optimal keys, at each
+    sub-slice of ``SUB_SWEEP_LOG2`` that the table holds whole; then the
+    client/server table (13 salts) at each stash cap of ``SUB_SWEEP_STASH``
+    and at 1/k of its keys for k in ``SUB_SWEEP_SPARSE``."""
+    import math
+    import statistics
+
+    import torch
+
+    from .device import window_ms
+    from .ops import bloom_cuda
+    from .primitives.bloom import _PREDEF_SALT
+
+    def timed(bits, n_salts, keys, **kw) -> tuple:
+        salts = torch.tensor(_PREDEF_SALT[:n_salts], dtype=torch.int64, device=dev)
+        blinded = (*SWEEP_KEYS, 0, keys)
+        direct = torch.zeros(bloom_cuda.words_for(bits), dtype=torch.int32, device=dev)
+        words = torch.zeros_like(direct)
+
+        def run_direct():
+            bloom_cuda.insert_direct(direct, salts, (bits,), True, blinded=blinded)
+
+        def run_sub():
+            bloom_cuda.insert_subslice(words, salts, (bits,), True, blinded=blinded, **kw)
+
+        run_direct()
+        run_sub()
+        torch.cuda.synchronize()
+        assert torch.equal(words, direct), f"{bits} bits, {kw}: differs from direct"
+        reps = max(5, min(100, 500_000_000 // max(1, keys * n_salts)))
+        d, s = [], []
+        for _ in range(SUB_SWEEP_ROUNDS):
+            d.append(window_ms(run_direct, reps))
+            s.append(window_ms(run_sub, reps))
+        return statistics.median(d), statistics.median(s)
+
+    rows = []
+    for n_salts in (13, 40):
+        for mb in SUB_SWEEP_MB:
+            bits = CS_BITS if mb == 40.2 else round(mb * 8e6)
+            keys = round(bits * math.log(2) / n_salts)
+            for log2 in SUB_SWEEP_LOG2:
+                if bits < 1 << log2:
+                    continue
+                d_ms, s_ms = timed(bits, n_salts, keys, slice_log2=log2)
+                rows.append({"table_bits": bits, "salts": n_salts, "keys": keys,
+                             "slice_log2": log2, "stash_factor": bloom_cuda.STASH_FACTOR,
+                             "direct_ms": d_ms, "subslice_ms": s_ms})
+                print(f"sweep subslice: {bits / 8e6:.3f} MB ({bits} bits), {n_salts} salts, "
+                      f"{keys} keys, sub-slice 2^{log2}: direct {d_ms:.4f} ms, sub-slice "
+                      f"{s_ms:.4f} ms ({d_ms / s_ms:.2f}x; medians of {SUB_SWEEP_ROUNDS}), "
+                      f"equal [{card}]", flush=True)
+    keys = round(CS_BITS * math.log(2) / 13)
+    cases = [(f"stash {f}x", keys, dict(stash_factor=f)) for f in SUB_SWEEP_STASH]
+    cases += [(f"1/{k} of the keys", keys // k, {}) for k in SUB_SWEEP_SPARSE]
+    for log2 in SUB_SWEEP_LOG2:
+        for tag, n, kw in cases:
+            d_ms, s_ms = timed(CS_BITS, 13, n, slice_log2=log2, **kw)
+            plan = bloom_cuda.insert_plan(CS_BITS, 13, n, route="subslice", slice_log2=log2,
+                                          **kw)
+            rows.append({"table_bits": CS_BITS, "salts": 13, "keys": n, "slice_log2": log2,
+                         "stash_factor": kw.get("stash_factor", bloom_cuda.STASH_FACTOR),
+                         "chunks": plan.chunks, "direct_ms": d_ms, "subslice_ms": s_ms})
+            print(f"sweep subslice: client/server table, {tag} ({n} keys, {plan.chunks} "
+                  f"chunks), sub-slice 2^{log2}: direct {d_ms:.4f} ms, sub-slice {s_ms:.4f} ms "
+                  f"({d_ms / s_ms:.2f}x), equal [{card}]", flush=True)
     return rows
 
 
@@ -273,7 +399,7 @@ def _sweep_slices(dev, card: str) -> list[dict]:
         for log2 in SWEEP_SLICES:
             try:
                 plan = bloom_cuda.insert_plan(bf.table_size, bf.salt_count, radius * radius,
-                                              slice_log2=log2, partitioned=True)
+                                              slice_log2=log2, route="partitioned")
             except ValueError as e:
                 print(f"sweep partitioned r={radius}, slice 2^{log2}: {e}", flush=True)
                 continue
@@ -311,6 +437,7 @@ def inserts(dev, card: str) -> list[dict]:
     import torch
 
     from .device import window_ms
+    from .ops import bloom_cuda
     from .primitives import Blinding, BloomFilter, BloomParameters, CompressibleBloomFilter
     from .primitives.blinding import blinded_keys
 
@@ -320,32 +447,89 @@ def inserts(dev, card: str) -> list[dict]:
         assert p.compute_optimal_parameters()
         return cls(p, device=dev)
 
-    cases = []
-    for radius, fpp in ((4096, 1e-12), (4096, 1e-4)):
+    def blinded_case(radius, fpp):
         bf, bl = make(radius * radius, fpp), Blinding.for_protocol(56, radius * radius, seed=7)
-        cases.append((f"r={radius} fpp {fpp:g} ({bf.table_size} bits, {bf.salt_count} salts; "
-                      f"{radius * radius} keys made in the kernels)",
-                      lambda bf=bf, bl=bl, sq=radius * radius: bf.insert_blind_distances(bl, sq)))
-    t, s, r, w = 1 << 20, 501, 99, 0xA5A5  # config[3]: keys of blind distances, as words
-    bf = make(r * r, 1e-4)
-    keys = blinded_keys(s * (torch.arange(r * r, device=dev) + r) % t, w, w.bit_length())
-    cases.append((f"config[3] r={r} ({bf.table_size} bits, {bf.salt_count} salts; {r * r} keys)",
-                  lambda bf=bf: bf.insert_u64_batch(*keys)))
-    bf = make(200_000, 1e-4, CompressibleBloomFilter)
-    assert bf.compress(30.0) and bf.compress(20.0)
-    rng = np.random.default_rng(15)
-    lo, hi = (torch.from_numpy(rng.integers(0, 1 << 32, 66_666, dtype=np.uint64).astype(np.int64))
-              .to(dev) for _ in range(2))
-    cases.append((f"compressible, sizes {bf.size_list} (66666 keys)",
-                  lambda bf=bf: bf.insert_u64_batch(lo, hi)))
+        return (f"r={radius} fpp {fpp:g} ({bf.table_size} bits, {bf.salt_count} salts; "
+                f"{radius * radius} keys made in the kernels)",
+                lambda: bf.insert_blind_distances(bl, radius * radius))
+
+    def config3():
+        t, s, r, w = 1 << 20, 501, 99, 0xA5A5  # config[3]: keys of blind distances, as words
+        bf = make(r * r, 1e-4)
+        keys = blinded_keys(s * (torch.arange(r * r, device=dev) + r) % t, w, w.bit_length())
+        return (f"config[3] r={r} ({bf.table_size} bits, {bf.salt_count} salts; {r * r} keys)",
+                lambda: bf.insert_u64_batch(*keys))
+
+    def compressed():
+        bf = make(200_000, 1e-4, CompressibleBloomFilter)
+        assert bf.compress(30.0) and bf.compress(20.0)
+        rng = np.random.default_rng(15)
+        lo, hi = (torch.from_numpy(rng.integers(0, 1 << 32, 66_666, dtype=np.uint64)
+                                   .astype(np.int64)).to(dev) for _ in range(2))
+        return (f"compressible, sizes {bf.size_list} (66666 keys)",
+                lambda: bf.insert_u64_batch(lo, hi))
+
+    cases = [lambda: blinded_case(4096, 1e-4), lambda: blinded_case(4096, 1e-12),
+             lambda: blinded_case(8192, 1e-12), config3, compressed]
     rows = []
-    for tag, fn in cases:
+    for make_case in cases:
+        tag, fn = make_case()
         fn()
+        torch.cuda.synchronize()
+        bloom_cuda.reset_launches()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        route = {k: v for k, v in bloom_cuda.launches_by_kernel.items() if v}
         split = insert_split(fn, calls=5)
         ms = window_ms(fn, 5)
-        rows.append({"filter": tag, "device_ms": split["total"], "call_ms": ms})
-        print(f"inserts: {tag}: {split['total']:.4f} ms of kernels (profiler), the call "
-              f"{ms:.4f} ms (CUDA events) [{card}]", flush=True)
+        rows.append({"filter": tag, "launches": route, "device_ms": split["total"],
+                     "call_ms": ms, "peak_bytes": peak, "added_bytes": peak - base})
+        print(f"inserts: {tag}: launches {route}; {split['total']:.4f} ms of kernels "
+              f"(profiler), the call {ms:.4f} ms (CUDA events); peak device memory {peak} B, "
+              f"{peak - base} B above the filter's [{card}]", flush=True)
+        del fn
+        torch.cuda.empty_cache()
+    return rows
+
+
+def split(dev, card: str) -> list[dict]:
+    """The sub-slice route's device time by kernel on the client/server
+    table beside the direct kernel's, as the module's note says."""
+    import math
+
+    import torch
+
+    from .ops import bloom_cuda
+    from .primitives.bloom import _PREDEF_SALT
+
+    keys = round(CS_BITS * math.log(2) / 13)
+    salts = torch.tensor(_PREDEF_SALT[:13], dtype=torch.int64, device=dev)
+    blinded = (*SWEEP_KEYS, 0, keys)
+    direct = torch.zeros(bloom_cuda.words_for(CS_BITS), dtype=torch.int32, device=dev)
+    words = torch.zeros_like(direct)
+    d = insert_split(lambda: bloom_cuda.insert_direct(direct, salts, (CS_BITS,), True,
+                                                      blinded=blinded))
+    rows = [{"route": "direct", "device_ms": d}]
+    print(f"split: client/server table ({CS_BITS} bits, 13 salts, {keys} keys): direct "
+          f"{d['bf_insert']:.4f} ms [{card}]", flush=True)
+    for log2 in SUB_SWEEP_LOG2:
+        def run():
+            bloom_cuda.insert_subslice(words, salts, (CS_BITS,), True, blinded=blinded,
+                                       slice_log2=log2)
+
+        words.zero_()
+        run()
+        torch.cuda.synchronize()
+        assert torch.equal(words, direct), f"sub-slice 2^{log2}: differs from direct"
+        sp = insert_split(run)
+        rows.append({"route": "subslice", "slice_log2": log2, "device_ms": sp})
+        print(f"split: client/server table, sub-slice 2^{log2}, stash "
+              f"{bloom_cuda.STASH_FACTOR}x: " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in sp.items() if k.startswith("bf_insert_sub"))
+              + f", all kernels {sp['total']:.4f} ms (profiler) [{card}]", flush=True)
     return rows
 
 
@@ -448,6 +632,8 @@ def main(argv=None) -> int:
                     help="time the main paths' filters' device inserts instead")
     ap.add_argument("--probe", action="store_true",
                     help="time the main paths' filters' probes instead")
+    ap.add_argument("--split", action="store_true",
+                    help="time the sub-slice route's kernels on the client/server table instead")
     args = ap.parse_args(argv)
 
     import torch
@@ -457,9 +643,10 @@ def main(argv=None) -> int:
     dev = cuda_device(0)
     card = smi_line()
     print(f"measure_bloom: {card}", flush=True)
-    if args.sweep or args.inserts or args.probe:
+    if args.sweep or args.inserts or args.probe or args.split:
         out = {"card": card, **({"sweep": sweep(dev, card)} if args.sweep else {}),
                **({"inserts": inserts(dev, card)} if args.inserts else {}),
+               **({"split": split(dev, card)} if args.split else {}),
                **({"probe": probes(dev, card)} if args.probe else {})}
         if args.json:
             with open(args.json, "w") as f:

@@ -7,16 +7,23 @@ native library (``pplp_bf_indices_u64``, ``pplp_bf_insert_u64``). They work
 on a packed table of u32 words (an int32 tensor holding the bits,
 ``ceil(table_size / 32)`` words):
 
-* ``insert_cuda`` sets the bits of every key against every salt. A table of
-  at most ``DIRECT_MAX_BITS`` bits, which stays in L2 while its bits are
-  set, takes the direct kernel ``bf_insert``: one launch, one thread a key,
-  a RED a bit. A larger one is cut into buckets, slices of ``2^SLICE_LOG2``
-  bits, and its keys into chunks whose stash of u32 indices is no larger
-  than the table; each chunk is three launches: ``bf_insert_count`` (a
-  histogram of buckets), ``bf_insert_scatter`` (the indices sorted by
-  bucket into the stash) and ``bf_insert_apply`` (the stash's REDs, one
-  slice live in L2 at a time). ``insert_plan`` gives the route, the
-  buckets, the chunks and the launches;
+* ``insert_cuda`` sets the bits of every key against every salt, by one of
+  three routes (``route_of``). A small table, or one that gets few indices
+  a word, takes the direct kernel ``bf_insert``: one launch,
+  one thread a key, a RED a bit. A table of ``SUBSLICE_MIN_BITS`` to
+  ``DIRECT_MAX_BITS`` bits, which stays in L2, takes the sub-slice route:
+  buckets of ``2^SUB_LOG2`` bits, the size of a block's shared memory, and
+  chunks of keys whose stash of u32 indices is at most ``STASH_FACTOR``
+  times the table; each chunk is three launches: ``bf_insert_sub_count``
+  (the chunk's totals by bucket), ``bf_insert_sub_scatter`` (the indices
+  sorted by bucket into the stash) and ``bf_insert_sub_apply`` (one block
+  a bucket ORs its run into a shared-memory copy of its words and writes
+  each word back once). A larger table is partitioned: buckets of
+  ``2^SLICE_LOG2`` bits and chunks whose stash is no larger than the table,
+  three launches a chunk: ``bf_insert_count``, ``bf_insert_scatter`` and
+  ``bf_insert_apply`` (the stash's REDs, one slice live in L2 at a time).
+  ``insert_plan`` gives the route, the buckets, the chunks and the
+  launches;
 * ``probe_cuda`` returns, per key, whether every salt's bit is set (bool),
   in one launch of ``bf_probe``: a table of at most ``STAGE_WORDS`` words
   is staged in shared memory, a larger one read from device memory; a
@@ -49,30 +56,48 @@ import torch
 
 from . import cuda_build
 
-__all__ = ["insert_cuda", "insert_direct", "insert_partitioned", "insert_plan", "InsertPlan",
+__all__ = ["insert_cuda", "insert_direct", "insert_subslice", "insert_partitioned",
+           "insert_plan", "route_of", "InsertPlan", "ROUTE_KERNELS",
+           "subslice_buffers", "sub_count_cuda", "sub_scatter_cuda", "sub_apply_cuda",
            "partition_buffers", "count_cuda", "scatter_cuda", "apply_cuda", "probe_cuda",
            "probe_floor_cuda", "chain_array", "words_for", "launches_by_kernel",
            "reset_launches", "MAX_SALTS", "MAX_SIZES", "SLICE_LOG2", "DIRECT_MAX_BITS",
+           "SUB_LOG2", "SUBSLICE_MIN_BITS", "SUBSLICE_MIN_FILL", "STASH_FACTOR",
            "STAGE_WORDS"]
 
 SOURCE = cuda_build.CSRC / "bloom.cu"
 MAX_SALTS = 128  # the reference's salt table (bloomfilter.h:468-490)
 MAX_SIZES = 32  # a compressed filter's size chain
 _WORDS, _BLINDED, _BLIND_DISTANCES = 0, 1, 2
-# The partitioned insert, from the direct kernel's rate against the table's
-# size on the card (``measure_bloom --sweep``; the figures are in
-# ``csrc/bloom.cu``'s header): a bucket is a slice of 2^SLICE_LOG2 bits, and
-# a table of at most DIRECT_MAX_BITS bits takes the direct kernel.
+# The insert's routes, from the kernels' rates against the table's size on
+# the card (``measure_bloom --sweep``; the figures are in ``csrc/bloom.cu``'s
+# header). A table of more than DIRECT_MAX_BITS bits is partitioned into
+# buckets, slices of 2^SLICE_LOG2 bits; a smaller one of at least
+# SUBSLICE_MIN_BITS bits that gets at least SUBSLICE_MIN_FILL indices a word
+# takes the sub-slice route, buckets of 2^SUB_LOG2 bits and a stash of at
+# most STASH_FACTOR times the table's words a chunk (``route_of``); the rest
+# the direct kernel.
 SLICE_LOG2 = 27
 DIRECT_MAX_BITS = 352_000_000
+SUB_LOG2 = 19
+SUBSLICE_MIN_BITS = 1 << 27
+SUBSLICE_MIN_FILL = 2  # indices a word at least
+# A chunk's stash: at most 3.75 tables, the fewest chunks (6) that the
+# client/server filter gets within 4, with room for PyTorch's caching
+# allocator, which may round the stash's block up by up to 2 MiB, and the
+# counts, so that the insert adds at most four tables to the peak.
+STASH_FACTOR = 3.75
 MAX_BUCKETS = 32  # csrc/bloom.cu: kMaxBuckets
 TILE_ELEMS = 10240  # indices a block sorts in shared memory (kTileElems)
 THREADS = 256  # keys a block at most (kThreads)
+MAX_SUB_BUCKETS = 1024  # kMaxSubBuckets
+SUB_LOG2_RANGE = (7, 20)  # kMinSubLog, kMaxSubLog: 16 B to 128 KB of words a sub-slice
 # The probe stages a table of at most STAGE_WORDS words in shared memory
 # (csrc/bloom.cu: kStageWords).
 STAGE_WORDS = 11264
 
-launches_by_kernel = {"bf_insert": 0, "bf_insert_count": 0, "bf_insert_scatter": 0,
+launches_by_kernel = {"bf_insert": 0, "bf_insert_sub_count": 0, "bf_insert_sub_scatter": 0,
+                      "bf_insert_sub_apply": 0, "bf_insert_count": 0, "bf_insert_scatter": 0,
                       "bf_insert_apply": 0, "bf_probe": 0}
 
 
@@ -93,6 +118,13 @@ def _declare(lib):
     lib.pplp_bf_insert_scatter.restype = ctypes.c_int
     lib.pplp_bf_insert_apply.argtypes = [vp, vp, ll, vp]
     lib.pplp_bf_insert_apply.restype = ctypes.c_int
+    sub = [vp, i, vp, i, i, i, vp, vp, ull, ull, ull, u, i, ll, i, i]
+    lib.pplp_bf_insert_sub_count.argtypes = [*sub, vp, vp]
+    lib.pplp_bf_insert_sub_count.restype = ctypes.c_int
+    lib.pplp_bf_insert_sub_scatter.argtypes = [*sub, vp, vp, vp]
+    lib.pplp_bf_insert_sub_scatter.restype = ctypes.c_int
+    lib.pplp_bf_insert_sub_apply.argtypes = [vp, ll, vp, vp, i, i, vp]
+    lib.pplp_bf_insert_sub_apply.restype = ctypes.c_int
     lib.pplp_bf_probe.argtypes = [vp, ll, vp, i, vp, i, i, i, vp, vp, u, i, ll, vp, vp]
     lib.pplp_bf_probe.restype = ctypes.c_int
     lib.pplp_bf_probe_floor.argtypes = [ll, ll, vp]
@@ -181,15 +213,16 @@ def _stream(words: torch.Tensor) -> int:
 @dataclass(frozen=True)
 class InsertPlan:
     """How ``insert_cuda`` sets ``count`` keys' bits in a table of
-    ``table_size`` bits at ``n_salts`` salts: ``direct``, or ``chunks``
-    chunks of ``chunk_keys`` keys (the last one ragged), each partitioned
-    into ``buckets`` slices of 2^``slice_log2`` bits by blocks of
-    ``tile_keys`` keys."""
+    ``table_size`` bits at ``n_salts`` salts: ``route`` "direct" (one
+    launch), or "subslice" / "partitioned": ``chunks`` chunks of
+    ``chunk_keys`` keys (the last one ragged), each sorted into ``buckets``
+    buckets of 2^``slice_log2`` bits (sub-slices or slices), the
+    partitioned route's blocks taking ``tile_keys`` keys each."""
 
     table_size: int
     n_salts: int
     count: int
-    direct: bool
+    route: str
     slice_log2: int
     buckets: int
     tile_keys: int
@@ -198,41 +231,88 @@ class InsertPlan:
 
     def launches(self) -> dict:
         """Launches by kernel of the insert."""
-        if self.direct:
+        if self.route == "direct":
             return {"bf_insert": int(self.count > 0)}
-        return {k: self.chunks for k in ("bf_insert_count", "bf_insert_scatter",
-                                         "bf_insert_apply")}
+        return dict.fromkeys(ROUTE_KERNELS[self.route], self.chunks)
 
 
-def insert_plan(table_size: int, n_salts: int, count: int, *, slice_log2: int | None = None,
-                partitioned: bool = False) -> InsertPlan:
-    """The route of an insert: the direct kernel for a table of at most
-    ``DIRECT_MAX_BITS`` bits (unless ``partitioned``), else buckets of
-    2^``slice_log2`` bits (default ``SLICE_LOG2``) and chunks of keys whose
-    stash (chunk keys x salts u32 indices) and per-block histograms (a u32
-    a bucket, fewer than one a key) are together no larger than the table's
-    words; a chunk is a whole number of blocks' tiles. Raises on what the
-    partitioned kernels do not take."""
-    slice_log2 = SLICE_LOG2 if slice_log2 is None else slice_log2
+ROUTE_KERNELS = {"direct": ("bf_insert",),
+                 "subslice": ("bf_insert_sub_count", "bf_insert_sub_scatter",
+                              "bf_insert_sub_apply"),
+                 "partitioned": ("bf_insert_count", "bf_insert_scatter", "bf_insert_apply")}
+
+
+def route_of(table_size: int, n_salts: int, count: int) -> str:
+    """The route ``insert_cuda`` takes: partitioned above
+    ``DIRECT_MAX_BITS``; else the sub-slice route for a table of at least
+    ``SUBSLICE_MIN_BITS`` bits that gets at least ``SUBSLICE_MIN_FILL``
+    indices a word (its apply moves every word with an index through
+    shared memory, 8 B there and back), and the direct kernel for the
+    rest."""
+    if table_size > DIRECT_MAX_BITS:
+        return "partitioned"
+    if (table_size >= SUBSLICE_MIN_BITS
+            and count * n_salts >= SUBSLICE_MIN_FILL * words_for(table_size)):
+        return "subslice"
+    return "direct"
+
+
+def insert_plan(table_size: int, n_salts: int, count: int, *, route: str | None = None,
+                slice_log2: int | None = None, stash_factor: float | None = None) -> InsertPlan:
+    """The plan of an insert on ``route`` (default ``route_of``'s). The
+    sub-slice route: buckets of 2^``slice_log2`` bits (default
+    ``SUB_LOG2``; at least one whole sub-slice in the table, at most
+    ``MAX_SUB_BUCKETS``) and chunks of keys whose stash (chunk keys x salts
+    u32 indices) is at most ``stash_factor`` (default ``STASH_FACTOR``)
+    times the table's words. The partitioned route: buckets of
+    2^``slice_log2`` bits (default ``SLICE_LOG2``, at most ``MAX_BUCKETS``)
+    and chunks whose stash and per-block histograms (a u32 a bucket, fewer
+    than one a key) are together no larger than the table's words; a chunk
+    is a whole number of blocks' tiles. Raises on what the kernels do not
+    take."""
     if not 1 <= n_salts <= MAX_SALTS:
         raise ValueError(f"1 to {MAX_SALTS} salts, got {n_salts}")
     if not 0 < table_size < (1 << 32):
         raise ValueError(f"a table of 1 to 2^32 - 1 bits, got {table_size}")
+    route = route or route_of(table_size, n_salts, count)
+    words = words_for(table_size)
+    if route == "direct":
+        return InsertPlan(table_size, n_salts, count, route, 0, 1, 0, count, int(count > 0))
+    if route == "subslice":
+        log2 = SUB_LOG2 if slice_log2 is None else slice_log2
+        factor = STASH_FACTOR if stash_factor is None else stash_factor
+        if not SUB_LOG2_RANGE[0] <= log2 <= SUB_LOG2_RANGE[1]:
+            raise ValueError(f"a sub-slice of 2^{SUB_LOG2_RANGE[0]} to 2^{SUB_LOG2_RANGE[1]} "
+                             f"bits, got 2^{log2}")
+        if table_size < 1 << log2:
+            raise ValueError(f"a table of {table_size} bits holds no whole sub-slice of "
+                             f"2^{log2} bits")
+        buckets = -(-table_size // (1 << log2))
+        if buckets > MAX_SUB_BUCKETS:
+            raise ValueError(f"{buckets} buckets of 2^{log2} bits; at most {MAX_SUB_BUCKETS}")
+        if factor < 1:
+            raise ValueError(f"a stash of at least the table's words, got {factor}x")
+        chunk_keys = min(int(factor * words), (1 << 31) - 1) // n_salts
+        if chunk_keys < 1:
+            raise ValueError(f"a table of {table_size} bits holds no stash of one key at "
+                             f"{n_salts} salts")
+        return InsertPlan(table_size, n_salts, count, route, log2, buckets, 0, chunk_keys,
+                          -(-count // chunk_keys))
+    if route != "partitioned":
+        raise ValueError(f"a route of {tuple(ROUTE_KERNELS)}, got {route!r}")
+    log2 = SLICE_LOG2 if slice_log2 is None else slice_log2
     tile_keys = min(THREADS, TILE_ELEMS // n_salts)
-    if not partitioned and table_size <= DIRECT_MAX_BITS:
-        return InsertPlan(table_size, n_salts, count, True, slice_log2, 1, tile_keys, count,
-                          int(count > 0))
-    if not 5 <= slice_log2 <= 31:
-        raise ValueError(f"a slice of 2^5 to 2^31 bits, got 2^{slice_log2}")
-    buckets = -(-table_size // (1 << slice_log2))
+    if not 5 <= log2 <= 31:
+        raise ValueError(f"a slice of 2^5 to 2^31 bits, got 2^{log2}")
+    buckets = -(-table_size // (1 << log2))
     if buckets > MAX_BUCKETS:
-        raise ValueError(f"{buckets} buckets of 2^{slice_log2} bits; at most {MAX_BUCKETS}")
-    chunk_keys = words_for(table_size) // (n_salts + 1) // tile_keys * tile_keys
+        raise ValueError(f"{buckets} buckets of 2^{log2} bits; at most {MAX_BUCKETS}")
+    chunk_keys = words // (n_salts + 1) // tile_keys * tile_keys
     if chunk_keys < tile_keys:
         raise ValueError(f"a table of {table_size} bits holds no stash of {tile_keys} keys at "
                          f"{n_salts} salts")
-    return InsertPlan(table_size, n_salts, count, False, slice_log2, buckets, tile_keys,
-                      chunk_keys, -(-count // chunk_keys))
+    return InsertPlan(table_size, n_salts, count, route, log2, buckets, tile_keys, chunk_keys,
+                      -(-count // chunk_keys))
 
 
 def _key_args(words, keys, blinded) -> tuple:
@@ -264,13 +344,14 @@ def insert_cuda(words: torch.Tensor, salts: torch.Tensor, sizes, mixed: bool, *,
                 keys=None, blinded=None):
     """Set the bits of the keys in the packed table ``words``, in place:
     ``keys=(lo, hi)`` int64 word tensors [K], or ``blinded=(s, r, w, w_len,
-    start, count)``. The direct kernel for a table of at most
-    ``DIRECT_MAX_BITS`` bits, else the partitioned insert (``insert_plan``)."""
+    start, count)``. The route is ``route_of``'s (``insert_plan``)."""
     chain, _ = _check_table(words, salts, sizes)
     key_args = _key_args(words, keys, blinded)
     plan = insert_plan(int(chain[-1]), salts.numel(), key_args[-1])
-    if plan.direct:
+    if plan.route == "direct":
         _direct(words, salts, chain, mixed, key_args)
+    elif plan.route == "subslice":
+        _subslice(words, salts, chain, mixed, key_args, plan)
     else:
         _partitioned(words, salts, chain, mixed, key_args, plan)
 
@@ -283,14 +364,28 @@ def insert_direct(words: torch.Tensor, salts: torch.Tensor, sizes, mixed: bool, 
     _direct(words, salts, chain, mixed, _key_args(words, keys, blinded))
 
 
+def insert_subslice(words: torch.Tensor, salts: torch.Tensor, sizes, mixed: bool, *,
+                    keys=None, blinded=None, slice_log2: int | None = None,
+                    stash_factor: float | None = None):
+    """``insert_cuda`` through the sub-slice kernels at any table size that
+    holds a whole sub-slice of 2^``slice_log2`` bits and at most
+    ``MAX_SUB_BUCKETS`` of them, a chunk's stash at most ``stash_factor``
+    times the table's words."""
+    chain, _ = _check_table(words, salts, sizes)
+    key_args = _key_args(words, keys, blinded)
+    plan = insert_plan(int(chain[-1]), salts.numel(), key_args[-1], route="subslice",
+                       slice_log2=slice_log2, stash_factor=stash_factor)
+    _subslice(words, salts, chain, mixed, key_args, plan)
+
+
 def insert_partitioned(words: torch.Tensor, salts: torch.Tensor, sizes, mixed: bool, *,
                        keys=None, blinded=None, slice_log2: int | None = None):
     """``insert_cuda`` through the partitioned kernels at any table size
     that gives at most ``MAX_BUCKETS`` buckets of 2^``slice_log2`` bits."""
     chain, _ = _check_table(words, salts, sizes)
     key_args = _key_args(words, keys, blinded)
-    plan = insert_plan(int(chain[-1]), salts.numel(), key_args[-1], slice_log2=slice_log2,
-                       partitioned=True)
+    plan = insert_plan(int(chain[-1]), salts.numel(), key_args[-1], route="partitioned",
+                       slice_log2=slice_log2)
     _partitioned(words, salts, chain, mixed, key_args, plan)
 
 
@@ -358,11 +453,64 @@ def _partitioned(words, salts, chain, mixed, key_args, plan: InsertPlan):
         _apply(lib, words, stash, n * plan.n_salts, st)
 
 
+def subslice_buffers(plan: InsertPlan, device) -> tuple:
+    """(stash, counts) of a sub-slice insert, as int32 tensors: the stash of
+    one chunk's indices (u32 [chunk_keys * n_salts]) and each chunk's
+    totals, cursors and offsets (u32 [chunks, 3 * buckets], zero)."""
+    stash = torch.empty(plan.chunk_keys * plan.n_salts, dtype=torch.int32, device=device)
+    counts = torch.zeros(plan.chunks, 3 * plan.buckets, dtype=torch.int32, device=device)
+    return stash, counts
+
+
+def _sub_head(salts, chain, mixed, key_c, plan) -> tuple:
+    return (salts.data_ptr(), salts.numel(), chain.ctypes.data, chain.size, int(mixed), *key_c,
+            plan.slice_log2, plan.buckets)
+
+
+def _sub_count(lib, head, counts, st):
+    cuda_build.check(lib.pplp_bf_insert_sub_count(*head, counts.data_ptr(), st), lib,
+                     "bf_insert_sub_count")
+    launches_by_kernel["bf_insert_sub_count"] += 1
+
+
+def _sub_scatter(lib, head, counts, stash, st):
+    cuda_build.check(lib.pplp_bf_insert_sub_scatter(*head, counts.data_ptr(), stash.data_ptr(),
+                                                    st), lib, "bf_insert_sub_scatter")
+    launches_by_kernel["bf_insert_sub_scatter"] += 1
+
+
+def _sub_apply(lib, words, stash, counts, plan, st):
+    cuda_build.check(lib.pplp_bf_insert_sub_apply(words.data_ptr(), words.numel(),
+                                                  stash.data_ptr(), counts.data_ptr(),
+                                                  plan.slice_log2, plan.buckets, st), lib,
+                     "bf_insert_sub_apply")
+    launches_by_kernel["bf_insert_sub_apply"] += 1
+
+
+def _subslice(words, salts, chain, mixed, key_args, plan: InsertPlan):
+    """Each chunk of keys: count, scatter into the stash by sub-slice,
+    apply each sub-slice in shared memory; the buffers are made once an
+    insert, on the table's stream."""
+    count = key_args[-1]
+    if count == 0:
+        return
+    lib, st = load(), _stream(words)
+    stash, counts = subslice_buffers(plan, words.device)
+    for c in range(plan.chunks):
+        first = c * plan.chunk_keys
+        head = _sub_head(salts, chain, mixed,
+                         _chunk(key_args, first, min(plan.chunk_keys, count - first)), plan)
+        _sub_count(lib, head, counts[c], st)
+        _sub_scatter(lib, head, counts[c], stash, st)
+        _sub_apply(lib, words, stash, counts[c], plan, st)
+
+
 def _check_step(words, salts, sizes, plan: InsertPlan, keys, blinded, hist, counts, stash=None):
     """The checks of a step on one chunk: the table, the plan, the chunk's
     keys and the buffers; returns (chain, key arguments)."""
     chain, _ = _check_table(words, salts, sizes)
-    if plan.direct or (plan.table_size, plan.n_salts) != (int(chain[-1]), salts.numel()):
+    if plan.route != "partitioned" or (plan.table_size, plan.n_salts) != (int(chain[-1]),
+                                                                          salts.numel()):
         raise ValueError(f"{plan} is not a partition of this table and these salts")
     key_args = _key_args(words, keys, blinded)
     if key_args[-1] > plan.chunk_keys:
@@ -409,6 +557,57 @@ def apply_cuda(words, stash, n: int):
         raise ValueError(f"{n} indices of a stash of {stash.numel()}")
     if n:
         _apply(load(), words, stash, n, _stream(words))
+
+
+def _check_sub_step(words, salts, sizes, plan: InsertPlan, counts, stash, keys=None,
+                    blinded=None, *, with_keys=True):
+    """The checks of a sub-slice step on one chunk: the table, the plan,
+    the chunk's keys (``with_keys``; the apply takes none) and the buffers;
+    returns (chain, key arguments or None)."""
+    chain, _ = _check_table(words, salts, sizes)
+    if plan.route != "subslice" or (plan.table_size, plan.n_salts) != (int(chain[-1]),
+                                                                       salts.numel()):
+        raise ValueError(f"{plan} is not a sub-slice plan of this table and these salts")
+    key_args = _key_args(words, keys, blinded) if with_keys else None
+    if key_args and key_args[-1] > plan.chunk_keys:
+        raise ValueError(f"a chunk of at most {plan.chunk_keys} keys, got {key_args[-1]}")
+    for buf, size in ((counts, 3 * plan.buckets), (stash, plan.chunk_keys * plan.n_salts)):
+        if buf is not None and (buf.device != words.device or buf.dtype != torch.int32
+                                or not buf.is_contiguous() or buf.numel() != size):
+            raise ValueError(f"need a contiguous int32 buffer of {size} on {words.device}")
+    return chain, key_args
+
+
+def sub_count_cuda(words, salts, sizes, mixed: bool, plan: InsertPlan, counts, *, keys=None,
+                   blinded=None):
+    """``bf_insert_sub_count`` on one chunk of the keys of an insert into
+    ``words`` (at most ``plan.chunk_keys``): the chunk's totals by
+    sub-slice added into ``counts[:B]``, a row of ``subslice_buffers``'
+    counts. One launch (none for no key)."""
+    chain, key_args = _check_sub_step(words, salts, sizes, plan, counts, None, keys, blinded)
+    if key_args[-1]:
+        _sub_count(load(), _sub_head(salts, chain, mixed, _chunk(key_args, 0, key_args[-1]),
+                                     plan), counts, _stream(words))
+
+
+def sub_scatter_cuda(words, salts, sizes, mixed: bool, plan: InsertPlan, counts, stash, *,
+                     keys=None, blinded=None):
+    """``bf_insert_sub_scatter`` on the chunk that ``sub_count_cuda``
+    counted into ``counts``: its indices sorted by sub-slice into the
+    stash's first keys x salts words, the sub-slices' offsets into
+    ``counts[2B:]``. One launch (none for no key)."""
+    chain, key_args = _check_sub_step(words, salts, sizes, plan, counts, stash, keys, blinded)
+    if key_args[-1]:
+        _sub_scatter(load(), _sub_head(salts, chain, mixed, _chunk(key_args, 0, key_args[-1]),
+                                       plan), counts, stash, _stream(words))
+
+
+def sub_apply_cuda(words, salts, sizes, plan: InsertPlan, counts, stash):
+    """``bf_insert_sub_apply``: each sub-slice's run of the stash (as
+    ``counts`` places it) set in ``words`` in shared memory, in place. One
+    launch."""
+    _check_sub_step(words, salts, sizes, plan, counts, stash, with_keys=False)
+    _sub_apply(load(), words, stash, counts, plan, _stream(words))
 
 
 def probe_cuda(words: torch.Tensor, salts: torch.Tensor, sizes, mixed: bool, *,

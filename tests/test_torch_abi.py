@@ -59,18 +59,26 @@ def test_argtypes_match_the_c_entry_points(wrapper):
 
 
 def test_bloom_entry_points():
-    """``csrc/bloom.cu`` exports the direct insert, the partitioned insert's
-    three steps, the probe and the probe's launch floor (an empty kernel at
-    its geometry), and ``bloom_cuda._declare`` declares each: the steps take
-    the chunk's keys and partition (17 arguments) before their buffers and
-    stream; the probe takes 15 arguments, its floor the table's words, the
-    key count and the stream."""
+    """``csrc/bloom.cu`` exports the direct insert, the sub-slice and the
+    partitioned inserts' three steps each, the probe and the probe's
+    launch floor (an empty kernel at its geometry), and
+    ``bloom_cuda._declare`` declares each: the partitioned count and
+    scatter take the chunk's keys and partition (17 arguments) before
+    their buffers and stream, the sub-slice count and scatter the chunk's
+    keys and buckets (16) before theirs, the sub-slice apply the table,
+    its words, the stash, the counts, the buckets and the stream; the
+    probe takes 15 arguments, its floor the table's words, the key count
+    and the stream."""
     lib = _Library()
     bloom_cuda._declare(lib)
     c_side = _entry_points(bloom_cuda.SOURCE)
-    names = {"pplp_bf_insert", "pplp_bf_insert_count", "pplp_bf_insert_scatter",
+    names = {"pplp_bf_insert", "pplp_bf_insert_sub_count", "pplp_bf_insert_sub_scatter",
+             "pplp_bf_insert_sub_apply", "pplp_bf_insert_count", "pplp_bf_insert_scatter",
              "pplp_bf_insert_apply", "pplp_bf_probe", "pplp_bf_probe_floor"}
     assert set(c_side) - {"pplp_cuda_error_string"} == names == set(lib.functions)
     steps = [len(c_side[f"pplp_bf_insert_{k}"]) for k in ("count", "scatter", "apply")]
     assert steps == [20, 21, 4]
+    sub = [c_side[f"pplp_bf_insert_sub_{k}"] for k in ("count", "scatter", "apply")]
+    assert [len(k) for k in sub] == [18, 19, 7]
+    assert sub[2] == ["p", "i", "p", "p", "i", "i", "p"]
     assert c_side["pplp_bf_probe_floor"] == ["i", "i", "p"] and len(c_side["pplp_bf_probe"]) == 15

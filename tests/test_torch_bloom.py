@@ -333,12 +333,12 @@ def test_device_paths_refuse_a_table_they_cannot_run():
 
 
 def test_insert_plan_routes_and_refusals():
-    """``bloom_cuda.insert_plan``: the direct kernel for a table of at most
-    DIRECT_MAX_BITS bits (config[3]'s, the client/server filter's 40.2 MB),
-    the partitioned kernels above it (the demo's r = 4096 and 8192: 23
-    chunks whose stash and histograms fit in the table's words, at most
-    MAX_BUCKETS buckets); it raises on what the kernels do not take, and
-    the step wrappers refuse CPU tensors."""
+    """``bloom_cuda.insert_plan``: the direct kernel for a small table
+    (config[3]'s), the sub-slice route for the client/server filter's
+    40.2 MB, the partitioned kernels above DIRECT_MAX_BITS (the demo's
+    r = 4096 and 8192: 23 chunks whose stash and histograms fit in the
+    table's words, at most MAX_BUCKETS buckets); it raises on what the
+    kernels do not take, and the step wrappers refuse CPU tensors."""
     from pplp_tpu_torch.ops import bloom_cuda
 
     def plan(r, fpp, **kw):
@@ -347,25 +347,28 @@ def test_insert_plan_routes_and_refusals():
 
     assert plan(99, 1e-4).launches() == {"bf_insert": 1}
     cs = plan(4096, 1e-4)
-    assert cs.direct and cs.table_size == 321_668_808 <= bloom_cuda.DIRECT_MAX_BITS
+    assert cs.route == "subslice" and cs.table_size == 321_668_808 <= bloom_cuda.DIRECT_MAX_BITS
     for r, buckets in ((4096, 8), (8192, 29)):
         p = plan(r, 1e-12)
-        assert not p.direct and (p.buckets, p.chunks, p.tile_keys) == (buckets, 23, 256)
+        assert p.route == "partitioned" and (p.buckets, p.chunks, p.tile_keys) == (buckets, 23, 256)
         assert p.launches() == dict.fromkeys(("bf_insert_count", "bf_insert_scatter",
                                               "bf_insert_apply"), 23)
         words = bloom_cuda.words_for(p.table_size)
         assert p.chunk_keys * (p.n_salts + 1) <= words and p.chunk_keys % p.tile_keys == 0
-    assert plan(4096, 1e-4, partitioned=True).buckets == 3
-    assert bloom_cuda.insert_plan(1000, 128, 5).tile_keys == 80
+    assert plan(4096, 1e-4, route="partitioned").buckets == 3
+    assert bloom_cuda.insert_plan(1 << 20, 128, 5, route="partitioned",
+                                  slice_log2=16).tile_keys == 80
     with pytest.raises(ValueError, match="buckets"):
         plan(8192, 1e-12, slice_log2=26)
     with pytest.raises(ValueError, match="slice"):
         plan(4096, 1e-12, slice_log2=4)
     with pytest.raises(ValueError, match="no stash"):
-        bloom_cuda.insert_plan(100_000, 40, 10, partitioned=True, slice_log2=12)
+        bloom_cuda.insert_plan(100_000, 40, 10, route="partitioned", slice_log2=12)
     with pytest.raises(ValueError, match="salts"):
         bloom_cuda.insert_plan(100_000, 129, 10)
-    p = bloom_cuda.insert_plan(1 << 20, 13, 5000, partitioned=True, slice_log2=16)
+    with pytest.raises(ValueError, match="route"):
+        bloom_cuda.insert_plan(100_000, 13, 10, route="sorted")
+    p = bloom_cuda.insert_plan(1 << 20, 13, 5000, route="partitioned", slice_log2=16)
     words = torch.zeros(bloom_cuda.words_for(p.table_size), dtype=torch.int32)
     salts = torch.ones(p.n_salts, dtype=torch.int64)
     stash, hist, counts = bloom_cuda.partition_buffers(p, "cpu")
@@ -379,6 +382,94 @@ def test_insert_plan_routes_and_refusals():
                                 blinded=blinded)
     with pytest.raises(ValueError, match="CUDA"):
         bloom_cuda.apply_cuda(words, stash, 4)
+
+
+@pytest.mark.parametrize("r,fpp,route", [(99, 1e-4, "direct"), (128, 1e-12, "direct"),
+                                         (2048, 1e-4, "direct"), (4096, 1e-4, "subslice"),
+                                         (2048, 1e-12, "subslice"),
+                                         (4096, 1e-12, "partitioned")])
+def test_insert_route_of_the_main_paths(r, fpp, route):
+    """``route_of`` by the measured thresholds: the direct kernel below
+    SUBSLICE_MIN_BITS (config[3]'s 187,920 bits, the demo's r = 128, the
+    sweep's r = 2048 at 10.1 MB), the sub-slice route from there to
+    DIRECT_MAX_BITS (the client/server filter, the demo's r = 2048 at
+    30.2 MB), the partitioned one above; and ``insert_plan`` takes it."""
+    from pplp_tpu_torch.ops import bloom_cuda
+
+    p = _params(prim, r * r, fpp, "mixed")
+    assert bloom_cuda.route_of(p.table_size, p.number_of_hashes, r * r) == route
+    assert bloom_cuda.insert_plan(p.table_size, p.number_of_hashes, r * r).route == route
+    assert (route == "direct") == (p.table_size < bloom_cuda.SUBSLICE_MIN_BITS)
+
+
+def test_insert_plan_subslice_route():
+    """The sub-slice plan: 614 buckets of 2^19 bits and 6 chunks at the
+    client/server filter, a chunk's stash within STASH_FACTOR times the
+    table's words (the last chunk ragged), one launch of each kernel a
+    chunk; at the thresholds' edges the route falls to the direct kernel
+    (a table below SUBSLICE_MIN_BITS, fewer than SUBSLICE_MIN_FILL indices
+    a word); forced, it raises on a table without a whole sub-slice, on
+    more than MAX_SUB_BUCKETS buckets, on sub-slices outside 2^7..2^20, on
+    a stash below the table's words or too small for a key; its buffers
+    and step wrappers refuse CPU tensors."""
+    from pplp_tpu_torch.ops import bloom_cuda
+
+    bits, keys = 321_668_808, 4096 * 4096
+    cs = bloom_cuda.insert_plan(bits, 13, keys)
+    words = bloom_cuda.words_for(bits)
+    assert (cs.route, cs.slice_log2, cs.buckets, cs.chunks) == ("subslice", 19, 614, 6)
+    assert bloom_cuda.SUB_LOG2 == 19 and bloom_cuda.STASH_FACTOR == 3.75
+    assert cs.chunk_keys * 13 <= bloom_cuda.STASH_FACTOR * words < (cs.chunk_keys + 1) * 13
+    # The stash in the allocator's 2 MiB blocks and the counts: within four
+    # tables; no cap within four tables gives fewer chunks.
+    stash, counts = 4 * cs.chunk_keys * 13, 4 * 3 * cs.buckets * cs.chunks
+    assert -(-stash // (2 << 20)) * (2 << 20) + counts <= 4 * 4 * words
+    assert -(-keys // (4 * words // 13)) == cs.chunks
+    assert keys % cs.chunk_keys and cs.launches() == dict.fromkeys(
+        ("bf_insert_sub_count", "bf_insert_sub_scatter", "bf_insert_sub_apply"), 6)
+    for factor, chunks in ((1, 22), (2, 11)):
+        p = bloom_cuda.insert_plan(bits, 13, keys, route="subslice", stash_factor=factor)
+        assert p.chunks == chunks and p.chunk_keys * 13 <= factor * words
+    assert bloom_cuda.insert_plan(bits, 13, keys, route="subslice", slice_log2=20).buckets == 307
+    assert bloom_cuda.insert_plan(bits, 13, 0, route="subslice").launches() == dict.fromkeys(
+        bloom_cuda.ROUTE_KERNELS["subslice"], 0)
+    edge = bloom_cuda.SUBSLICE_MIN_BITS
+    full = -(-bloom_cuda.SUBSLICE_MIN_FILL * bloom_cuda.words_for(edge) // 13)
+    assert bloom_cuda.route_of(edge, 13, full) == "subslice"
+    assert bloom_cuda.route_of(edge, 13, full - 1) == "direct"
+    exact = bloom_cuda.SUBSLICE_MIN_FILL * bloom_cuda.words_for(edge)  # one salt
+    assert bloom_cuda.route_of(edge, 1, exact) == "subslice"
+    assert bloom_cuda.route_of(edge, 1, exact - 1) == "direct"
+    assert bloom_cuda.route_of(edge - 1, 13, 10 * full) == "direct"
+    assert bloom_cuda.route_of(bloom_cuda.DIRECT_MAX_BITS + 1, 13, 10 * full) == "partitioned"
+    with pytest.raises(ValueError, match="whole sub-slice"):
+        bloom_cuda.insert_plan((1 << 19) - 1, 13, 10, route="subslice")
+    with pytest.raises(ValueError, match="buckets"):
+        bloom_cuda.insert_plan(bits, 13, 10, route="subslice", slice_log2=18)
+    for log2 in (6, 21):
+        with pytest.raises(ValueError, match="sub-slice of"):
+            bloom_cuda.insert_plan(bits, 13, 10, route="subslice", slice_log2=log2)
+    with pytest.raises(ValueError, match="stash"):
+        bloom_cuda.insert_plan(bits, 13, 10, route="subslice", stash_factor=0)
+    with pytest.raises(ValueError, match="no stash"):
+        bloom_cuda.insert_plan(128, 128, 10, route="subslice", slice_log2=7, stash_factor=1)
+    p = bloom_cuda.insert_plan(1 << 20, 13, 5000, route="subslice", slice_log2=16)
+    table = torch.zeros(bloom_cuda.words_for(p.table_size), dtype=torch.int32)
+    salts = torch.ones(13, dtype=torch.int64)
+    stash, counts = bloom_cuda.subslice_buffers(p, "cpu")
+    assert stash.numel() == p.chunk_keys * 13 <= bloom_cuda.STASH_FACTOR * table.numel()
+    assert counts.shape == (p.chunks, 3 * 16) and not counts.any()
+    blinded = (3, 5, 1, 1, 0, p.chunk_keys)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        bloom_cuda.insert_subslice(table, salts, (p.table_size,), True, blinded=blinded)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        bloom_cuda.sub_count_cuda(table, salts, (p.table_size,), True, p, counts[0],
+                                  blinded=blinded)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        bloom_cuda.sub_scatter_cuda(table, salts, (p.table_size,), True, p, counts[0], stash,
+                                    blinded=blinded)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        bloom_cuda.sub_apply_cuda(table, salts, (p.table_size,), p, counts[0], stash)
 
 
 def test_chain_is_checked_once_a_size_list():

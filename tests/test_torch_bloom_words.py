@@ -24,6 +24,20 @@ bucket order; held bit for bit against ``model_insert`` and the reference's
 bytes, on ragged last buckets and chunks, chains of sizes, chunk starts of
 the blinded source, and r = 8192's bucket ids past 2^31.
 
+The sub-slice insert (a table of ``SUBSLICE_MIN_BITS`` to
+``DIRECT_MAX_BITS`` bits) is modelled chunk by chunk as
+``bf_insert_sub_count``, ``bf_insert_sub_scatter`` and
+``bf_insert_sub_apply`` run it: buckets of 2^sub_log2 bits by a u32
+shift, the chunk's totals, each tile of ``sub_tile_keys(salts)`` keys
+hashed salt-major into a raw tile, counted, its runs reserved at the exclusive
+scan of the totals plus a cursor, sorted by bucket and written out, and
+each bucket's run ORed into a copy of its words (fewer in the table's last
+bucket) that is stored back once; held bit for bit against
+``model_insert``, the reference's bytes and filters and the port's plain
+filter, in both index modes, on a size chain, a prefilled table, ragged
+last buckets, several chunks and key counts that are not a multiple of the
+tile, and chunk starts of the blinded source.
+
 The probe is modelled as ``bf_probe`` runs it: a key's salts one at a
 time, the key stopped at its first clear bit (``model_probe_early_exit``,
 with the words it reads, one 32-byte sector each, against
@@ -197,6 +211,100 @@ def model_partitioned(words, keys_of, count, salts, sizes, mixed, plan):
         assert stash.size + hist.size <= words.size
         model_insert(words, stash)  # bf_insert_apply: the stash in order
         chunks.append((stash, offsets, totals))
+    return chunks
+
+
+# --- the sub-slice insert -------------------------------------------------
+
+def _kernel_constant(name: str) -> int:
+    return int(re.search(rf"constexpr \w+ {name} = (\d+);",
+                         bloom_cuda.SOURCE.read_text()).group(1))
+
+
+SUB_TILE = _kernel_constant("kSubTile")  # indices a scatter block's tile holds at most
+SUB_THREADS = _kernel_constant("kSubScatterThreads")
+
+
+def model_sub_tile_keys(n_salts: int) -> int:
+    """``sub_tile_keys``: SUB_TILE / n_salts keys a tile, rounded down to
+    whole rounds of the scatter's threads where that leaves at least one."""
+    keys = SUB_TILE // n_salts
+    return keys // SUB_THREADS * SUB_THREADS if keys >= SUB_THREADS else keys
+
+
+def model_sub_count(idx: np.ndarray, sub_log2: int, n_buckets: int) -> np.ndarray:
+    """bf_insert_sub_count on one chunk's indices [S, K]: its totals by
+    bucket (the kernel's blocks add theirs in any order)."""
+    return np.bincount(model_buckets(idx, sub_log2).reshape(-1),
+                       minlength=n_buckets).astype(U32)
+
+
+def model_sub_scatter(idx: np.ndarray, totals, sub_log2: int, tile_keys: int):
+    """bf_insert_sub_scatter: every tile of ``tile_keys`` keys (a block)
+    hashes into a raw tile salt-major (raw[j * keys + i]), counts it by
+    bucket, reserves each bucket's run at its offset (the exclusive scan of
+    totals) plus a cursor (the kernel's blocks in any order, the model's in
+    tile order), sorts the raw tile by bucket (the kernel's order inside a
+    bucket is free, the model's stable) and writes it out in order.
+    Returns the stash, the buckets' offsets and the (tile, bucket) runs."""
+    offsets = exclusive_scan(totals)
+    cursors = np.zeros_like(totals)
+    stash = np.full(int(totals.sum()), 0xFFFFFFFF, U32)
+    runs = []
+    for t in range(-(-idx.shape[1] // tile_keys)):
+        raw = idx[:, t * tile_keys:(t + 1) * tile_keys].reshape(-1)  # salt-major
+        b = model_buckets(raw, sub_log2)
+        count = np.bincount(b, minlength=totals.size).astype(U32)
+        dst = offsets + cursors
+        cursors += count
+        local = exclusive_scan(count)
+        order = np.argsort(b, kind="stable")
+        sorted_tile, sb = raw[order], b[order]
+        j = np.arange(sorted_tile.size, dtype=U32)
+        stash[dst[sb] + (j - local[sb])] = sorted_tile
+        runs += [(int(dst[k]), int(count[k])) for k in np.flatnonzero(count)]
+    assert np.array_equal(cursors, totals)
+    return stash, offsets, runs
+
+
+def model_sub_apply(words: np.ndarray, stash, totals, offsets, sub_log2: int):
+    """bf_insert_sub_apply: a block a bucket with indices copies its words
+    (2^sub_log2 bits; fewer in the table's last bucket, and none past its
+    last word) into shared memory, ORs in its run of the stash and stores
+    the words back once."""
+    span = 1 << (sub_log2 - 5)
+    for b in np.flatnonzero(totals):
+        w0 = int(b) * span
+        nw = min(span, words.size - w0)
+        smem = words[w0:w0 + nw].copy()
+        run = stash[offsets[b]:offsets[b] + totals[b]]
+        assert (model_buckets(run, sub_log2) == b).all()
+        np.bitwise_or.at(smem, (run >> U32(5)) - U32(w0), U32(1) << (run & U32(31)))
+        words[w0:w0 + nw] = smem
+
+
+def model_subslice(words, keys_of, count, salts, sizes, mixed, plan):
+    """The sub-slice insert of keys ``keys_of(first, n)`` (u64 keys [first,
+    first + n)) into ``words``, chunk by chunk; checks each chunk's stash
+    and returns the number of chunks."""
+    tile_keys = model_sub_tile_keys(salts.size)
+    chunks = 0
+    for first in range(0, count, plan.chunk_keys):
+        n = min(plan.chunk_keys, count - first)
+        idx = model_indices(keys_of(first, n), salts, sizes, mixed)
+        totals = model_sub_count(idx, plan.slice_log2, plan.buckets)
+        stash, offsets, runs = model_sub_scatter(idx, totals, plan.slice_log2, tile_keys)
+        # Every (key, salt) index once, each inside its bucket's range, each
+        # (tile, bucket) run contiguous; the stash within its cap.
+        assert stash.size == idx.size <= plan.chunk_keys * plan.n_salts
+        assert plan.chunk_keys * plan.n_salts <= bloom_cuda.STASH_FACTOR * words.size
+        assert np.array_equal(np.sort(stash), np.sort(idx.reshape(-1)))
+        b = model_buckets(stash, plan.slice_log2)
+        assert (np.diff(b.astype(np.int64)) >= 0).all()
+        for start, length in runs:
+            assert (b[start:start + length] == b[start]).all()
+        model_sub_apply(words, stash, totals, offsets, plan.slice_log2)
+        chunks += 1
     return chunks
 
 
@@ -380,7 +488,7 @@ def test_partitioned_model_matches_reference(case, mode):
     slice_log2 = 17 if case == "just above one slice" else SLICE
     salts = np.asarray(bloom._PREDEF_SALT[:128 if case == "128 salts" else 13], U32)
     mixed, ts = mode == "mixed", sizes[-1]
-    plan = bloom_cuda.insert_plan(ts, salts.size, 1, slice_log2=slice_log2, partitioned=True)
+    plan = bloom_cuda.insert_plan(ts, salts.size, 1, slice_log2=slice_log2, route="partitioned")
     count = 2 * plan.chunk_keys + 123
     keys = _keys(count, 7)
     assert plan.buckets == -(-ts // (1 << slice_log2)) and ts % (1 << slice_log2)
@@ -419,7 +527,7 @@ def test_partitioned_chunk_starts_of_the_blinded_source(s, r, w, sq_radius):
     model's over the whole range."""
     bl = prim.Blinding(r=r, s=s, w=w)
     salts = np.asarray(bloom._PREDEF_SALT[:13], U32)
-    plan = bloom_cuda.insert_plan(RAGGED, 13, sq_radius, slice_log2=SLICE, partitioned=True)
+    plan = bloom_cuda.insert_plan(RAGGED, 13, sq_radius, slice_log2=SLICE, route="partitioned")
     assert sq_radius % plan.chunk_keys and plan.chunks >= 2
 
     def keys_of(first, n):
@@ -450,7 +558,7 @@ def test_partitioned_buckets_above_2_31(mode):
     within the table's words; no table is allocated."""
     bf = prim.BloomFilter(_params(prim, 8192 * 8192, 1e-12, mode), device="cpu")
     plan = bloom_cuda.insert_plan(R8192_BITS, 40, 8192 * 8192)
-    assert not plan.direct and plan.slice_log2 == bloom_cuda.SLICE_LOG2
+    assert plan.route == "partitioned" and plan.slice_log2 == bloom_cuda.SLICE_LOG2
     assert plan.buckets == -(-R8192_BITS // (1 << plan.slice_log2)) <= bloom_cuda.MAX_BUCKETS
     assert R8192_BITS % (1 << plan.slice_log2)  # the last bucket is ragged
     assert plan.chunks == 23 and plan.count % plan.chunk_keys
@@ -466,6 +574,136 @@ def test_partitioned_buckets_above_2_31(mode):
     hist, totals = model_count(idx, plan.tile_keys, plan.slice_log2, plan.buckets)
     assert int(totals.sum()) == idx.size
     assert hist.shape == (-(-keys.size // plan.tile_keys), plan.buckets)
+
+
+# --- the sub-slice insert against the reference ----------------------------
+
+SUB_CASES = {  # name: (projected keys, fpp, salts or None, sub_log2, stash factor, prefill)
+    "ragged last sub-slice": (5000, 1e-4, None, 12, None, False),
+    "exactly one sub-slice": (None, None, 13, 12, None, False),
+    "749 buckets of 2^7": (5000, 1e-4, None, 7, None, False),
+    "prefilled": (5000, 1e-4, None, 11, None, True),
+    "several chunks, a ragged last one": (5000, 1e-4, None, 12, 1, False),
+    "128 salts": (900, 1e-4, 128, 10, None, False),
+}
+
+
+@pytest.mark.parametrize("case", list(SUB_CASES))
+@pytest.mark.parametrize("mode", ["reference", "mixed"])
+def test_subslice_model_matches_reference(case, mode):
+    """The sub-slice model's words equal the reference filter's table
+    (``insert_u64_batch``, then ``serialize()``), the port's plain insert's
+    (``insert_plain`` on the unpacked table) and ``model_insert``'s, with a
+    key count that is not a multiple of a tile; on a prefilled table the
+    bits already set stay."""
+    projected, fpp, n_salts, sub_log2, factor, prefill = SUB_CASES[case]
+    mixed = mode == "mixed"
+    p = _params(rprim, projected or 200, fpp or 1e-4, mode)
+    if projected is None:  # a table of exactly one sub-slice
+        p.table_size = 1 << sub_log2
+    if n_salts:
+        p.number_of_hashes = n_salts
+    rbf = rprim.BloomFilter(p)
+    salts, ts = rbf.salts, rbf.table_size
+    assert n_salts is None or salts.size == n_salts
+    tile_keys = model_sub_tile_keys(salts.size)
+    count = 3 * tile_keys + 7
+    keys = _keys(count + 500, 21)
+    words = np.zeros(bloom_cuda.words_for(ts), U32)
+    plain = torch.zeros(ts, dtype=torch.uint8)
+    tsalts = torch.from_numpy(salts.astype(np.int64))
+
+    def insert_elsewhere(k):  # the reference's filter and the port's plain insert
+        lo, hi = model_key_words(k)
+        rbf.insert_u64_batch(jnp.asarray(lo), jnp.asarray(hi))
+        bloom.insert_plain(plain, torch.from_numpy(lo.astype(np.int64)),
+                           torch.from_numpy(hi.astype(np.int64)), tsalts, (ts,), mixed)
+
+    if prefill:  # 500 keys first
+        insert_elsewhere(keys[count:])
+        model_insert(words, model_indices(keys[count:], salts, (ts,), mixed))
+    direct = words.copy()
+    plan = bloom_cuda.insert_plan(ts, salts.size, count, route="subslice", slice_log2=sub_log2,
+                                  stash_factor=factor)
+    assert plan.buckets == -(-ts // (1 << sub_log2))
+    chunks = model_subslice(words, lambda a, n: keys[a:a + n], count, salts, (ts,), mixed, plan)
+    assert chunks == plan.chunks
+    if factor == 1:
+        assert chunks >= 3 and count % plan.chunk_keys
+    model_insert(direct, model_indices(keys[:count], salts, (ts,), mixed))
+    assert np.array_equal(words, direct)
+    insert_elsewhere(keys[:count])
+    assert rbf.serialize().endswith(model_bytes(words, ts))
+    assert bloom.pack_bits(plain).numpy().tobytes() == model_bytes(words, ts)
+
+
+@pytest.mark.parametrize("mode", ["reference", "mixed"])
+def test_subslice_model_size_chain_matches_reference(mode):
+    """A compressed filter's chain of three sizes, in sub-slices of the
+    chain's last size (ragged): the model's table after the reference's
+    own compressions is the reference's, byte for byte."""
+    keys = _keys(3000, 22)
+    rbf = rprim.CompressibleBloomFilter(_params(rprim, 4000, 1e-3, mode))
+    mixed = mode == "mixed"
+    rbf.insert_u64_batch(*(jnp.asarray(k) for k in model_key_words(keys[:1000])))
+    rbf._sync_host()
+    rbf.bit_table = np.array(rbf.bit_table)
+    assert rbf.compress(30.0) and rbf.compress(25.0)
+    sizes = tuple(rbf.size_list)
+    assert len(sizes) == 3 and sizes[-1] % (1 << 10)
+    words = np.zeros(bloom_cuda.words_for(sizes[-1]), U32)
+    words.view(np.uint8)[:sizes[-1] // 8] = rbf.bit_table
+    plan = bloom_cuda.insert_plan(sizes[-1], rbf.salts.size, 2000, route="subslice",
+                                  slice_log2=10)
+    model_subslice(words, lambda a, n: keys[1000 + a:1000 + a + n], 2000, rbf.salts, sizes,
+                   mixed, plan)
+    rbf.insert_u64_batch(*(jnp.asarray(k) for k in model_key_words(keys[1000:])))
+    rbf._sync_host()
+    assert model_bytes(words, sizes[-1]) == np.asarray(rbf.bit_table).tobytes()
+
+
+@pytest.mark.parametrize("s,r,w,sq_radius", [
+    (0xFEDCBA98, 0xFFFFFFF0, 0xBEEF, 30_001),
+    (_UNSAFE.s, _UNSAFE.r, _UNSAFE.w, 173 * 173),
+])
+def test_subslice_chunk_starts_of_the_blinded_source(s, r, w, sq_radius):
+    """The blinded source in chunks of the sub-slice route (each chunk's
+    keys from start + its first key): the model's words equal the direct
+    model's and the port's plain filter's ``insert_blind_distances`` over
+    the whole range."""
+    bl = prim.Blinding(r=r, s=s, w=w)
+    bf = prim.BloomFilter(_params(prim, sq_radius, 1e-4, "mixed"), device="cpu")
+    salts, ts = bf.salts, bf.table_size
+    plan = bloom_cuda.insert_plan(ts, salts.size, sq_radius, route="subslice", slice_log2=12,
+                                  stash_factor=1)
+    assert sq_radius % plan.chunk_keys and plan.chunks >= 2
+
+    def keys_of(first, n):
+        return model_blinded_range(bl.s, bl.r, bl.w, bl.w_len, first, n)
+
+    words = np.zeros(bloom_cuda.words_for(ts), U32)
+    assert model_subslice(words, keys_of, sq_radius, salts, (ts,), True, plan) == plan.chunks
+    direct = np.zeros_like(words)
+    model_insert(direct, model_indices(keys_of(0, sq_radius), salts, (ts,), True))
+    assert np.array_equal(words, direct)
+    bf.insert_blind_distances(bl, sq_radius)
+    assert bf.serialize() == bf._header_bytes() + model_bytes(words, ts)
+
+
+def test_subslice_constants_are_the_kernels():
+    """``bloom_cuda``'s sub-slice limits are ``bloom.cu``'s; the tile holds
+    512 keys at the client/server filter's 13 salts, 204 at 40 and 64 at
+    128; a scatter block's two tiles and its arrays fit one SM's shared
+    memory twice, and an apply block holds the largest sub-slice."""
+    assert _kernel_constant("kMaxSubBuckets") == bloom_cuda.MAX_SUB_BUCKETS
+    assert (_kernel_constant("kMinSubLog"),
+            _kernel_constant("kMaxSubLog")) == bloom_cuda.SUB_LOG2_RANGE
+    assert bloom_cuda.SUB_LOG2_RANGE[0] <= bloom_cuda.SUB_LOG2 <= bloom_cuda.SUB_LOG2_RANGE[1]
+    assert [model_sub_tile_keys(s) for s in (13, 40, 128)] == [512, 204, 64]
+    scatter = 4 * (2 * SUB_TILE + 4 * bloom_cuda.MAX_SALTS + 3 * bloom_cuda.MAX_SUB_BUCKETS
+                   + SUB_THREADS // 32)
+    assert 2 * scatter <= 227 * 1024
+    assert 4 << (bloom_cuda.SUB_LOG2_RANGE[1] - 5) <= 227 * 1024
 
 
 # --- the probe's reduction and early exit ----------------------------------

@@ -1555,8 +1555,8 @@ def _bf(dev, count, fpp, mode, cls="BloomFilter"):
 
 def _insert_launches(bf, count, probes=0) -> dict:
     """The launches by kernel of one insert of ``count`` keys into ``bf``:
-    the direct kernel once for a table of at most DIRECT_MAX_BITS bits,
-    else count, scatter and apply once a chunk."""
+    the direct kernel once, or count, scatter and apply of the sub-slice
+    or the partitioned route once a chunk (``insert_plan``)."""
     from pplp_tpu_torch.ops import bloom_cuda
 
     plan = bloom_cuda.insert_plan(bf.table_size, bf.salt_count, count)
@@ -1580,7 +1580,8 @@ def test_bloom_kernels_match_plain_on_the_demo_filters(dev, radius, mode, fpp):
     """The demo's filter (fpp 1e-12, r = 4096 and the reference's r = 8192,
     whose 3,859,468,176 bits need u32 indices: the partitioned insert, 23
     chunks of count, scatter and apply) and the client/server one (fpp
-    1e-4, 40.2 MB: the direct kernel, one launch): the kernels, making the
+    1e-4, 40.2 MB: the sub-slice route, count, scatter and apply a chunk
+    in shared memory): the kernels, making the
     r^2 keys themselves, against blind_distance_keys + index_fill_ on the
     unpacked table: the same serialize() bytes, and the same verdicts on
     100,000 inserted and 100,000 outside keys."""
@@ -1737,10 +1738,10 @@ def test_demo_r8192_on_card(dev, xa, near):
     assert res.is_near is near
     assert ((xa - 1000) ** 2 + 212 ** 2 < 8192 ** 2) is near
     plan = bloom_cuda.insert_plan(res.bf_table_bits, 40, 8192 ** 2)
-    assert not plan.direct and plan.chunks == 23
-    assert bloom_cuda.launches_by_kernel == {"bf_insert": 0, "bf_insert_count": 23,
-                                             "bf_insert_scatter": 23, "bf_insert_apply": 23,
-                                             "bf_probe": 0}
+    assert plan.route == "partitioned" and plan.chunks == 23
+    assert bloom_cuda.launches_by_kernel == {**dict.fromkeys(bloom_cuda.launches_by_kernel, 0),
+                                             "bf_insert_count": 23, "bf_insert_scatter": 23,
+                                             "bf_insert_apply": 23}
     assert res.bf_table_bits == 3_859_468_176 and res.bf_device.type == "cuda"
     table = 4 * bloom_cuda.words_for(res.bf_table_bits)
     assert peaks[8192] < res.bf_table_bits, f"peak {peaks}: the unpacked table was allocated"
@@ -1759,7 +1760,7 @@ def test_partitioned_insert_just_above_one_slice(dev):
 
     bits = (1 << bloom_cuda.SLICE_LOG2) + 1000
     salts = torch.tensor(bloom._PREDEF_SALT[:13], dtype=torch.int64, device=dev)
-    plan = bloom_cuda.insert_plan(bits, 13, 1, partitioned=True)
+    plan = bloom_cuda.insert_plan(bits, 13, 1, route="partitioned")
     count = 3 * plan.chunk_keys + 12_345
     rng = np.random.default_rng(16)
     lo, hi = (torch.from_numpy(rng.integers(0, 1 << 32, count, dtype=np.uint64)
@@ -1775,13 +1776,136 @@ def test_partitioned_insert_just_above_one_slice(dev):
             bloom_cuda.reset_launches()
             bloom_cuda.insert_partitioned(words, salts, (bits,), mixed, **kw)
             assert bloom_cuda.launches_by_kernel == {
-                "bf_insert": 0, "bf_insert_count": 4, "bf_insert_scatter": 4,
-                "bf_insert_apply": 4, "bf_probe": 0}
+                **dict.fromkeys(bloom_cuda.launches_by_kernel, 0), "bf_insert_count": 4,
+                "bf_insert_scatter": 4, "bf_insert_apply": 4}
             bloom_cuda.insert_direct(direct, salts, (bits,), mixed, **kw)
             plain = torch.zeros(bits, dtype=torch.uint8, device=dev)
             bloom.insert_plain(plain, klo, khi, salts, (bits,), mixed)
             assert torch.equal(words, direct)
             assert torch.equal(words.view(torch.uint8)[:bits // 8], bloom.pack_bits(plain))
+
+
+# --- The sub-slice insert (bf_insert_sub_count / _scatter / _apply) ---
+
+def _sub_case(dev, case):
+    """(sizes, salts, mixed, key kwargs, (klo, khi), words before the
+    insert, insert_subslice kwargs) of a card test's case."""
+    from pplp_tpu_torch.parallel import pipeline
+    from pplp_tpu_torch.primitives import Blinding
+    from pplp_tpu_torch.primitives.blinding import blinded_keys, distance_keys
+
+    rng = np.random.default_rng(18)
+    if case in ("client/server", "client/server, prefilled, stash 1x, 2^20",
+                "client/server, reference mode", "zero keys"):
+        mode = "reference" if "reference" in case else "mixed"
+        bf = _bf(dev, 4096 * 4096, 1e-4, mode)
+        sq = 0 if case == "zero keys" else 4096 * 4096
+        bl = Blinding.for_protocol(56, max(sq, 1), seed=18)
+        start = 1000 if "prefilled" in case else 0
+        kw = dict(blinded=(bl.s, bl.r, bl.w, bl.w_len, start, sq))
+        keys = distance_keys(torch.arange(start, start + sq, device=dev), bl.s, bl.r, bl.w,
+                             bl.w_len)
+        words = torch.zeros_like(bf.bits_device)
+        if "prefilled" in case:
+            words = _probe_table(dev, bf.table_size, 13, 0.3, 18)
+        opts = dict(slice_log2=20, stash_factor=1) if "stash 1x" in case else {}
+        return bf._sizes(), bf._salts_device(), mode == "mixed", kw, keys, words, opts
+    if case == "config[3], 2^14":
+        t, s, r, w = 1 << 20, 501, 99, 0xA5A5
+        bf = pipeline.build_pipeline_filter(t, s, r, w, dev)
+        keys = blinded_keys(s * (torch.arange(r * r, device=dev) + r) % t, w, w.bit_length())
+        return (bf._sizes(), bf._salts_device(), True, dict(keys=keys), keys,
+                torch.zeros_like(bf.bits_device), dict(slice_log2=14))
+    assert case == "compressed, a chain of three"
+    bf = _bf(dev, 200_000, 1e-4, "mixed", "CompressibleBloomFilter")
+    assert bf.compress(30.0) and bf.compress(20.0) and len(bf.size_list) == 3
+    keys = tuple(torch.from_numpy(rng.integers(0, 1 << 32, 66_667, dtype=np.uint64)
+                                  .astype(np.int64)).to(dev) for _ in range(2))
+    return (bf._sizes(), bf._salts_device(), True, dict(keys=keys), keys,
+            torch.zeros_like(bf.bits_device), dict(slice_log2=16))
+
+
+SUB_CASES = ("client/server", "client/server, prefilled, stash 1x, 2^20",
+             "client/server, reference mode", "config[3], 2^14", "compressed, a chain of three",
+             "zero keys")
+
+
+@pytest.mark.parametrize("case", SUB_CASES)
+def test_subslice_insert_matches_plain_and_direct(dev, case):
+    """The sub-slice route (``insert_subslice``) on the client/server
+    filter (40.2 MB, 13 salts, 16.8M keys made in the kernels; 614 buckets
+    of 2^19 bits, or 307 of 2^20 at a 1x stash: 22 chunks), on a table
+    that already holds bits, in both index modes, on config[3]'s table
+    (sub-slices of 2^14 bits), on a compressed filter's chain of three
+    sizes and with no key: its words equal the direct kernel's and the
+    plain insert's bytes, the last word's bits above the table size as
+    they were, and it launches count, scatter and apply once a chunk."""
+    from pplp_tpu_torch.primitives import bloom
+
+    sizes, salts, mixed, kw, (klo, khi), before, opts = _sub_case(dev, case)
+    bits = sizes[-1]
+    plan = bloom_cuda.insert_plan(bits, salts.numel(), klo.numel(), route="subslice", **opts)
+    if case.startswith("client/server"):
+        assert plan.buckets == (307 if "2^20" in case else 614)
+    words, direct = before.clone(), before.clone()
+    bloom_cuda.reset_launches()
+    bloom_cuda.insert_subslice(words, salts, sizes, mixed, **kw, **opts)
+    assert bloom_cuda.launches_by_kernel == {**dict.fromkeys(bloom_cuda.launches_by_kernel, 0),
+                                             **plan.launches()}
+    bloom_cuda.insert_direct(direct, salts, sizes, mixed, **kw)
+    plain = bloom.unpack_words(before, bits)
+    bloom.insert_plain(plain, klo, khi, salts, sizes, mixed)
+    assert torch.equal(words, direct)
+    assert torch.equal(words.view(torch.uint8)[:bits // 8], bloom.pack_bits(plain)[:bits // 8])
+    if bits % 32:
+        top = (1 << 32) - (1 << (bits % 32))
+        assert int(words[-1]) & top == int(before[-1]) & top
+    if klo.numel() == 0:
+        assert torch.equal(words, before) and not any(bloom_cuda.launches_by_kernel.values())
+
+
+def test_subslice_steps_and_refusals(dev):
+    """Each sub-slice kernel's step on one chunk of the client/server
+    filter's keys (``sub_count_cuda``, ``sub_scatter_cuda``,
+    ``sub_apply_cuda``): the totals are a bincount of idx >> 19, the
+    offsets their exclusive scan, the stash the chunk's indices with each
+    sub-slice's run in its range, and the table after the apply the
+    plain version's; the route raises on a plan it cannot take and on a
+    table whose storage is not 16-byte aligned."""
+    from pplp_tpu_torch.primitives import Blinding, bloom
+    from pplp_tpu_torch.primitives.blinding import distance_keys
+
+    bf = _bf(dev, 4096 * 4096, 1e-4, "mixed")
+    sizes, salts, bits = bf._sizes(), bf._salts_device(), bf.table_size
+    plan = bloom_cuda.insert_plan(bits, 13, 4096 * 4096, route="subslice", stash_factor=1)
+    n = plan.chunk_keys
+    bl = Blinding.for_protocol(56, 4096 * 4096, seed=5)
+    blinded = (bl.s, bl.r, bl.w, bl.w_len, 0, n)
+    words = torch.zeros_like(bf.bits_device)
+    stash, counts = bloom_cuda.subslice_buffers(plan, dev)
+    bloom_cuda.sub_count_cuda(words, salts, sizes, True, plan, counts[0], blinded=blinded)
+    bloom_cuda.sub_scatter_cuda(words, salts, sizes, True, plan, counts[0], stash,
+                                blinded=blinded)
+    bloom_cuda.sub_apply_cuda(words, salts, sizes, plan, counts[0], stash)
+    klo, khi = distance_keys(torch.arange(n, device=dev), bl.s, bl.r, bl.w, bl.w_len)
+    idx = bloom._indices(klo, khi, salts, sizes, True).reshape(-1)
+    nb = plan.buckets
+    totals = torch.bincount(idx >> plan.slice_log2, minlength=nb)
+    got = counts[0].to(torch.int64) & 0xFFFFFFFF
+    assert torch.equal(got[:nb], totals) and torch.equal(got[nb:2 * nb], totals)
+    assert torch.equal(got[2 * nb:], torch.cumsum(totals, 0) - totals)
+    flat = stash.to(torch.int64) & 0xFFFFFFFF
+    assert torch.equal(torch.sort(flat).values, torch.sort(idx).values)
+    assert bool((flat[1:] >> plan.slice_log2 >= flat[:-1] >> plan.slice_log2).all())
+    plain = torch.zeros(bits, dtype=torch.uint8, device=dev)
+    plain.index_fill_(0, idx, 1)
+    assert torch.equal(words.view(torch.uint8)[:bits // 8], bloom.pack_bits(plain))
+    with pytest.raises(ValueError, match="whole sub-slice"):
+        bloom_cuda.insert_subslice(torch.zeros(100, dtype=torch.int32, device=dev), salts,
+                                   (3200,), True, blinded=blinded)
+    store = torch.zeros(words.numel() + 1, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="bf_insert_sub_apply"):
+        bloom_cuda.insert_subslice(store[1:], salts, sizes, True, blinded=blinded)
 
 
 # --- The probe's routes and edges (bf_probe: staged, device memory) ---
