@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..ops import ntt
+from ..utils.profiling import span
 from .behz import KSwitchKeys, _digit_groups
 from .ciphertext import Ciphertext
 from .context import BFVContext
@@ -85,11 +86,14 @@ def _unpack_residues(buf: bytes, off: int, n: int, widths) -> tuple[np.ndarray, 
 
 def save_ciphertext(ct: Ciphertext, ctx: BFVContext) -> bytes:
     assert ct.domain == "coeff"
-    widths = _limb_widths(ctx)
-    out = [_MAGIC_CT, struct.pack("<QHB", ctx.n, ctx.L, ct.size)]
-    for poly in ct.polys:
-        out.append(_pack_residues(poly.cpu().numpy(), widths))
-    return b"".join(out)
+    with span("bfv.save_ciphertext") as rec:
+        widths = _limb_widths(ctx)
+        out = [_MAGIC_CT, struct.pack("<QHB", ctx.n, ctx.L, ct.size)]
+        for poly in ct.polys:
+            out.append(_pack_residues(poly.cpu().numpy(), widths))
+        blob = b"".join(out)
+        rec.set(bytes=len(blob))
+    return blob
 
 
 def load_ciphertext(buf: bytes, ctx: BFVContext) -> Ciphertext:
@@ -98,13 +102,14 @@ def load_ciphertext(buf: bytes, ctx: BFVContext) -> Ciphertext:
     n, L, k = struct.unpack_from("<QHB", buf, 8)
     if (n, L) != (ctx.n, ctx.L):
         raise ValueError("ciphertext/context mismatch")
-    off = 8 + struct.calcsize("<QHB")
-    widths = _limb_widths(ctx)
-    polys = []
-    for _ in range(k):
-        res, off = _unpack_residues(buf, off, n, widths)
-        polys.append(torch.as_tensor(res.astype(np.int64), device=ctx.device))
-    return Ciphertext(tuple(polys), "coeff")
+    with span("bfv.load_ciphertext", bytes=len(buf)):
+        off = 8 + struct.calcsize("<QHB")
+        widths = _limb_widths(ctx)
+        polys = []
+        for _ in range(k):
+            res, off = _unpack_residues(buf, off, n, widths)
+            polys.append(torch.as_tensor(res.astype(np.int64), device=ctx.device))
+        return Ciphertext(tuple(polys), "coeff")
 
 
 def _header(buf: bytes, magic: bytes, fmt: str, ctx: BFVContext, what: str):

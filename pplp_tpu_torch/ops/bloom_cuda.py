@@ -341,10 +341,11 @@ def _chunk(key_args, first: int, count: int) -> tuple:
 
 
 def insert_cuda(words: torch.Tensor, salts: torch.Tensor, sizes, mixed: bool, *,
-                keys=None, blinded=None):
+                keys=None, blinded=None) -> InsertPlan:
     """Set the bits of the keys in the packed table ``words``, in place:
     ``keys=(lo, hi)`` int64 word tensors [K], or ``blinded=(s, r, w, w_len,
-    start, count)``. The route is ``route_of``'s (``insert_plan``)."""
+    start, count)``. The route is ``route_of``'s; returns its plan
+    (``insert_plan``)."""
     chain, _ = _check_table(words, salts, sizes)
     key_args = _key_args(words, keys, blinded)
     plan = insert_plan(int(chain[-1]), salts.numel(), key_args[-1])
@@ -354,6 +355,7 @@ def insert_cuda(words: torch.Tensor, salts: torch.Tensor, sizes, mixed: bool, *,
         _subslice(words, salts, chain, mixed, key_args, plan)
     else:
         _partitioned(words, salts, chain, mixed, key_args, plan)
+    return plan
 
 
 def insert_direct(words: torch.Tensor, salts: torch.Tensor, sizes, mixed: bool, *,

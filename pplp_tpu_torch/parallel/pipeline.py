@@ -43,6 +43,7 @@ from ..ops.modmath import M32
 from ..primitives.blinding import blinded_keys
 from ..primitives.bloom import BloomFilter, BloomParameters, probe
 from ..utils.hexcodec import uint64_to_hex_string
+from ..utils.profiling import span
 from .mesh import gather
 from .ntt_dist import DistNtt
 
@@ -154,7 +155,10 @@ def build_packed_pipeline(ctx, sk, xb: int, yb: int, s_blind: int, r_blind: int,
     decoder = get_decoder(ctx)
 
     def packed(c1_polys, c2_polys, c3_polys):
-        return decoder.decode_mod_t(step(c1_polys, c2_polys, c3_polys))
+        with span("pipeline.evaluate"):
+            x = step(c1_polys, c2_polys, c3_polys)
+        with span("pipeline.decode"):
+            return decoder.decode_mod_t(x)
 
     return packed
 
@@ -205,9 +209,12 @@ def build_packed_pipeline_bf(ctx, sk, xb: int, yb: int, s_blind: int, r_blind: i
     step = build_packed_pipeline(ctx, sk, xb, yb, s_blind, r_blind, mesh=mesh)
 
     def fn(c1_polys, c2_polys, c3_polys, table, salts, table_size):
-        bd = step(c1_polys, c2_polys, c3_polys)
-        near = bf_probe(bd, w, w_len, table, salts, table_size, mixed)
-        return near if mesh is None else gather(near, mesh, ("dp", "coeff"))
+        with span("pipeline.step") as rec:
+            bd = step(c1_polys, c2_polys, c3_polys)
+            with span("pipeline.probe"):
+                near = bf_probe(bd, w, w_len, table, salts, table_size, mixed)
+            rec.set(checks=near.numel())
+            return near if mesh is None else gather(near, mesh, ("dp", "coeff"))
 
     return fn
 

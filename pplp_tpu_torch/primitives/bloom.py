@@ -35,6 +35,7 @@ import torch
 
 from ..ops import bloom_cuda
 from ..ops.modmath import mul32
+from ..utils.profiling import span
 from .blinding import blind_distance_keys, blinded_keys, distance_keys
 
 __all__ = ["BloomParameters", "BloomFilter", "CompressibleBloomFilter", "pack_bits", "insert",
@@ -289,20 +290,24 @@ def insert(table, salts, sizes, mixed: bool, *, keys=None, blinded=None):
     version runs, on the unpacked table or on the words unpacked and packed
     again."""
     sizes = _chain(sizes)
-    if table.is_cuda:
-        bloom_cuda.insert_cuda(table, salts, sizes, mixed, keys=keys, blinded=blinded)
-        return
-    bits = _plain_table(table, sizes[-1])
-    if keys is not None:
-        insert_plain(bits, *keys, salts, sizes, mixed)
-    else:
-        s, r, w, w_len, start, count = blinded
-        steps = torch.arange(_BLINDED_CHUNK, dtype=torch.int64)
-        for lo in range(start, start + count, _BLINDED_CHUNK):
-            di = (steps + lo)[:start + count - lo]
-            insert_plain(bits, *distance_keys(di, s, r, w, w_len), salts, sizes, mixed)
-    if bits is not table:
-        table.copy_(words_of_bytes(pack_bits(bits).numpy(), "cpu"))
+    with span("bloom.insert") as rec:
+        if table.is_cuda:
+            plan = bloom_cuda.insert_cuda(table, salts, sizes, mixed, keys=keys, blinded=blinded)
+            rec.set(route=plan.route, chunks=plan.chunks, keys=plan.count)
+            return
+        bits = _plain_table(table, sizes[-1])
+        if keys is not None:
+            insert_plain(bits, *keys, salts, sizes, mixed)
+            rec.set(route="plain", chunks=1, keys=keys[0].numel())
+        else:
+            s, r, w, w_len, start, count = blinded
+            steps = torch.arange(_BLINDED_CHUNK, dtype=torch.int64)
+            for lo in range(start, start + count, _BLINDED_CHUNK):
+                di = (steps + lo)[:start + count - lo]
+                insert_plain(bits, *distance_keys(di, s, r, w, w_len), salts, sizes, mixed)
+            rec.set(route="plain", chunks=-(-count // _BLINDED_CHUNK), keys=count)
+        if bits is not table:
+            table.copy_(words_of_bytes(pack_bits(bits).numpy(), "cpu"))
 
 
 def probe(table, salts, sizes, mixed: bool, *, keys=None,
@@ -491,7 +496,8 @@ class BloomFilter:
 
     def _sync_host(self):
         if self._table is not None and self._host_dirty:
-            self.bit_table = self._packed_device().to("cpu", copy=True).numpy()
+            with span("bloom.table_to_host", bytes=self.table_size // BITS_PER_CHAR):
+                self.bit_table = self._packed_device().to("cpu", copy=True).numpy()
             self._host_dirty = False
 
     def _compatible(self, other) -> bool:
@@ -592,7 +598,8 @@ class BloomFilter:
             host = np.empty(packed.shape[0], np.uint8)
             for off in range(0, host.shape[0], chunk_bytes):
                 part = host[off:off + chunk_bytes]
-                torch.from_numpy(part).copy_(packed[off:off + chunk_bytes])
+                with span("bloom.table_to_host", bytes=part.shape[0]):
+                    torch.from_numpy(part).copy_(packed[off:off + chunk_bytes])
                 yield memoryview(part)
             self.bit_table = host
             self._host_dirty = False
@@ -607,21 +614,22 @@ class BloomFilter:
     @classmethod
     def deserialize(cls, buf: bytes, index_mode: str = "reference", *,
                     device, packed: bool | None = None) -> "BloomFilter":
-        bf = cls(device=device, packed=packed)
-        bf.index_mode = index_mode
-        (
-            bf.salt_count,
-            bf.table_size,
-            bf.projected_element_count,
-            bf.inserted_element_count,
-            bf.random_seed,
-            bf.desired_fpp,
-        ) = _HDR.unpack_from(buf, 0)
-        off = _HDR.size
-        bf.salts = np.frombuffer(buf, np.uint32, bf.salt_count, off).copy()
-        off += 4 * bf.salt_count
-        bf.bit_table = np.frombuffer(buf, np.uint8, bf.table_size // 8, off).copy()
-        return bf
+        with span("bloom.deserialize", bytes=len(buf)):
+            bf = cls(device=device, packed=packed)
+            bf.index_mode = index_mode
+            (
+                bf.salt_count,
+                bf.table_size,
+                bf.projected_element_count,
+                bf.inserted_element_count,
+                bf.random_seed,
+                bf.desired_fpp,
+            ) = _HDR.unpack_from(buf, 0)
+            off = _HDR.size
+            bf.salts = np.frombuffer(buf, np.uint32, bf.salt_count, off).copy()
+            off += 4 * bf.salt_count
+            bf.bit_table = np.frombuffer(buf, np.uint8, bf.table_size // 8, off).copy()
+            return bf
 
     def __eq__(self, other):
         if not isinstance(other, BloomFilter):

@@ -13,6 +13,7 @@ from dataclasses import dataclass, field
 
 import torch
 
+from ..utils.profiling import StageTimer
 from .config import ProtocolConfig
 from .roles import ProximityClient, ProximityServer
 
@@ -44,34 +45,19 @@ def run_local_demo(cfg: ProtocolConfig | None = None, verbose: bool = True,
     log(f"Server's coordinates:\t({cfg.xb}, {cfg.yb})")
     log(f"Radius(Threshold):\t\t\t{cfg.radius}")
 
-    stage_ns = {}
-
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
-    class timed:
-        def __init__(self, name):
-            self.name = name
-
-        def __enter__(self):
-            sync()
-            self.t0 = time.perf_counter_ns()
-
-        def __exit__(self, *exc):
-            sync()
-            stage_ns[self.name] = time.perf_counter_ns() - self.t0
-
     begin = time.perf_counter_ns()
 
     client = ProximityClient(cfg, device)
     server = ProximityServer(cfg, device)
+    timer = StageTimer()
+    if device.type == "cuda":  # each stage times only the work queued in it
+        torch.cuda.synchronize(device)
 
-    with timed("setParms"):
+    with timer.stage("setParms", block_on=device):
         server.receive_parms(client.parms_message())
-    with timed("kGen"):
+    with timer.stage("kGen", block_on=device):
         client.keygen()
-    with timed("setBF"):
+    with timer.stage("setBF", block_on=device):
         server.build_bloom_filter()
     if print_bf:  # demo.cc:123-124: print each blinded distance in hex
         bl = server.blinding
@@ -80,12 +66,12 @@ def run_local_demo(cfg: ProtocolConfig | None = None, verbose: bool = True,
             for di in range(cfg.sq_radius)
         ))
         log(format(bl.r * bl.s & ((1 << 64) - 1), "x"))  # demo.cc:128
-    with timed("enc"):
+    with timer.stage("enc", block_on=device):
         blobs = client.ciphertext_messages()
-    with timed("homoCalc"):
+    with timer.stage("homoCalc", block_on=device):
         server.receive_ciphertexts(blobs)
         bd_blob = server.blind_distance_message()
-    with timed("dec"):
+    with timer.stage("dec", block_on=device):
         bf_blob = server.bf_message()
         client.receive_bf(bf_blob)
         is_near = client.receive_blind_distance(bd_blob)
@@ -98,7 +84,7 @@ def run_local_demo(cfg: ProtocolConfig | None = None, verbose: bool = True,
         is_near=is_near,
         blind_distance=client.blind_distance,
         elapsed_s=elapsed,
-        stage_ns=stage_ns,
+        stage_ns=timer.ns,
         bf_device=server.bf.bits_device.device,
         bf_table_bits=server.bf.table_size,
         bf_wire_bytes=len(bf_blob),

@@ -27,6 +27,7 @@ from ..bfv import BFVContext, Ciphertext, Plaintext
 from ..bfv.serialize import load_ciphertext, load_parms, save_ciphertext, save_parms
 from ..primitives import Blinding, BloomFilter, BloomParameters, pack_key
 from ..utils.hexcodec import get_bitlen, uint64_to_hex_string
+from ..utils.profiling import span
 from . import stages
 from .config import ProtocolConfig
 
@@ -70,8 +71,9 @@ class ProximityClient:
         ``inject``: three (u, e0, e1) numpy triples, one per message."""
         cfg, ctx = self.cfg, self.ctx
         values = (cfg.xa * cfg.xa + cfg.ya * cfg.ya, cfg.xa << 1, cfg.ya << 1)
-        pairs = [Plaintext(uint64_to_hex_string(v), n=ctx.n).pair_u32(ctx.n)
-                 for v in values]
+        with span("bfv.plain_encode", count=len(values)):
+            pairs = [Plaintext(uint64_to_hex_string(v), n=ctx.n).pair_u32(ctx.n)
+                     for v in values]
         m_lo = np.stack([p[0] for p in pairs])
         m_hi = np.stack([p[1] for p in pairs])
         ct = stages.encrypt_batch(ctx, self.pk, m_lo, m_hi, self.generator, inject)
@@ -89,15 +91,17 @@ class ProximityClient:
                                           index_mode=self.cfg.bf_index_mode, device="cpu")
 
     def receive_blind_distance(self, blob: bytes) -> bool:
-        ct = load_ciphertext(blob, self.ctx)
-        residues = stages.ct_value(self.ctx, self.sk, ct).cpu().numpy()
-        plain = Plaintext(self.ctx.decode_plain_from_ct_value(residues))
-        # The blind distance is the constant coefficient; nonzero higher
-        # coefficients mean the noise budget was exhausted (flagged).
-        self.decrypt_consistent = plain.significant_coeff_count() <= 1
-        self.blind_distance = int(plain.coeffs[0]) if plain.coeffs else 0
+        with span("roles.decrypt"):
+            ct = load_ciphertext(blob, self.ctx)
+            residues = stages.ct_value(self.ctx, self.sk, ct).cpu().numpy()
+            plain = Plaintext(self.ctx.decode_plain_from_ct_value(residues))
+            # The blind distance is the constant coefficient; nonzero higher
+            # coefficients mean the noise budget was exhausted (flagged).
+            self.decrypt_consistent = plain.significant_coeff_count() <= 1
+            self.blind_distance = int(plain.coeffs[0]) if plain.coeffs else 0
         key = pack_key(self.blind_distance, self.w, get_bitlen(self.w))
-        self.is_near = self.bf.contains_u64(key)
+        with span("roles.probe"):
+            self.is_near = self.bf.contains_u64(key)
         return self.is_near
 
 
@@ -166,7 +170,11 @@ class ProximityServer:
         self.bf.insert_blind_distances(self.blinding, cfg.sq_radius)
 
     def bf_message(self) -> bytes:
-        return b"".join((struct.pack("<Q", self.blinding.w), *self.bf.serialized_parts()))
+        parts = (struct.pack("<Q", self.blinding.w), *self.bf.serialized_parts())
+        with span("roles.bf_join") as rec:
+            message = b"".join(parts)
+            rec.set(bytes=len(message))
+        return message
 
     def bf_message_size(self) -> int:
         return 8 + self.bf.compute_serialization_size()
