@@ -74,8 +74,11 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
                t = 2^20, s = 501, r = 99, w = 0xA5A5, a filter of r^2 keys at
                fpp 1e-4, half the points near). Every result must equal the
                host oracle (clear blind distance -> key -> probe) with no false
-               negatives, the device decode must equal the host CRT decode on
-               two rows, and the NTT kernel must have been launched; the
+               negatives, every decoded blind distance and verdict of the
+               fused route (``ops.pipeline_cuda``) must equal the plain torch
+               chain's, the device decode must equal the host CRT decode on
+               two rows, and the step must have made the fused route's
+               launches (two forward, one inverse, combine, decode); the
                step's CUDA-event time (median of windows), its split
                (homomorphic evaluation / decode / probe), checks/s, peak
                memory, and the device's busy share and largest kernels
@@ -383,11 +386,12 @@ def phase_device():
 
 def phase_build():
     from pplp_tpu_torch.ops import (behz64_cuda, behz_cuda, bloom_cuda, cuda_build, dgk_cuda,
-                                    mulmod_chain, ntt_cuda)
+                                    mulmod_chain, ntt_cuda, pipeline_cuda)
 
     t0 = time.perf_counter()
     paths = cuda_build.build(sorted(cuda_build.CSRC.glob("*.cu")))
-    for mod in (ntt_cuda, behz_cuda, behz64_cuda, mulmod_chain, dgk_cuda, bloom_cuda):
+    for mod in (ntt_cuda, behz_cuda, behz64_cuda, mulmod_chain, dgk_cuda, bloom_cuda,
+                pipeline_cuda):
         mod.load()
     log(f"[build] {len(paths)} libraries in {time.perf_counter() - t0:.2f} s: "
         + ", ".join(p.name for p in paths.values()))
@@ -1712,7 +1716,7 @@ def phase_pipeline(dev):
     from pplp_tpu_torch import bfv
     from pplp_tpu_torch.bfv.rns_decrypt import get_decoder
     from pplp_tpu_torch.measure_multiply import profile_phases
-    from pplp_tpu_torch.ops import bloom_cuda, ntt_cuda
+    from pplp_tpu_torch.ops import bloom_cuda, ntt_cuda, pipeline_cuda
     from pplp_tpu_torch.parallel import pipeline
 
     card = torch.cuda.get_device_name(dev)
@@ -1743,16 +1747,21 @@ def phase_pipeline(dev):
     log(f"[pipeline] n={ctx.n} L={ctx.L} t=2^{PIPE_T_BITS} rows={PIPE_ROWS} "
         f"checks={total}; BF {bf.table_size} bits, {bf.salt_count} hashes")
 
-    # The counted run.
+    # The counted run, on the fused route: the six polynomials in two
+    # forward launches (c0 and c1 of the three messages lie back to back),
+    # one combine, one inverse, one decode.
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     ntt_cuda.reset_launches()
+    pipeline_cuda.reset_launches()
     got = fn(*cts, bits, salts, bf.table_size)
     torch.cuda.synchronize()
     launches = dict(ntt_cuda.launches_by_kernel)
+    fused = {k: v for k, v in {**launches, **pipeline_cuda.launches_by_kernel}.items() if v}
     bf_launches = dict(bloom_cuda.launches_by_kernel)
     peak = torch.cuda.max_memory_allocated(dev)
-    assert all(launches[k] > 0 for k in PROFILE_NTT["tpu"]), f"NTT launches {launches}"
+    assert fused == {"ntt_forward_u32": 2, "ntt_inverse_u32": 1, "pipe_combine": 1,
+                     "pipe_decode": 1}, f"fused route launches {fused}"
     want = _bloom_launches([(PIPE_R * PIPE_R, 1e-4)], probes=1)
     assert bf_launches == want, f"Bloom launches {bf_launches}, planned {want}"
     _bloom_counted(bf_launches)
@@ -1770,19 +1779,30 @@ def phase_pipeline(dev):
     truly_near = d2 < PIPE_R**2
     assert bool(flat[truly_near].all()), "a near check came out far"
 
+    # Every decoded blind distance of the fused route against the plain
+    # torch chain's (the verdicts alone would hide a decode fault in a far
+    # check), and the verdicts of both.
+    packed = pipeline.build_packed_pipeline(ctx, sk, PIPE_XB, PIPE_YB, PIPE_S, PIPE_R)
+    bd_fused, bd_plain = packed(*cts), packed.plain(*cts)
+    bd_differ = int((bd_fused != bd_plain).sum())
+    assert bd_differ == 0, f"{bd_differ} of {total} blind distances differ from the plain chain"
+    assert torch.equal(got, fn.plain(*cts, bits, salts, bf.table_size))
     hom = pipeline.build_batched_pipeline(ctx, sk, PIPE_XB, PIPE_YB, PIPE_S, PIPE_R,
                                           packed=True)
     decode = get_decoder(ctx).decode_mod_t
     x = hom(*cts)
+    assert torch.equal(x, hom.plain(*cts)), "the fused x differs from the plain chain's"
     bd = decode(x)
+    assert torch.equal(bd, bd_plain)
     assert torch.equal(bd.reshape(-1), torch.as_tensor(bd_clear, device=dev))
     for r in (0, PIPE_ROWS - 1):
         assert ctx.decode_plain_from_ct_value(x[r].cpu().numpy()) == bd[r].tolist(), (
             f"device decode differs from the host CRT decode on row {r}")
     n_near = int(flat.sum())
     log(f"[pipeline] all {total} checks equal the host oracle ({n_near} near, "
-        f"{int(truly_near.sum())} truly near, no false negatives); device decode == "
-        f"host CRT decode on rows 0 and {PIPE_ROWS - 1}; launches {launches}, {bf_launches}")
+        f"{int(truly_near.sum())} truly near, no false negatives); all {total} fused "
+        f"blind distances == the plain chain's; device decode == host CRT decode on rows 0 "
+        f"and {PIPE_ROWS - 1}; launches {fused}, {bf_launches}")
 
     t_step = _median_ms(lambda: fn(*cts, bits, salts, bf.table_size))
     t_hom = _median_ms(lambda: hom(*cts))

@@ -11,6 +11,11 @@ in place of the host CRT composition, for t < 2^30:
 gamma is a prime near 2^29, far above 2L, which makes the correction exact
 for any decryptable ciphertext. Both residue profiles.
 
+``decode_mod_t`` sends CUDA residues of an m31 chain to one launch of the
+hand-written kernel (``ops.pipeline_cuda.decode``, u32 or int64 in) and
+everything else to ``decode_mod_t_plain``, the torch chain below, which the
+kernel matches bit for bit.
+
 int64 bounds: every term is reduced to [0, m) before its product, so each
 product y_i c_m[i] < 2^60 is exact, and each is reduced again before the
 sum over the limbs, which then stays below L 2^30.
@@ -22,6 +27,7 @@ import functools
 
 import torch
 
+from ..ops import cuda_build, pipeline_cuda
 from ..ops.modmath import as_int64_bits
 from ..ops.primes import is_prime
 from .context import BFVContext
@@ -57,20 +63,32 @@ class RnsDecoder:
                                      for v, qi in zip(vals, qm)]))
 
         # Conversion constants folded with -q^-1 per target.
-        def conv_col(m):
+        def conv(m):
             neg_qinv = pow(-q, -1, m)
-            return col([((q // qi) * neg_qinv) % m for qi in qm])
+            return [((q // qi) * neg_qinv) % m for qi in qm]
 
-        self.c_t = conv_col(t)
-        self.c_g = conv_col(gamma)
+        c_t, c_g = conv(t), conv(gamma)
+        self.c_t, self.c_g = col(c_t), col(c_g)
         self.inv_gamma = pow(gamma % t, -1, t)
+        # The kernel's limb table and scalars (m31 only: u32 words).
+        self.kernel_constants = None
+        if ctx.tables.profile == "m31":
+            limbs, scalars = pipeline_cuda.decode_constants(qm, t, gamma, vals, c_t, c_g)
+            self.kernel_constants = (cuda_build.u32_buffer(limbs, ctx.device), scalars)
 
     def _accum_mod(self, y: torch.Tensor, conv: torch.Tensor, m: int) -> torch.Tensor:
         """sum_i y[..., i, :] conv[i] mod m -> [..., n]."""
         return (((y % m) * conv) % m).sum(dim=-2) % m
 
     def decode_mod_t(self, x: torch.Tensor) -> torch.Tensor:
-        """x: [..., L, n] residues of (c0 + c1 s) mod q -> m mod t [..., n]."""
+        """x: [..., L, n] residues of (c0 + c1 s) mod q -> m mod t [..., n],
+        int64; on the fused route x may also be u32 (int32 bits)."""
+        if pipeline_cuda.route(x, self.ctx.tables) == "fused":
+            return pipeline_cuda.decode(x, *self.kernel_constants)
+        return self.decode_mod_t_plain(x)
+
+    def decode_mod_t_plain(self, x: torch.Tensor) -> torch.Tensor:
+        """``decode_mod_t`` in plain torch on int64 residues, on any device."""
         ctx = self.ctx
         t, gamma = ctx.t, self.gamma
         y = ctx.prof.mulmod_shoup(x, *self.ymul, ctx.q2)

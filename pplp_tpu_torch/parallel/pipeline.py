@@ -13,12 +13,17 @@ then, packed, the device BEHZ decode (``bfv.rns_decrypt``), the blinded key
 int64 residue tensors on the context's device.
 
 All of it is exact ring arithmetic and the NTT is a ring isomorphism, so
-the step transforms the six ciphertext polynomials in one forward NTT,
-combines them with the plaintext spectra and the secret key in the NTT
-domain, and returns through one inverse NTT: the same residues as the
-reference's op-by-op chain, bit for bit. ``make_packed_inputs`` encrypts
-the three messages of every query in one batched encryption (one NTT launch
-per direction).
+the step transforms the six ciphertext polynomials forward, combines them
+with the plaintext spectra and the secret key in the NTT domain, and
+returns through one inverse NTT: the same residues as the reference's
+op-by-op chain, bit for bit. The plain step does it in torch (one stacked
+forward NTT); it is the CPU, m62 and sharded path and every builder's
+``.plain``. CUDA residues of an m31 chain outside a mesh take the fused
+route of ``ops.pipeline_cuda``: the forward transforms write u32 spectra
+straight from the int64 ciphertexts, one kernel combines them (with z and
+s*r added as their spectra), and after the u32 inverse one kernel decodes.
+``make_packed_inputs`` encrypts the three messages of every query in one
+batched encryption (one NTT launch per direction).
 
 Sharded (``mesh=``, counterpart of the reference's step under ``jax.jit``
 with ``ct_sharding``): every op of the step is limb-local, so on a dp x limb
@@ -38,7 +43,7 @@ import torch
 from ..bfv import Evaluator, Plaintext
 from ..bfv.encryptor import Encryptor
 from ..bfv.rns_decrypt import get_decoder
-from ..ops import ntt
+from ..ops import ntt, pipeline_cuda
 from ..ops.modmath import M32
 from ..primitives.blinding import blinded_keys
 from ..primitives.bloom import BloomFilter, BloomParameters, probe
@@ -55,6 +60,7 @@ __all__ = [
     "bf_probe",
     "build_pipeline_filter",
     "make_batch_inputs",
+    "step_constants",
     "make_packed_inputs",
 ]
 
@@ -74,23 +80,29 @@ def _plain_pairs(ctx, value: int, full: bool = False):
     return Plaintext(uint64_to_hex_string(value % ctx.t), n=ctx.n).pair_u32(ctx.n)
 
 
-def build_batched_pipeline(ctx, sk, xb: int, yb: int, s_blind: int, r_blind: int,
-                           packed: bool = False, mesh=None):
-    """Returns fn(c1_polys, c2_polys, c3_polys) -> residues [B, L, n] of the
-    decrypted blind distance, x = c0 + c1 s.
-
-    Ciphertext arguments are the (c0, c1) pairs of coefficient-domain
-    ciphertexts with [B, L, n] polynomials. packed=True makes the additive
-    terms (z, s*r) reach every coefficient slot. With ``mesh``, the
-    arguments and the result are this rank's blocks (``mesh.shard``)."""
-    p, q2, tb = ctx.prof, ctx.q2, ctx.tables
+def step_constants(ctx, xb: int, yb: int, s_blind: int, r_blind: int, packed: bool):
+    """The step's plaintext terms: z = xb^2 + yb^2 and s r scaled into R_q
+    ([L, n] coefficients, in every slot when ``packed``), and the spectra of
+    xb, yb and s with their Shoup companions ([3, L, n] each)."""
     z = ctx.scale_plain(*_plain_pairs(ctx, xb * xb + yb * yb, full=packed))
     sr = ctx.scale_plain(*_plain_pairs(ctx, s_blind * r_blind, full=packed))
     pairs = [_plain_pairs(ctx, v) for v in (xb, yb, s_blind)]
     m_ntt, m_shoup = Evaluator(ctx).plain_spectrum(
         (np.stack([a for a, _ in pairs]), np.stack([b for _, b in pairs])))
+    return z, sr, m_ntt, m_shoup
+
+
+def _step_parts(ctx, sk, xb: int, yb: int, s_blind: int, r_blind: int, packed: bool, mesh):
+    """(the plain step, the fused ``pipeline_cuda.Combine`` or None): the
+    fused one exists where its route can run, on an m31 chain's card
+    tables outside a mesh."""
+    p, q2, tb = ctx.prof, ctx.q2, ctx.tables
+    z, sr, m_ntt, m_shoup = step_constants(ctx, xb, yb, s_blind, r_blind, packed)
     if mesh is not None:
-        return _sharded_step(ctx, sk, z, sr, m_ntt, m_shoup, mesh)
+        return _sharded_step(ctx, sk, z, sr, m_ntt, m_shoup, mesh), None
+    fused = None
+    if pipeline_cuda.route(tb.q, tb) == "fused":
+        fused = pipeline_cuda.Combine(tb, z, sr, m_ntt, m_shoup, sk.s_ntt, sk.s_shoup)
 
     def times(x, i):  # x * (xb, yb, s)[i] in the NTT domain
         return p.mulmod_shoup(x, m_ntt[i], m_shoup[i], q2)
@@ -105,6 +117,29 @@ def build_batched_pipeline(ctx, sk, xb: int, yb: int, s_blind: int, r_blind: int
                     p.mulmod_shoup(times(acc1, 2), sk.s_ntt, sk.s_shoup, q2), q2)
         return p.add(ntt.inverse(val, tb), sr, q2)
 
+    return step, fused
+
+
+def build_batched_pipeline(ctx, sk, xb: int, yb: int, s_blind: int, r_blind: int,
+                           packed: bool = False, mesh=None):
+    """Returns fn(c1_polys, c2_polys, c3_polys) -> residues [B, L, n] of the
+    decrypted blind distance, x = c0 + c1 s.
+
+    Ciphertext arguments are the (c0, c1) pairs of coefficient-domain
+    ciphertexts with [B, L, n] polynomials. packed=True makes the additive
+    terms (z, s*r) reach every coefficient slot. With ``mesh``, the
+    arguments and the result are this rank's blocks (``mesh.shard``).
+    CUDA residues of an m31 chain outside a mesh take the fused route
+    (``ops.pipeline_cuda``); ``fn.plain`` is the torch chain, bit for bit
+    the same, on any device."""
+    plain, fused = _step_parts(ctx, sk, xb, yb, s_blind, r_blind, packed, mesh)
+
+    def step(c1_polys, c2_polys, c3_polys):
+        if fused is not None and pipeline_cuda.route(c1_polys[0], ctx.tables) == "fused":
+            return fused(c1_polys, c2_polys, c3_polys, wide=True)
+        return plain(c1_polys, c2_polys, c3_polys)
+
+    step.plain = plain
     return step
 
 
@@ -146,20 +181,33 @@ def build_packed_pipeline(ctx, sk, xb: int, yb: int, s_blind: int, r_blind: int,
     coefficient-wise, so one [B, L, n] ciphertext batch evaluates B*n
     independent checks. Returns fn(c1, c2, c3 polys) -> blind distances
     [B, n] mod t (device decode; requires t < 2^30). With ``mesh`` (no
-    ``limb`` axis: the decode reads every limb), blocks in and out."""
+    ``limb`` axis: the decode reads every limb), blocks in and out. The
+    spans ``pipeline.evaluate`` and ``pipeline.decode`` carry the route
+    (``ops.pipeline_cuda.route``): "fused" keeps x in u32 between the
+    inverse transform and the decode kernel. ``fn.plain`` is the torch
+    chain."""
     if mesh is not None and mesh.size("limb") != 1:
         raise ValueError("the packed step decodes every limb of a coefficient: "
                          "shard it over dp and coeff only")
-    step = build_batched_pipeline(ctx, sk, xb, yb, s_blind, r_blind, packed=True,
-                                  mesh=mesh)
+    plain, fused = _step_parts(ctx, sk, xb, yb, s_blind, r_blind, True, mesh)
     decoder = get_decoder(ctx)
 
     def packed(c1_polys, c2_polys, c3_polys):
-        with span("pipeline.evaluate"):
-            x = step(c1_polys, c2_polys, c3_polys)
-        with span("pipeline.decode"):
-            return decoder.decode_mod_t(x)
+        route = "plain" if fused is None else pipeline_cuda.route(c1_polys[0], ctx.tables)
+        with span("pipeline.evaluate", route=route):
+            if route == "fused":
+                x = fused(c1_polys, c2_polys, c3_polys, wide=False)
+            else:
+                x = plain(c1_polys, c2_polys, c3_polys)
+        with span("pipeline.decode", route=route):
+            if route == "fused":  # u32 x: the kernel
+                return pipeline_cuda.decode(x, *decoder.kernel_constants)
+            return decoder.decode_mod_t_plain(x)  # a sharded block stays plain too
 
+    def packed_plain(c1_polys, c2_polys, c3_polys):
+        return decoder.decode_mod_t_plain(plain(c1_polys, c2_polys, c3_polys))
+
+    packed.plain = packed_plain
     return packed
 
 
@@ -208,14 +256,19 @@ def build_packed_pipeline_bf(ctx, sk, xb: int, yb: int, s_blind: int, r_blind: i
         raise ValueError(f"w_len must be in (0, 32), got {w_len}")
     step = build_packed_pipeline(ctx, sk, xb, yb, s_blind, r_blind, mesh=mesh)
 
-    def fn(c1_polys, c2_polys, c3_polys, table, salts, table_size):
-        with span("pipeline.step") as rec:
-            bd = step(c1_polys, c2_polys, c3_polys)
-            with span("pipeline.probe"):
-                near = bf_probe(bd, w, w_len, table, salts, table_size, mixed)
-            rec.set(checks=near.numel())
-            return near if mesh is None else gather(near, mesh, ("dp", "coeff"))
+    def run(step):
+        def fn(c1_polys, c2_polys, c3_polys, table, salts, table_size):
+            with span("pipeline.step") as rec:
+                bd = step(c1_polys, c2_polys, c3_polys)
+                with span("pipeline.probe"):
+                    near = bf_probe(bd, w, w_len, table, salts, table_size, mixed)
+                rec.set(checks=near.numel())
+                return near if mesh is None else gather(near, mesh, ("dp", "coeff"))
 
+        return fn
+
+    fn = run(step)
+    fn.plain = run(step.plain)
     return fn
 
 

@@ -11,7 +11,7 @@ import re
 import pytest
 
 from pplp_tpu_torch.ops import (behz64_cuda, behz_cuda, bloom_cuda, dgk_cuda, mulmod_chain,
-                                ntt_cuda)
+                                ntt_cuda, pipeline_cuda)
 
 _ENTRY = re.compile(r"^[\w \*]*?\b(pplp_\w+)\(([^)]*)\)\s*\{", re.M)
 
@@ -42,7 +42,7 @@ def _entry_points(source) -> dict:
 
 
 @pytest.mark.parametrize("wrapper", [ntt_cuda, behz_cuda, behz64_cuda, mulmod_chain, dgk_cuda,
-                                     bloom_cuda],
+                                     bloom_cuda, pipeline_cuda],
                          ids=lambda m: m.__name__.rsplit(".", 1)[-1])
 def test_argtypes_match_the_c_entry_points(wrapper):
     lib = _Library()

@@ -31,7 +31,9 @@ import torch
 from pplp_tpu_torch import bfv
 from pplp_tpu_torch.bfv import behz, behz_fused
 from pplp_tpu_torch.bfv.behz_fused import FusedMultiplier
-from pplp_tpu_torch.ops import behz64_cuda, behz_cuda, bloom_cuda, mulmod_chain, ntt, ntt_cuda
+from pplp_tpu_torch.bfv.rns_decrypt import get_decoder
+from pplp_tpu_torch.ops import (behz64_cuda, behz_cuda, bloom_cuda, mulmod_chain, ntt, ntt_cuda,
+                                pipeline_cuda)
 from pplp_tpu_torch.ops.modmath import m31
 from pplp_tpu_torch.ops.primes import Modulus, bfv_default, get_primes, tpu_default
 
@@ -283,10 +285,15 @@ def test_packed_pipeline_on_card(dev):
     fn = pipeline.build_packed_pipeline_bf(ctx, sk, xb, yb, s_blind, r_blind, w,
                                            w.bit_length())
     ntt_cuda.reset_launches()
+    pipeline_cuda.reset_launches()
     got = fn(*cts, bf.bits_device, bf._salts_device(), bf.table_size)
     torch.cuda.synchronize()
-    assert ntt_cuda.launches_by_kernel["ntt_forward"] == 1
-    assert ntt_cuda.launches_by_kernel["ntt_inverse"] == 1
+    # The fused route: the six polynomials in two runs (c0 and c1 of the
+    # three messages each lie back to back), one combine, one inverse, one decode.
+    launched = {k: v for k, v in {**ntt_cuda.launches_by_kernel,
+                                  **pipeline_cuda.launches_by_kernel}.items() if v}
+    assert launched == {"ntt_forward_u32": 2, "ntt_inverse_u32": 1, "pipe_combine": 1,
+                        "pipe_decode": 1}
     d2 = (xa.astype(np.int64) - xb) ** 2 + (ya.astype(np.int64) - yb) ** 2
     bd_clear = (s_blind * (d2 + r_blind)) % t
     keys = (bd_clear.astype(np.uint64) << np.uint64(w.bit_length())) | np.uint64(w)
@@ -300,6 +307,127 @@ def test_packed_pipeline_on_card(dev):
     assert torch.equal(dec.reshape(-1), bd)
     for r in range(2):
         assert ctx.decode_plain_from_ct_value(x[r].cpu().numpy()) == dec[r].tolist()
+
+
+# (xb, yb, s, r): the pipeline's own, and values at the ends of [0, t).
+FUSED_BLINDINGS = {"ciphertexts": (1000, 900, 501, 99),
+                   "edges": ((1 << 20) - 1, 0, (1 << 20) - 1, (1 << 20) - 2)}
+
+
+@pytest.fixture(scope="module")
+def pipe_env():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    ctx = bfv.BFVContext.build(bfv.EncryptionParameters.bfv(4096, 1 << 20, profile="tpu"), dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    kg = bfv.KeyGenerator(ctx, g)
+    sk, pk = kg.secret_key(), kg.create_public_key()
+    from pplp_tpu_torch.parallel import pipeline
+
+    bf = pipeline.build_pipeline_filter(1 << 20, 501, 99, 0xA5A5, dev)
+    return dict(ctx=ctx, sk=sk, enc=bfv.Encryptor(ctx, pk), gen=g, bf=bf)
+
+
+def _fused_inputs(env, rows, kind):
+    """make_packed_inputs' ciphertexts (c0 and c1 of the three messages back
+    to back: two forward launches), or six separate tensors of 0 and q - 1
+    (six launches)."""
+    from pplp_tpu_torch.parallel import pipeline
+
+    ctx = env["ctx"]
+    if kind == "ciphertexts":
+        rng = np.random.default_rng(rows)
+        xa = rng.integers(900, 1100, rows * ctx.n).astype(np.uint64)
+        ya = rng.integers(800, 1000, rows * ctx.n).astype(np.uint64)
+        return pipeline.make_packed_inputs(ctx, env["enc"], xa, ya, env["gen"]), 2
+    pos = torch.arange(rows * ctx.L * ctx.n, device=ctx.device).reshape(rows, ctx.L, ctx.n)
+    e = [torch.where(pos % (i + 2) == 0, ctx.q2 - 1, 0) for i in range(6)]
+    return [(e[0], e[1]), (e[2], e[3]), (e[4], e[5])], 6
+
+
+@pytest.mark.parametrize("kind", ["ciphertexts", "edges"])
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "unpacked"])
+@pytest.mark.parametrize("rows", [1, 3, 250])
+def test_fused_step_matches_plain(pipe_env, rows, packed, kind):
+    """The fused route (forward_u32 from the int64 ciphertexts, pipe_combine,
+    the inverse, pipe_decode) against the plain torch chain on the same CUDA
+    inputs: x, the decoded blind distances and the verdicts, bit for bit,
+    with the exact launches of the route."""
+    from pplp_tpu_torch.parallel import pipeline
+
+    ctx, sk, bf = pipe_env["ctx"], pipe_env["sk"], pipe_env["bf"]
+    values = FUSED_BLINDINGS[kind]
+    cts, forwards = _fused_inputs(pipe_env, rows, kind)
+    step = pipeline.build_batched_pipeline(ctx, sk, *values, packed=packed)
+    ntt_cuda.reset_launches()
+    pipeline_cuda.reset_launches()
+    x = step(*cts)
+    torch.cuda.synchronize()
+    assert dict(pipeline_cuda.launches_by_kernel) == {"pipe_combine": 1, "pipe_decode": 0}
+    assert ntt_cuda.launches_by_kernel["ntt_forward_u32"] == forwards
+    assert ntt_cuda.launches_by_kernel["ntt_inverse"] == 1
+    assert x.dtype == torch.int64 and torch.equal(x, step.plain(*cts))
+    dec = get_decoder(ctx)
+    bd_plain = dec.decode_mod_t_plain(x)
+    assert torch.equal(dec.decode_mod_t(x), bd_plain)
+    assert torch.equal(dec.decode_mod_t(x.to(torch.int32)), bd_plain)
+    if not packed:
+        return
+    packed_fn = pipeline.build_packed_pipeline(ctx, sk, *values)
+    assert torch.equal(packed_fn(*cts), bd_plain)
+    assert torch.equal(packed_fn.plain(*cts), bd_plain)
+    fn = pipeline.build_packed_pipeline_bf(ctx, sk, *values, 0xA5A5, 16)
+    table = (bf.bits_device, bf._salts_device(), bf.table_size)
+    assert torch.equal(fn(*cts, *table), fn.plain(*cts, *table))
+
+
+@pytest.mark.parametrize("t", [1 << 20, 65537, (1 << 29) - 3])
+def test_fused_decode_matches_plain(dev, t):
+    """pipe_decode on random and edge residues (int64 and u32 in) against
+    the plain decode, at a power-of-two t and two odd ones."""
+    ctx = bfv.BFVContext.build(bfv.EncryptionParameters.bfv(4096, t, profile="tpu"), dev)
+    x = _residues(ctx.tables, (5,), t % 1000)
+    x[0] = ctx.q2 - 1
+    x[1, :, :2048] = 0
+    dec = get_decoder(ctx)
+    want = dec.decode_mod_t_plain(x)
+    pipeline_cuda.reset_launches()
+    assert torch.equal(dec.decode_mod_t(x), want)
+    assert torch.equal(dec.decode_mod_t(x.to(torch.int32)), want)
+    assert pipeline_cuda.launches_by_kernel["pipe_decode"] == 2
+
+
+def test_m62_pipeline_takes_the_plain_route(dev):
+    """A seal (m62) chain on the card runs the plain chain: no fused launch,
+    and the spans say so."""
+    from pplp_tpu_torch.parallel import pipeline
+    from pplp_tpu_torch.utils import profiling
+
+    ctx = bfv.BFVContext.build(
+        bfv.EncryptionParameters.bfv(4096, 1 << 20, coeff_modulus=bfv_default(4096)), dev)
+    assert ctx.tables.profile == "m62"
+    g = torch.Generator(device=dev).manual_seed(5)
+    kg = bfv.KeyGenerator(ctx, g)
+    sk, pk = kg.secret_key(), kg.create_public_key()
+    rng = np.random.default_rng(2)
+    xa = rng.integers(900, 1100, ctx.n).astype(np.uint64)
+    ya = rng.integers(800, 1000, ctx.n).astype(np.uint64)
+    cts = pipeline.make_packed_inputs(ctx, bfv.Encryptor(ctx, pk), xa, ya, g)
+    fn = pipeline.build_packed_pipeline(ctx, sk, 1000, 900, 501, 99)
+    pipeline_cuda.reset_launches()
+    profiling.enable()
+    try:
+        profiling.drain()
+        bd = fn(*cts)
+        spans = profiling.drain()
+    finally:
+        profiling.disable()
+    assert {s.name: s.attrs["route"] for s in spans} == {"pipeline.evaluate": "plain",
+                                                          "pipeline.decode": "plain"}
+    assert not any(pipeline_cuda.launches_by_kernel.values())
+    d2 = (xa.astype(np.int64) - 1000) ** 2 + (ya.astype(np.int64) - 900) ** 2
+    assert (bd.reshape(-1).cpu().numpy() == (501 * (d2 + 99)) % (1 << 20)).all()
 
 
 # ---------------------------------------------------------------------------
