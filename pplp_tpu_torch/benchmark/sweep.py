@@ -10,16 +10,24 @@ with the reference's exact schemas. Both sides run on a torch device
 device: on a card its clock stops after a synchronize, so a stage is
 charged the device work it queued, and ts prints the device memory of each radius (its peak, and what is still
 held once the radius's server is gone).
+
+``run_client`` and ``run_server`` are one session of either variant, the
+one implementation of a tc/ts session. The server may be given its blinding
+and the client its key seed (``ProtocolConfig.seed``), so that a session can
+be held against a reference; the client hands back the w || filter frame as
+it came off the socket.
 """
 
 from __future__ import annotations
 
 import os
 import struct
+from typing import NamedTuple
 
 import torch
 
 from ..bfv.serialize import load_public_key, save_public_key
+from ..primitives import Blinding
 from ..protocol.config import ProtocolConfig
 from ..protocol.demo import run_local_demo
 from ..protocol.roles import ProximityClient, ProximityServer, send_bf
@@ -37,6 +45,9 @@ from .harness import (
 
 __all__ = [
     "RADIUS_SWEEP",
+    "ClientSession",
+    "run_client",
+    "run_server",
     "test_client_leg",
     "test_client_opt",
     "test_server_leg",
@@ -79,7 +90,18 @@ def _client_cfg(radius, xa, ya, d_bits, b_bits, profile):
     )
 
 
-def _run_client(chan: Channel, cfg: ProtocolConfig, send_pk: bool, device):
+class ClientSession(NamedTuple):
+    """What one client session gives: its traffic and stage durations, the
+    client (its verdict and blind distance), and the w || filter frame as
+    read off the socket: (128-byte header, payload)."""
+    traffic: TrafficLoad
+    durations: DurationClient
+    client: ProximityClient
+    bf_frame: tuple[bytes, bytes]
+
+
+def run_client(chan: Channel, cfg: ProtocolConfig, send_pk: bool, device) -> ClientSession:
+    """One client session: leg (``send_pk``) or opt."""
     st, dev = StageTimer(), torch.device(device)
     with st.stage("setParms", block_on=dev):
         client = ProximityClient(cfg, device)
@@ -100,9 +122,9 @@ def _run_client(chan: Channel, cfg: ProtocolConfig, send_pk: bool, device):
     with st.stage("sendCip", block_on=dev):
         c_sendCips = sum(chan.send_frame(b) for b in blobs)
     with st.stage("recvBF", block_on=dev):
-        bf_blob = chan.recv_frame()
-        client.receive_bf(bf_blob)
-    c_recvBF = len(bf_blob)
+        bf_frame = chan.recv_frame_with_header()
+        client.receive_bf(bf_frame[1])
+    c_recvBF = len(bf_frame[1])
     with st.stage("recvBD", block_on=dev):
         bd_blob = chan.recv_frame()
     c_recvBD = len(bd_blob)
@@ -148,24 +170,27 @@ def _run_client(chan: Channel, cfg: ProtocolConfig, send_pk: bool, device):
         c_totalRecv=c_totalRecv,
         c_total=c_totalSend + c_totalRecv,
     )
-    return traffic, dur, client
+    return ClientSession(traffic, dur, client, bf_frame)
 
 
 def test_client_leg(chan, radius, xa, ya, d_bits, b_bits, profile="seal", *, device):
     cfg = _client_cfg(radius, xa, ya, d_bits, b_bits, profile)
-    t, d, _ = _run_client(chan, cfg, send_pk=True, device=device)
+    t, d, *_ = run_client(chan, cfg, send_pk=True, device=device)
     return t, d
 
 
 def test_client_opt(chan, radius, xa, ya, d_bits, b_bits, profile="seal", *, device):
     cfg = _client_cfg(radius, xa, ya, d_bits, b_bits, profile)
-    t, d, _ = _run_client(chan, cfg, send_pk=False, device=device)
+    t, d, *_ = run_client(chan, cfg, send_pk=False, device=device)
     return t, d
 
 
-def _run_server(chan: Channel, cfg: ProtocolConfig, recv_pk: bool, device):
+def run_server(chan: Channel, cfg: ProtocolConfig, recv_pk: bool, device,
+               blinding: Blinding | None = None) -> DurationServer:
+    """One server session: leg (``recv_pk``) or opt; ``blinding`` as
+    ``ProximityServer`` takes it (None draws it)."""
     st, dev = StageTimer(), torch.device(device)
-    server = ProximityServer(cfg, device)
+    server = ProximityServer(cfg, device, blinding=blinding)
     with st.stage("recvParms", block_on=dev):
         parms_blob = chan.recv_frame()
     if recv_pk:
@@ -214,14 +239,14 @@ def test_server_leg(chan, radius, xb, yb, profile="seal", *, device):
     cfg = ProtocolConfig(
         xb=xb, yb=yb, radius=radius, false_positive_probability=1e-4, profile=profile
     )
-    return _run_server(chan, cfg, recv_pk=True, device=device)
+    return run_server(chan, cfg, recv_pk=True, device=device)
 
 
 def test_server_opt(chan, radius, xb, yb, profile="seal", *, device):
     cfg = ProtocolConfig(
         xb=xb, yb=yb, radius=radius, false_positive_probability=1e-4, profile=profile
     )
-    return _run_server(chan, cfg, recv_pk=False, device=device)
+    return run_server(chan, cfg, recv_pk=False, device=device)
 
 
 def _prewarm(args, role: str):

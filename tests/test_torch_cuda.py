@@ -1992,6 +1992,53 @@ def test_subslice_insert_matches_plain_and_direct(dev, case):
         assert torch.equal(words, before) and not any(bloom_cuda.launches_by_kernel.values())
 
 
+def test_client_server_session_in_two_processes(dev):
+    """The benchmark's client/server deployment at its size (seal n = 8192,
+    t = 2^56, r = 4096, fpp 1e-4): the server's filter of 16.7M keys and 13
+    salts takes the sub-slice route, and one opt session between a server
+    process on the card (``pplp_bench/entries/client_server.py``) and a
+    client here, over loopback TCP, gives the plain reference's blind
+    distance, verdict and w || filter frame, its 128-byte header included."""
+    import json
+    import types
+    from pathlib import Path
+
+    from pplp_bench.entries import client_server as cs
+    from pplp_bench.reference import bloom as ref_bloom
+    from pplp_bench.reference import frames
+    from pplp_bench.reference import proximity as ref
+    from pplp_bench.traffic import DemoTraffic
+
+    bench = Path(__file__).resolve().parents[1] / "pplp_bench"
+    config = json.loads((bench / "configs" / "cs-seal-d13.json").read_text())
+    mix = json.loads((bench / "traffic" / "cs-r4096-half-near.json").read_text())
+    radius, t = mix["radius"], 1 << config["plain_modulus_bits"]
+    salts, bits = ref_bloom.optimal_parameters(radius * radius, config["false_positive_probability"])
+    assert (salts, bits) == (13, 321668808)
+    assert bloom_cuda.insert_plan(bits, salts, radius * radius).route == "subslice"
+    session = types.SimpleNamespace(device=dev, config=config, mix=mix,
+                                    spans=types.SimpleNamespace(ranges=False, current={}))
+    state = cs.State(DemoTraffic(mix, config["plain_modulus_bits"], 2**31 + 9), None)
+    state.server = cs.Server(session)
+    tests = [state.traffic.test(i) for i in range(2)]
+    try:
+        runs = [cs.run_session(session, state, None, test, cs.WARM_TIMEOUT_S) for test in tests]
+    finally:
+        if state.chan is not None:
+            state.chan.close()
+        state.server.stop()
+    assert not state.server.proc.is_alive()
+    assert {test.near for test in tests} == {True, False}
+    for test, run in zip(tests, runs):
+        want = ref.demo_test(test, radius, t, config["false_positive_probability"],
+                             config["bf_seed"], True, dev, wire=True)
+        assert run.client.blind_distance == want["blind_distance"]
+        assert run.client.is_near == want["near"] == test.near
+        header, payload = run.bf_frame
+        assert len(payload) == 40_208_705
+        assert header + payload == frames.frame(want["wire"])
+
+
 def test_subslice_steps_and_refusals(dev):
     """Each sub-slice kernel's step on one chunk of the client/server
     filter's keys (``sub_count_cuda``, ``sub_scatter_cuda``,

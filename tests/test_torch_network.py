@@ -15,7 +15,12 @@ cases, so that the reference's m62 compile lands on another worker):
   completes and the verdict is the clear oracle's;
 * the CSVs of a port tc/ts sweep over TCP, whose headers and columns equal
   the reference's ``parse2csv_*`` output, and the CLI's ``client`` and
-  ``server`` over TCP.
+  ``server`` over TCP;
+* one opt session over loopback TCP with the server's blinding and the
+  client's key seed given (the benchmark's client/server cell): its blind
+  distance, verdict and raw filter frame against ``pplp_bench``'s plain
+  reference; the transport's timeouts and a listener kept open for the next
+  connection; the ``transport.*`` program spans.
 """
 
 import csv
@@ -35,7 +40,13 @@ from pplp_tpu_torch.benchmark import harness, sweep
 from pplp_tpu_torch.protocol import netmain
 from pplp_tpu_torch.protocol.config import ProtocolConfig
 from pplp_tpu_torch.protocol.roles import ProximityClient, ProximityServer, send_bf
+from pplp_tpu_torch.primitives import Blinding
+from pplp_tpu_torch.protocol import transport
 from pplp_tpu_torch.protocol.transport import Channel
+from pplp_tpu_torch.utils import profiling
+from pplp_bench.reference import frames as ref_frames
+from pplp_bench.reference import proximity as ref_proximity
+from pplp_bench.traffic import DemoTraffic
 
 SMALL = dict(poly_modulus_degree_bits=12, plain_modulus_bits=40, radius=32,
              false_positive_probability=1e-4, seed=1212)
@@ -115,7 +126,7 @@ def sweep_pair(profile, port_client: bool, send_pk: bool, pair):
     xa, ya, xb, yb = pair
     ckw, skw = _cfgs(profile, *pair)
     if port_client:
-        client_fn = lambda ch: sweep._run_client(  # noqa: E731
+        client_fn = lambda ch: sweep.run_client(  # noqa: E731
             ch, ProtocolConfig(**ckw), send_pk, device="cpu")
         server_fn = lambda ch: rsweep._run_server(  # noqa: E731
             ch, RProtocolConfig(**skw), send_pk)
@@ -123,10 +134,10 @@ def sweep_pair(profile, port_client: bool, send_pk: bool, pair):
     else:
         client_fn = lambda ch: rsweep._run_client(  # noqa: E731
             ch, RProtocolConfig(**ckw), send_pk)
-        server_fn = lambda ch: sweep._run_server(  # noqa: E731
+        server_fn = lambda ch: sweep.run_server(  # noqa: E731
             ch, ProtocolConfig(**skw), send_pk, device="cpu")
         classes = dict(client_cls=RChannel, server_cls=Channel)
-    (traffic, dur, client), sdur, ca, cb = run_pair(client_fn, server_fn, **classes)
+    (traffic, dur, client, *_), sdur, ca, cb = run_pair(client_fn, server_fn, **classes)
     assert client.is_near == _oracle(xa, ya, xb, yb, SMALL["radius"])
     assert traffic.c_total == traffic.c_totalSend + traffic.c_totalRecv
     assert (traffic.c_sendPk > 0) == send_pk
@@ -383,3 +394,161 @@ def test_harness_copy_writes_the_reference_files(tmp_path):
         assert ((tmp_path / f"port_{name}.csv").read_text()
                 == (tmp_path / f"ref_{name}.csv").read_text()), name
 
+
+
+# -- one opt session against the plain reference; timeouts; spans -----------
+
+# The client/server cell's deployment at a CPU size: seal, n = 4096, t = 2^40.
+CS = dict(profile="seal", poly_modulus_degree_bits=12, plain_modulus_bits=40,
+          false_positive_probability=1e-4)
+CS_MIX = {"radius": 16, "near_share": 0.5, "far_radius_factor": 4, "coordinate_span": 4096}
+
+
+def _loopback_session(server_fn, client_fn, timeout=120):
+    """server_fn(chan) on a thread behind a listener on 127.0.0.1, client_fn(chan)
+    here over TCP; (client result, server result)."""
+    listener = transport.listen("127.0.0.1", 0)
+    out, err = {}, []
+
+    def serve():
+        try:
+            out["server"] = server_fn(transport.accept(listener, timeout))
+        except Exception as e:  # reported by the assert below
+            err.append(e)
+
+    th = threading.Thread(target=serve)
+    th.start()
+    try:
+        chan = transport.connect_to_server("127.0.0.1", listener.getsockname()[1],
+                                           timeout=timeout)
+        try:
+            client = client_fn(chan)
+        finally:
+            chan.close()
+    finally:
+        th.join(timeout=300)
+        listener.close()
+    assert not th.is_alive(), "the server thread did not finish"
+    assert not err, err
+    return client, out["server"]
+
+
+@pytest.mark.parametrize("near", [True, False], ids=["near", "far"])
+@pytest.mark.parametrize("seed", [5, 2**31 + 7, 2**40 + 3])
+def test_opt_session_matches_the_plain_reference(seed, near):
+    """The opt session with the server's blinding and the client's key seed
+    given: the blind distance s(d^2 + r) mod t, the verdict, and the w ||
+    filter frame as the client read it, header included, are the plain
+    reference's (``pplp_bench/reference``)."""
+    traffic = DemoTraffic(CS_MIX, CS["plain_modulus_bits"], seed)
+    test = next(traffic.test(i) for i in range(8) if traffic.test(i).near == near)
+    radius, t = CS_MIX["radius"], 1 << CS["plain_modulus_bits"]
+    session, sdur = _loopback_session(
+        lambda ch: sweep.run_server(ch, ProtocolConfig(xb=test.xb, yb=test.yb, radius=radius, **CS),
+                                    recv_pk=False, device="cpu",
+                                    blinding=Blinding(r=test.r, s=test.s, w=test.w)),
+        lambda ch: sweep.run_client(ch, ProtocolConfig(xa=test.xa, ya=test.ya, radius=radius,
+                                                       seed=test.key_seed, **CS),
+                                    send_pk=False, device="cpu"))
+    want = ref_proximity.demo_test(test, radius, t, CS["false_positive_probability"],
+                                   ProtocolConfig.bf_seed, True, "cpu", wire=True)
+    client = session.client
+    assert client.blind_distance == want["blind_distance"] == test.s * (test.d2 + test.r) % t
+    assert client.is_near == want["near"] == near and client.decrypt_consistent
+    header, payload = session.bf_frame
+    assert header + payload == ref_frames.frame(want["wire"])
+    assert session.traffic.c_recvBF == len(payload) and sdur.d_setBF > 0
+
+
+@pytest.mark.parametrize("send_pk", [True, False], ids=["leg", "opt"])
+def test_sessions_without_blinding_keep_the_csv_columns(tmp_path, send_pk):
+    """Without a blinding or a key seed, tc's and ts's session functions give
+    the records whose CSVs have the reference's columns."""
+    ckw, skw = _cfgs("tpu", *PAIRS[0])
+    kind = "leg" if send_pk else "opt"
+    client_fn = getattr(sweep, f"test_client_{kind}")
+    server_fn = getattr(sweep, f"test_server_{kind}")
+    (traffic, dur), sdur, _, _ = run_pair(
+        lambda ch: client_fn(ch, SMALL["radius"], ckw["xa"], ckw["ya"], 12, 40, "tpu",
+                             device="cpu"),
+        lambda ch: server_fn(ch, SMALL["radius"], skw["xb"], skw["yb"], "tpu", device="cpu"))
+    for key, emit, rec, args in (
+        ("client", f"parse2csv_client_{kind}", (traffic, dur),
+         (rharness.TrafficLoad(), rharness.DurationClient())),
+        ("server", f"parse2csv_server_{kind}", (sdur,), (rharness.DurationServer(),)),
+    ):
+        getattr(harness, emit)(str(tmp_path / f"{key}.csv"), SMALL["radius"], True, *rec)
+        getattr(rharness, emit)(str(tmp_path / f"ref_{key}.csv"), SMALL["radius"], True, *args)
+        got, ref = _read_csv(tmp_path / f"{key}.csv"), _read_csv(tmp_path / f"ref_{key}.csv")
+        assert got[0] == ref[0] and len(got[1]) == len(ref[1]), key
+
+
+def _silent_sender(a, b):
+    """A frame far larger than the socket buffers, to a peer that never reads."""
+    Channel(a, timeout=0.5).send_frame(b"x" * (64 << 20))
+
+
+@pytest.mark.parametrize("wait,error", [
+    (lambda a, b: (b.close(), Channel(a, timeout=5).recv_frame()), ConnectionError),
+    (lambda a, b: Channel(a, timeout=0.5).recv_frame(), TimeoutError),
+    (_silent_sender, TimeoutError),
+    (lambda a, b: transport.accept(transport.listen("127.0.0.1", 0), 0.5), TimeoutError),
+], ids=["closed-peer", "silent-peer-recv", "silent-peer-send", "no-peer-accept"])
+def test_a_wait_raises_within_its_timeout(wait, error):
+    """A closed peer raises at once; a silent one (or none) within the
+    timeout set, rather than hanging."""
+    a, b = socket.socketpair()
+    t0 = time.monotonic()
+    try:
+        with pytest.raises(error):
+            wait(a, b)
+    finally:
+        a.close()
+        b.close()
+    assert time.monotonic() - t0 < 5
+
+
+def test_listener_takes_a_new_connection_after_a_failed_one():
+    """A server that keeps its listener accepts the next connection once a
+    session fails, and the new connection carries frames."""
+    listener = transport.listen("127.0.0.1", 0)
+    port = listener.getsockname()[1]
+    try:
+        transport.connect_to_server("127.0.0.1", port, timeout=5).close()
+        first = transport.accept(listener, 5)
+        with pytest.raises(ConnectionError, match="peer closed"):
+            first.recv_frame()
+        first.close()
+        client = transport.connect_to_server("127.0.0.1", port, timeout=5)
+        second = transport.accept(listener, 5)
+        client.send_frame(b"again")
+        assert second.recv_frame() == b"again"
+        client.close()
+        second.close()
+    finally:
+        listener.close()
+
+
+def test_frames_are_program_spans_with_their_bytes():
+    """With the recorder on, ``send_frame``, ``send_frame_stream`` (one span
+    for the stream) and ``recv_frame`` record ``transport.send_frame`` and
+    ``transport.recv_frame`` with ``bytes`` equal to each payload's length."""
+    a, b = socket.socketpair()
+    chunks = [b"w" * 8, b"", b"abc" * 1000]
+    profiling.drain()
+    profiling.enable()
+    try:
+        ca, cb = Channel(a, timeout=5), Channel(b, timeout=5)
+        ca.send_frame(b"hello")
+        ca.send_frame_stream(3008, iter(chunks))
+        assert cb.recv_frame() == b"hello"
+        assert cb.recv_frame_with_header() == (ref_frames.header(3008), b"".join(chunks))
+    finally:
+        profiling.disable()
+        a.close()
+        b.close()
+    got = [(s.name, s.attrs) for s in profiling.drain() if s.name.startswith("transport.")]
+    assert got == [("transport.send_frame", {"bytes": 5}),
+                   ("transport.send_frame", {"bytes": 3008}),
+                   ("transport.recv_frame", {"bytes": 5}),
+                   ("transport.recv_frame", {"bytes": 3008})]
