@@ -341,7 +341,13 @@ class BloomFilter:
     table (``bits_device``) are kept in step lazily: a device write marks the
     host copy stale, a host write drops the device table. ``packed`` (the
     default on a CUDA device, where it is required) keeps the device table as
-    u32 words; else it is one byte per bit."""
+    u32 words; else it is one byte per bit.
+
+    ``bit_table`` may be read-only: a view of the message that the filter
+    was read from or written into (``deserialize``, ``table_into``). A host
+    write copies it first (``_writable_table``), so such a message never
+    changes. The table crosses from a CUDA device into page-locked memory
+    from PyTorch's caching host allocator (``host_buffer``)."""
 
     def __init__(self, params: BloomParameters | None = None, *, device,
                  packed: bool | None = None):
@@ -409,6 +415,7 @@ class BloomFilter:
 
     def insert_bytes(self, data: bytes):
         self._sync_host()
+        self._writable_table()
         for bit_index in self._host_indices(data):
             self.bit_table[bit_index // 8] |= 1 << (bit_index % 8)
         self.inserted_element_count += 1
@@ -494,11 +501,35 @@ class BloomFilter:
             return self._table.view(torch.uint8)[:self.table_size // BITS_PER_CHAR]
         return pack_bits(self._table)
 
+    def host_buffer(self, nbytes: int) -> np.ndarray:
+        """``nbytes`` of host memory (uint8) for the filter's bytes: for a
+        filter on a CUDA device page-locked, from PyTorch's caching host
+        allocator, so the table's copy needs no staging and a freed block
+        serves the next message without pinning or page faults again; plain
+        memory elsewhere."""
+        return torch.empty(nbytes, dtype=torch.uint8, pin_memory=self.device.type == "cuda").numpy()
+
+    def _fetch(self, packed: torch.Tensor, out: np.ndarray):
+        """One copy of the packed table bytes ``packed`` (``_packed_device``
+        or a slice of it) into host memory ``out``."""
+        dst = torch.from_numpy(out)
+        with span("bloom.table_to_host", bytes=out.shape[0],
+                  pinned=int(packed.is_cuda and dst.is_pinned())):
+            dst.copy_(packed)
+
     def _sync_host(self):
         if self._table is not None and self._host_dirty:
-            with span("bloom.table_to_host", bytes=self.table_size // BITS_PER_CHAR):
-                self.bit_table = self._packed_device().to("cpu", copy=True).numpy()
+            host = self.host_buffer(self.table_size // BITS_PER_CHAR)
+            self._fetch(self._packed_device(), host)
+            self.bit_table = host
             self._host_dirty = False
+
+    def _writable_table(self):
+        """Make ``bit_table`` writable before a host write in place: a table
+        read in a message's place is copied first, so the message stays as
+        it was sent or received."""
+        if not self.bit_table.flags.writeable:
+            self.bit_table = self.bit_table.copy()
 
     def _compatible(self, other) -> bool:
         return (
@@ -526,6 +557,7 @@ class BloomFilter:
             self._host_dirty = True
         else:
             self._sync_host()
+            self._writable_table()
             other._sync_host()
             getattr(np, op)(self.bit_table, other.bit_table, out=self.bit_table)
             self._table = None
@@ -573,33 +605,50 @@ class BloomFilter:
         filter's size chain)."""
         return b""
 
-    def serialized_parts(self) -> tuple:
-        """``serialize()``'s bytes as buffers: the header, the host table
-        itself (no copy) and the tail. A message that holds the filter joins
-        them once (``b"".join``), instead of copying the table per part."""
-        self._sync_host()
-        return self._header_bytes(), self.bit_table, self._tail()
-
     def serialize(self) -> bytes:
-        return b"".join(self.serialized_parts())
+        self._sync_host()
+        return b"".join((self._header_bytes(), self.bit_table, self._tail()))
+
+    def frame_into(self, out: np.ndarray) -> np.ndarray:
+        """Write ``serialize()``'s header and tail into ``out`` (uint8 host
+        memory of ``compute_serialization_size()`` bytes) and return the
+        table's place in it, for ``table_into``."""
+        header, tail = self._header_bytes(), self._tail()
+        end = len(header) + self.table_size // BITS_PER_CHAR
+        out[:len(header)] = np.frombuffer(header, np.uint8)
+        out[end:] = np.frombuffer(tail, np.uint8)
+        return out[len(header):end]
+
+    def table_into(self, out: np.ndarray):
+        """Fill ``out`` (``table_size // 8`` bytes of host memory, a
+        message's table place from ``frame_into``) with the packed table:
+        one device-to-host copy when the device table is newer, else a copy
+        of the host table. ``bit_table`` then reads ``out`` in place,
+        read-only."""
+        if self._table is not None and self._host_dirty:
+            self._fetch(self._packed_device(), out)
+        else:
+            out[:] = self.bit_table
+        out.flags.writeable = False
+        self.bit_table = out
+        self._host_dirty = False
 
     def iter_serialized(self, chunk_bytes: int = 16 << 20):
         """``serialize()``'s bytes in pieces: the header, then the packed
         table in slices of ``chunk_bytes``, as memoryviews of the host table
         (send each before the filter changes), then the tail. A table changed
         on the device is copied to the host one slice at a time, each into
-        its place in a new host table (a packed table's words as they are,
-        an unpacked one packed on the device first), so a consumer (a socket)
-        can send a slice while the next one is copied; a later
-        ``serialize()`` costs no copy."""
+        its place in a new host table (``host_buffer``; a packed table's
+        words as they are, an unpacked one packed on the device first), so a
+        consumer (a socket) can send a slice while the next one is copied; a
+        later ``serialize()`` costs no copy."""
         yield self._header_bytes()
         if self._table is not None and self._host_dirty:
             packed = self._packed_device()
-            host = np.empty(packed.shape[0], np.uint8)
+            host = self.host_buffer(packed.shape[0])
             for off in range(0, host.shape[0], chunk_bytes):
                 part = host[off:off + chunk_bytes]
-                with span("bloom.table_to_host", bytes=part.shape[0]):
-                    torch.from_numpy(part).copy_(packed[off:off + chunk_bytes])
+                self._fetch(packed[off:off + chunk_bytes], part)
                 yield memoryview(part)
             self.bit_table = host
             self._host_dirty = False
@@ -612,9 +661,12 @@ class BloomFilter:
             yield tail
 
     @classmethod
-    def deserialize(cls, buf: bytes, index_mode: str = "reference", *,
+    def deserialize(cls, buf, index_mode: str = "reference", *,
                     device, packed: bool | None = None) -> "BloomFilter":
-        with span("bloom.deserialize", bytes=len(buf)):
+        """The filter that ``buf`` (any buffer: bytes, a memoryview)
+        serializes. Its ``bit_table`` reads the table in ``buf`` in place,
+        read-only (``_writable_table`` copies it before a host write)."""
+        with span("bloom.deserialize", bytes=len(buf)) as rec:
             bf = cls(device=device, packed=packed)
             bf.index_mode = index_mode
             (
@@ -628,7 +680,10 @@ class BloomFilter:
             off = _HDR.size
             bf.salts = np.frombuffer(buf, np.uint32, bf.salt_count, off).copy()
             off += 4 * bf.salt_count
-            bf.bit_table = np.frombuffer(buf, np.uint8, bf.table_size // 8, off).copy()
+            table = np.frombuffer(buf, np.uint8, bf.table_size // 8, off)
+            table.flags.writeable = False
+            bf.bit_table = table
+            rec.set(copied=0)  # the table's bytes copied: none, it is read in place
             return bf
 
     def __eq__(self, other):

@@ -86,7 +86,8 @@ class ProximityClient:
     def receive_bf(self, blob: bytes):
         (self.w,) = struct.unpack_from("<Q", blob, 0)
         # The client probes one key on the host (contains_u64), as the
-        # reference does: the filter stays on the CPU.
+        # reference does: the filter stays on the CPU and reads its table in
+        # place in ``blob``.
         self.bf = BloomFilter.deserialize(memoryview(blob)[8:],
                                           index_mode=self.cfg.bf_index_mode, device="cpu")
 
@@ -169,12 +170,22 @@ class ProximityServer:
         self.bf = BloomFilter(p, device=self.device)
         self.bf.insert_blind_distances(self.blinding, cfg.sq_radius)
 
-    def bf_message(self) -> bytes:
-        parts = (struct.pack("<Q", self.blinding.w), *self.bf.serialized_parts())
+    def bf_message(self) -> memoryview:
+        """w || filter, the reference's bytes, as a read-only memoryview of
+        one host buffer (``BloomFilter.host_buffer``: page-locked for a
+        filter on a CUDA device): w, the filter's header and tail are
+        written into it, then the table crosses once, into its place
+        (``table_into``), where the filter's host table then reads it. It
+        compares with ``bytes`` and goes to a socket or a join as it is."""
+        bf = self.bf
         with span("roles.bf_join") as rec:
-            message = b"".join(parts)
-            rec.set(bytes=len(message))
-        return message
+            message = bf.host_buffer(self.bf_message_size())
+            struct.pack_into("<Q", message, 0, self.blinding.w)
+            table = bf.frame_into(message[8:])
+            rec.set(bytes=message.shape[0])
+        bf.table_into(table)
+        message.flags.writeable = False
+        return memoryview(message)
 
     def bf_message_size(self) -> int:
         return 8 + self.bf.compute_serialization_size()

@@ -208,6 +208,58 @@ def test_compressible_filter_matches_reference(mode):
                                                 device="cpu")
 
 
+def _message(cls, mode="mixed"):
+    """A filter of ``cls`` with keys in it, and its serialized bytes as a
+    writable array (the buffer a received message would be)."""
+    bf = getattr(prim, cls)(_params(prim, 1000, 1e-3, mode), device="cpu")
+    _batch((bf,), *_keys(600, seed=11))
+    return bf, np.frombuffer(bf.serialize(), np.uint8).copy()
+
+
+@pytest.mark.parametrize("cls", ["BloomFilter", "CompressibleBloomFilter"])
+def test_deserialized_table_reads_the_message_in_place(cls):
+    """``deserialize`` reads the table where it lies in the message
+    (memoryview or bytes), read-only, and gives the serialized filter."""
+    bf, message = _message(cls)
+    for buf in (memoryview(message), message.tobytes()):
+        got = getattr(prim, cls).deserialize(buf, "mixed", device="cpu")
+        assert np.shares_memory(got.bit_table, np.frombuffer(buf, np.uint8))
+        assert not got.bit_table.flags.writeable
+        assert got == bf and got.serialize() == message.tobytes()
+
+
+def _host_write(op):
+    """The host write ``op`` as a function of a filter, on a second filter
+    for the set operators."""
+    if op == "insert_bytes":
+        return lambda f: f.insert_bytes(b"written after deserialize")
+    if op == "compress":
+        return lambda f: f.compress(30.0)
+    other = prim.BloomFilter(_params(prim, 1000, 1e-3, "mixed"), device="cpu")
+    _batch((other,), *_keys(600, seed=12))
+    return lambda f: getattr(f, op)(other)
+
+
+@pytest.mark.parametrize("cls,op", [
+    *((c, op) for c in ("BloomFilter", "CompressibleBloomFilter")
+      for op in ("insert_bytes", "__ior__", "__iand__", "__ixor__")),
+    ("CompressibleBloomFilter", "compress")])
+def test_host_write_after_deserialize_leaves_the_message(cls, op):
+    """A host write to a filter that reads its table in a message copies it
+    first: the message stays byte for byte, and the filter equals one
+    deserialized from a bytes copy, and the filter it was serialized from,
+    after the same write."""
+    bf, message = _message(cls)
+    before = message.copy()
+    write = _host_write(op)
+    in_place = getattr(prim, cls).deserialize(memoryview(message), "mixed", device="cpu")
+    copied = getattr(prim, cls).deserialize(before.tobytes(), "mixed", device="cpu")
+    for f in (in_place, copied, bf):
+        write(f)
+    assert np.array_equal(message, before)
+    assert in_place.serialize() == copied.serialize() == bf.serialize() != before.tobytes()
+
+
 @pytest.mark.parametrize("cls", ["BloomFilter", "CompressibleBloomFilter"])
 def test_filter_takes_no_default_device(cls):
     """The device is a required keyword: a filter never lands on the CPU

@@ -168,11 +168,16 @@ def test_demo_records_every_span_inside_its_stage():
         stage = stage_of(s)
         assert stage.name in DEMO_SPANS[s.name], (s.name, stage.name)
         assert stage.start_ns <= s.start_ns <= s.end_ns <= stage.end_ns
-    one = {s.name: s.attrs for s in got if s.name in ("roles.bf_join", "bloom.deserialize",
-                                                       "bloom.table_to_host")}
+    copies = [s for s in got if s.name in ("roles.bf_join", "bloom.deserialize",
+                                           "bloom.table_to_host")]
+    one = {s.name: s.attrs for s in copies}
+    assert len(copies) == len(one) == 3
+    # The message's assembly, its table's copy and the client's read are
+    # disjoint spans of the stage, none nested in another.
+    assert all(by_id[s.parent].name == "dec" for s in copies)
     assert one["roles.bf_join"] == {"bytes": res.bf_wire_bytes}
-    assert one["bloom.deserialize"] == {"bytes": res.bf_wire_bytes - 8}
-    assert one["bloom.table_to_host"] == {"bytes": res.bf_table_bits // 8}
+    assert one["bloom.deserialize"] == {"bytes": res.bf_wire_bytes - 8, "copied": 0}
+    assert one["bloom.table_to_host"] == {"bytes": res.bf_table_bits // 8, "pinned": 0}
     saved = sorted(s.attrs["bytes"] for s in got if s.name == "bfv.save_ciphertext")
     loaded = sorted(s.attrs["bytes"] for s in got if s.name == "bfv.load_ciphertext")
     assert len(saved) == 4 and saved == loaded

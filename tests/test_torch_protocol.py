@@ -16,6 +16,7 @@
 """
 
 import dataclasses
+import gc
 import os
 import subprocess
 import sys
@@ -203,6 +204,65 @@ def test_bf_message_size_and_chunks_match_reference(mode):
     assert b"".join(server.bf_message_chunks()) == want
     assert server.bf_message() == want
     assert server.bf_message_size() == rserver.bf_message_size() == len(want)
+
+
+def _servers(seed, mode="mixed"):
+    """The reference's and the port's server for one configuration, each
+    with its filter built: (the reference's w || BF, the port's server)."""
+    kw = dict(xa=1234, ya=1212, xb=1000, yb=1000, radius=40, bf_index_mode=mode,
+              **{**SMALL, "seed": seed})
+    cfg, rcfg = ProtocolConfig(**kw), RProtocolConfig(**kw)
+    parms = RClient(rcfg).parms_message()
+    rserver, server = RServer(rcfg), ProximityServer(cfg, "cpu")
+    for s in (rserver, server):
+        s.receive_parms(parms)
+        s.build_bloom_filter()
+    return rserver.bf_message(), server
+
+
+def test_bf_message_is_one_buffer_read_in_place():
+    """``bf_message`` is the reference's bytes and the joined
+    ``bf_message_chunks``, as one read-only buffer: it compares with
+    ``bytes`` to one ``bool``, joins and slices as bytes do; the server's
+    filter and the client's read their tables in its place; a host write to
+    either filter afterwards leaves it as it was."""
+    want, server = _servers(1234)
+    message = server.bf_message()
+    assert message == want and b"".join(server.bf_message_chunks()) == want
+    assert (message != want) is False and (message != want[:-1] + b"?") is True
+    assert len(message) == len(want) and b"".join([message[:8], message[8:]]) == want
+    assert memoryview(message)[8:] == want[8:] and message.readonly
+    buf = np.frombuffer(message, np.uint8)
+    assert np.shares_memory(server.bf.bit_table, buf) and not server.bf.bit_table.flags.writeable
+    client = ProximityClient(ProtocolConfig(bf_index_mode="mixed", **SMALL), "cpu")
+    client.receive_bf(message)
+    assert np.shares_memory(client.bf.bit_table, buf) and client.bf == server.bf
+    for bf in (server.bf, client.bf):
+        bf.insert_u64(0x0123456789ABCDEF)
+        assert bf.contains_u64(0x0123456789ABCDEF)
+    assert message == want and server.bf.serialize() != want[8:]
+    # A second message is written anew from the host table, the insert in it.
+    again = server.bf_message()
+    assert again == want[:8] + server.bf.serialize() and message == want
+
+
+@pytest.mark.parametrize("dropped", [0, 1])
+def test_bf_messages_alive_at_once_hold_their_own_memory(dropped):
+    """Two servers' messages alive at once lie in different memory; the one
+    kept equals its reference after the other server and its message are
+    dropped and a third server's message is made."""
+    wants, servers = zip(*(_servers(seed) for seed in (11, 12)))
+    assert wants[0] != wants[1]
+    messages = [s.bf_message() for s in servers]
+    assert not np.shares_memory(np.frombuffer(messages[0], np.uint8),
+                                np.frombuffer(messages[1], np.uint8))
+    kept = 1 - dropped
+    servers, messages = list(servers), list(messages)
+    del servers[dropped], messages[dropped]
+    gc.collect()
+    third = _servers(13)[1].bf_message()
+    assert messages[0] == wants[kept] and servers[0].bf_message() == wants[kept]
+    assert len(third) == len(wants[kept])
 
 
 def test_import_loads_no_jax():
