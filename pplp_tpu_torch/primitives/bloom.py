@@ -11,8 +11,8 @@ OR into the bit table) and the batch probe run on the filter's device:
   is one launch, an insert one launch into a table that fits in L2 and
   three a chunk of keys into a larger one). On a
   little-endian host the words' bytes are the wire's packed table, so
-  serializing copies them as they are. At r = 8192 and fpp 1e-12 the table
-  is 482.4 MB on the card;
+  serializing copies them as they are, in one copy from the card. At r =
+  8192 and fpp 1e-12 the table is 482.4 MB on the card;
 * the plain version, which a CPU filter runs, holds the table unpacked, one
   byte per bit, as the reference does: ``_indices`` (the hash as int64 torch
   ops), ``index_fill_``, a gather, and ``pack_bits`` for the wire. A CPU
@@ -346,8 +346,10 @@ class BloomFilter:
     ``bit_table`` may be read-only: a view of the message that the filter
     was read from or written into (``deserialize``, ``table_into``). A host
     write copies it first (``_writable_table``), so such a message never
-    changes. The table crosses from a CUDA device into page-locked memory
-    from PyTorch's caching host allocator (``host_buffer``)."""
+    changes. The table leaves the device by one copy (``_fetch``) into
+    page-locked memory from PyTorch's caching host allocator
+    (``host_buffer``), either into a host table of the filter's own
+    (``_sync_host``) or into its place in a message (``table_into``)."""
 
     def __init__(self, params: BloomParameters | None = None, *, device,
                  packed: bool | None = None):
@@ -510,8 +512,8 @@ class BloomFilter:
         return torch.empty(nbytes, dtype=torch.uint8, pin_memory=self.device.type == "cuda").numpy()
 
     def _fetch(self, packed: torch.Tensor, out: np.ndarray):
-        """One copy of the packed table bytes ``packed`` (``_packed_device``
-        or a slice of it) into host memory ``out``."""
+        """One copy of the packed table bytes ``packed`` (``_packed_device``)
+        into host memory ``out``."""
         dst = torch.from_numpy(out)
         with span("bloom.table_to_host", bytes=out.shape[0],
                   pinned=int(packed.is_cuda and dst.is_pinned())):
@@ -632,33 +634,6 @@ class BloomFilter:
         out.flags.writeable = False
         self.bit_table = out
         self._host_dirty = False
-
-    def iter_serialized(self, chunk_bytes: int = 16 << 20):
-        """``serialize()``'s bytes in pieces: the header, then the packed
-        table in slices of ``chunk_bytes``, as memoryviews of the host table
-        (send each before the filter changes), then the tail. A table changed
-        on the device is copied to the host one slice at a time, each into
-        its place in a new host table (``host_buffer``; a packed table's
-        words as they are, an unpacked one packed on the device first), so a
-        consumer (a socket) can send a slice while the next one is copied; a
-        later ``serialize()`` costs no copy."""
-        yield self._header_bytes()
-        if self._table is not None and self._host_dirty:
-            packed = self._packed_device()
-            host = self.host_buffer(packed.shape[0])
-            for off in range(0, host.shape[0], chunk_bytes):
-                part = host[off:off + chunk_bytes]
-                self._fetch(packed[off:off + chunk_bytes], part)
-                yield memoryview(part)
-            self.bit_table = host
-            self._host_dirty = False
-        else:
-            table = memoryview(self.bit_table)
-            for off in range(0, len(table), chunk_bytes):
-                yield table[off:off + chunk_bytes]
-        tail = self._tail()
-        if tail:
-            yield tail
 
     @classmethod
     def deserialize(cls, buf, index_mode: str = "reference", *,

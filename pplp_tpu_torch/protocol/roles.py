@@ -35,11 +35,9 @@ __all__ = ["ProximityClient", "ProximityServer", "send_bf"]
 
 
 def send_bf(chan, server) -> int:
-    """Send w || BF as one frame, streamed slice by slice from the table
-    (``Channel.send_frame_stream``): the same wire bytes as
-    ``send_frame(server.bf_message())``, without the whole message on the
-    host at once."""
-    return chan.send_frame_stream(server.bf_message_size(), server.bf_message_chunks())
+    """Send w || BF as one frame: ``server.bf_message()``, the reference's
+    bytes in one host buffer."""
+    return chan.send_frame(server.bf_message())
 
 
 class ProximityClient:
@@ -176,25 +174,17 @@ class ProximityServer:
         filter on a CUDA device): w, the filter's header and tail are
         written into it, then the table crosses once, into its place
         (``table_into``), where the filter's host table then reads it. It
-        compares with ``bytes`` and goes to a socket or a join as it is."""
+        compares with ``bytes`` and goes to a socket (``send_bf``) or a join
+        as it is."""
         bf = self.bf
         with span("roles.bf_join") as rec:
-            message = bf.host_buffer(self.bf_message_size())
+            message = bf.host_buffer(8 + bf.compute_serialization_size())
             struct.pack_into("<Q", message, 0, self.blinding.w)
             table = bf.frame_into(message[8:])
             rec.set(bytes=message.shape[0])
         bf.table_into(table)
         message.flags.writeable = False
         return memoryview(message)
-
-    def bf_message_size(self) -> int:
-        return 8 + self.bf.compute_serialization_size()
-
-    def bf_message_chunks(self):
-        """``bf_message`` in pieces (the same bytes): w, then the filter's
-        ``iter_serialized`` slices."""
-        yield struct.pack("<Q", self.blinding.w)
-        yield from self.bf.iter_serialized()
 
     def receive_ciphertexts(self, blobs: list[bytes]):
         self.c1, self.c2, self.c3 = (load_ciphertext(b, self.ctx) for b in blobs)

@@ -5,7 +5,6 @@ code only. Behavioral equivalent of the C++ reference's
 ``include/util.h:47-335``:
   * 128-byte ASCII length prefix before every framed payload
     (``bytes_to_send``/``bytes_to_receive``, util.h:51-63)
-  * chunked stream send/recv (``send_by_stream``/``recv_by_stream``)
   * ``connect_to_server`` (active open) / ``connect_to_client``
     (bind+listen+accept, SO_REUSEADDR), IPv4 and IPv6.
 
@@ -57,27 +56,6 @@ class Channel:
         n = SIZE_BUFFER + len(payload)
         self.bytes_sent += n
         return len(payload)
-
-    def send_frame_stream(self, total_len: int, chunks) -> int:
-        """Length-framed send from an iterator of byte chunks: the SAME wire
-        bytes as ``send_frame(b"".join(chunks))``, but each chunk hits the
-        socket as soon as it exists — the producer (e.g. the Bloom filter's
-        chunked device fetch, ``BloomFilter.iter_serialized``) overlaps with
-        the transfer instead of serializing fully first."""
-        header = str(total_len).encode().ljust(SIZE_BUFFER, b"\x00")
-        with span("transport.send_frame", bytes=total_len):
-            self.sock.sendall(header)
-            sent = 0
-            for chunk in chunks:
-                if chunk:
-                    self.sock.sendall(chunk)
-                    sent += len(chunk)
-        if sent != total_len:
-            raise ConnectionError(
-                f"stream length mismatch: declared {total_len}, sent {sent}"
-            )
-        self.bytes_sent += SIZE_BUFFER + sent
-        return sent
 
     # Reject absurd frame claims before allocating (the reference trusts the
     # peer's ASCII header unconditionally — util.h:58-63).

@@ -3,9 +3,9 @@
 Same keys (from a numpy seed, or from the same blinding values) go into
 ``pplp_tpu.primitives`` and ``pplp_tpu_torch.primitives``: the filters'
 bit tables and ``serialize()`` bytes are identical under both index modes
-(after batch and host inserts, clear, set algebra, streaming, and the
-compressible filter's compressions), and ``blind_distance_keys`` yields
-identical chunks. Exact comparisons.
+(after batch and host inserts, clear, set algebra, a message's frame
+filled in place, and the compressible filter's compressions), and
+``blind_distance_keys`` yields identical chunks. Exact comparisons.
 """
 
 import jax.numpy as jnp
@@ -140,18 +140,25 @@ def test_host_inserts_clear_and_fpp_match_reference(mode):
     assert not bf.bit_table.any()
 
 
-@pytest.mark.parametrize("chunk", [7, 1 << 10, 16 << 20])
-def test_iter_serialized_joins_to_serialize(chunk):
-    """The streamed bytes equal ``serialize()`` and the reference's, with
-    the table dirty on the device and again from the host copy."""
+@pytest.mark.parametrize("state", ["device", "host", "host_insert"])
+def test_table_into_matches_serialize(state):
+    """A message's frame (``frame_into``) filled by ``table_into`` and
+    ``serialize()`` give the reference's bytes, with the table dirty on the
+    device, current on the host, and after a host insert; the filter's host
+    table then reads the message in place, read-only."""
     rbf, bf = _both("BloomFilter", 2000, "mixed")
     lo, hi = _keys(1500, seed=4)
     _batch_both(rbf, bf, lo, hi)
+    if state != "device":
+        bf.serialize()
+    if state == "host_insert":
+        for f in (rbf, bf):
+            f.insert_u64(0x0123456789ABCDEF)
     want = rbf.serialize()
-    parts = list(bf.iter_serialized(chunk))
-    assert b"".join(parts) == want
-    assert all(len(p) <= max(chunk, len(parts[0])) for p in parts)
-    assert b"".join(bf.iter_serialized(chunk)) == bf.serialize() == want
+    message = bf.host_buffer(bf.compute_serialization_size())
+    bf.table_into(bf.frame_into(message))
+    assert message.tobytes() == bf.serialize() == want
+    assert np.shares_memory(bf.bit_table, message) and not bf.bit_table.flags.writeable
     assert bf.compute_serialization_size() == len(want)
 
 
@@ -188,7 +195,6 @@ def test_compressible_filter_matches_reference(mode):
     wire = rbf.serialize()
     assert bf.serialize() == wire
     assert bf.compute_serialization_size() == rbf.compute_serialization_size() == len(wire)
-    assert b"".join(bf.iter_serialized(100)) == wire
     keys = [(int(hi[i]) << 32) | int(lo[i]) for i in range(0, 900, 7)]
     probes = keys + [k ^ (1 << 40) for k in keys]
     got = bf.contains_u64_batch(torch.tensor([k & 0xFFFFFFFF for k in probes]),
@@ -278,8 +284,8 @@ def test_filter_takes_no_default_device(cls):
 # --- The word table (a packed filter) against the plain version ----------
 # On the card a filter keeps u32 words; on the CPU ``packed=True`` keeps the
 # same words and runs the plain version on them, so the word-table methods
-# (serialize, iter_serialized, deserialize, the set operators, clear,
-# compress) are held here against the unpacked plain filter.
+# (serialize, deserialize, the set operators, clear, compress) are held
+# here against the unpacked plain filter.
 
 def _pair(cls, n, mode, fpp=1e-3):
     p = _params(prim, n, fpp, mode)
@@ -295,9 +301,9 @@ def _batch(filters, lo, hi):
 
 @pytest.mark.parametrize("mode", ["reference", "mixed"])
 def test_word_table_matches_plain(mode):
-    """Batch inserts, the blinded range, host inserts, probes, serialize,
-    iter_serialized and a deserialized copy: the packed filter's words give
-    the plain filter's bytes and verdicts at every step."""
+    """Batch inserts, the blinded range, host inserts, probes, serialize
+    and a deserialized copy: the packed filter's words give the plain
+    filter's bytes and verdicts at every step."""
     packed, plain = _pair("BloomFilter", 3000, mode)
     assert packed.bits_device.dtype == torch.int32 and plain.bits_device.dtype == torch.uint8
     assert packed.bits_device.numel() == (packed.table_size + 31) // 32
@@ -307,7 +313,6 @@ def test_word_table_matches_plain(mode):
     for f in (packed, plain):
         f.insert_blind_distances(bl, 1000)
     assert packed.inserted_element_count == plain.inserted_element_count == 2500
-    assert b"".join(packed.iter_serialized(1000)) == plain.serialize()
     assert packed.serialize() == plain.serialize()
     for f in (packed, plain):
         f.insert_u64(0x0123456789ABCDEF)

@@ -1819,9 +1819,10 @@ def test_bloom_kernels_on_a_compressed_filter(dev):
 def test_bf_message_is_page_locked_and_read_in_place(dev):
     """The w || filter message of a packed filter on the card: one
     page-locked buffer that the table's one copy fills (``bloom.table_to_host``
-    records ``pinned`` = 1), with the CPU route's bytes; ``iter_serialized``'s
-    page-locked slices join to ``serialize()``; the client's ``deserialize``
-    of the message copies no table byte (``copied`` = 0)."""
+    records ``pinned`` = 1), with the CPU route's bytes; a second filter's
+    own host table (``serialize()``) is one page-locked copy too, with the
+    same bytes; the client's ``deserialize`` of the message copies no table
+    byte (``copied`` = 0)."""
     import warnings
 
     from pplp_tpu_torch.primitives import Blinding, BloomFilter
@@ -1831,16 +1832,15 @@ def test_bf_message_is_page_locked_and_read_in_place(dev):
 
     cfg = ProtocolConfig(radius=1024, false_positive_probability=1e-4)
     bl = Blinding.for_protocol(56, cfg.sq_radius, seed=24)
-    card, streamed, cpu = (ProximityServer(cfg, d, blinding=bl) for d in (dev, dev, "cpu"))
-    for s in (card, streamed, cpu):
+    card, own, cpu = (ProximityServer(cfg, d, blinding=bl) for d in (dev, dev, "cpu"))
+    for s in (card, own, cpu):
         s.build_bloom_filter()
     assert card.bf.packed and not cpu.bf.packed
     table_bytes = card.bf.table_size // 8
-    chunk = 1 << 20
     profiling.enable()
     try:
         message = card.bf_message()
-        parts = list(streamed.bf.iter_serialized(chunk))
+        wire = own.bf.serialize()
         got = BloomFilter.deserialize(memoryview(message)[8:], "mixed", device="cpu")
     finally:
         spans = profiling.drain()
@@ -1849,11 +1849,10 @@ def test_bf_message_is_page_locked_and_read_in_place(dev):
         warnings.simplefilter("ignore")
         assert torch.from_numpy(np.frombuffer(message, np.uint8)).is_pinned()
     assert message == cpu.bf_message()
-    assert b"".join(parts) == streamed.bf.serialize() == bytes(message[8:])
+    assert wire == bytes(message[8:]) and own.bf.bit_table.flags.writeable
+    assert torch.from_numpy(own.bf.bit_table).is_pinned()
     copies = [s.attrs for s in spans if s.name == "bloom.table_to_host"]
-    assert copies[0] == {"bytes": table_bytes, "pinned": 1}
-    assert copies[1:] == [{"bytes": min(chunk, table_bytes - off), "pinned": 1}
-                          for off in range(0, table_bytes, chunk)]
+    assert copies == [{"bytes": table_bytes, "pinned": 1}] * 2
     assert [s.attrs for s in spans if s.name == "bloom.deserialize"] == [
         {"bytes": len(message) - 8, "copied": 0}]
     assert np.shares_memory(got.bit_table, np.frombuffer(message, np.uint8)) and got == card.bf

@@ -6,8 +6,9 @@ r = 32 on the tpu profile (``test_torch_network_seal.py`` holds the seal
 cases, so that the reference's m62 compile lands on another worker):
 
 * the transport: round trip, refused headers (malformed, over the cap),
-  ``send_frame_stream``'s length check and its bytes, equal to
-  ``send_frame``'s and to the reference ``Channel``'s, and ``send_bf``'s;
+  ``send_frame``'s bytes, of ``bytes`` and of a read-only view, equal to
+  the reference ``Channel``'s, and ``send_bf``'s frame equal to the
+  reference's ``send_bf``;
 * the sweep's radius negotiation frame, port to port and across packages;
 * cross-package pairs: a port client against a reference server and the
   reverse (``protocol.netmain``), and the port's tc leg/opt against a
@@ -28,12 +29,15 @@ import socket
 import threading
 import time
 
+import numpy as np
 import pytest
 
 from pplp_tpu.benchmark import harness as rharness
 from pplp_tpu.benchmark import sweep as rsweep
 from pplp_tpu.protocol import netmain as rnetmain
 from pplp_tpu.protocol.config import ProtocolConfig as RProtocolConfig
+from pplp_tpu.protocol.roles import ProximityServer as RServer
+from pplp_tpu.protocol.roles import send_bf as rsend_bf
 from pplp_tpu.protocol.transport import Channel as RChannel
 from pplp_tpu_torch import cli
 from pplp_tpu_torch.benchmark import harness, sweep
@@ -230,38 +234,60 @@ def _wire(send):
         b.close()
 
 
-def test_send_frame_stream_bytes_and_length_check():
-    """The streamed frame's wire bytes equal ``send_frame``'s and the
-    reference Channel's; a stream shorter or longer than declared raises."""
+def test_send_frame_of_bytes_and_a_read_only_view_matches_reference():
+    """``send_frame`` of ``bytes`` and of a read-only ``memoryview`` of one
+    host buffer (what ``bf_message`` returns) puts the reference Channel's
+    ``send_frame`` and ``send_frame_stream`` bytes on the wire, and counts
+    them."""
     chunks = [b"w" * 8, b"", b"abc" * 1000, b"z"]
+    payload = b"".join(chunks)
+    buf = np.frombuffer(payload, np.uint8).copy()
+    buf.flags.writeable = False
+    view = memoryview(buf)
+    assert view.readonly and len(view) == len(payload)
+    sent = {}
+
+    def send_view(ch):
+        sent["n"] = ch.send_frame(view)
+        sent["bytes_sent"] = ch.bytes_sent
+
     wire = {name: _wire(send) for name, send in (
-        ("frame", lambda ch: ch.send_frame(b"".join(chunks))),
-        ("stream", lambda ch: ch.send_frame_stream(sum(map(len, chunks)), iter(chunks))),
-        ("reference", lambda ch: RChannel(ch.sock).send_frame_stream(
-            sum(map(len, chunks)), iter(chunks))),
+        ("bytes", lambda ch: ch.send_frame(payload)),
+        ("view", send_view),
+        ("reference", lambda ch: RChannel(ch.sock).send_frame(payload)),
+        ("reference-stream", lambda ch: RChannel(ch.sock).send_frame_stream(
+            len(payload), iter(chunks))),
     )}
-    assert wire["frame"] == wire["stream"] == wire["reference"]
-    assert wire["frame"][:128].rstrip(b"\x00") == str(3009).encode()
-    for declared in (3008, 3010):
-        a, b = socket.socketpair()
-        try:
-            with pytest.raises(ConnectionError, match="stream length mismatch"):
-                Channel(a).send_frame_stream(declared, iter(chunks))
-        finally:
-            a.close()
-            b.close()
+    assert wire["bytes"] == wire["view"] == wire["reference"] == wire["reference-stream"]
+    assert wire["bytes"] == ref_frames.frame(payload)
+    assert wire["bytes"][:128].rstrip(b"\x00") == str(3009).encode()
+    assert sent == {"n": 3009, "bytes_sent": 128 + 3009}
 
 
 def test_send_bf_streams_the_bf_message():
-    """``send_bf`` streams w || BF from the filter: one frame, the same wire
-    bytes as ``send_frame(server.bf_message())``."""
-    client = ProximityClient(ProtocolConfig(**dict(SMALL, profile="tpu")), "cpu")
-    server = ProximityServer(ProtocolConfig(**dict(SMALL, profile="tpu")), "cpu")
-    server.receive_parms(client.parms_message())
-    server.build_bloom_filter()
-    streamed = _wire(lambda ch: send_bf(ch, server))
-    assert streamed == _wire(lambda ch: ch.send_frame(server.bf_message()))
-    assert len(streamed) == 128 + 8 + server.bf.compute_serialization_size()
+    """``send_bf`` puts ``bf_message()`` on the socket as one frame, the
+    wire bytes of the reference's ``send_bf`` (which streams the table): one
+    ``roles.bf_join``, one ``bloom.table_to_host`` and one
+    ``transport.send_frame`` of the whole message."""
+    kw = dict(SMALL, profile="tpu")
+    client = ProximityClient(ProtocolConfig(**kw), "cpu")
+    server, rserver = ProximityServer(ProtocolConfig(**kw), "cpu"), RServer(RProtocolConfig(**kw))
+    for s in (server, rserver):
+        s.receive_parms(client.parms_message())
+        s.build_bloom_filter()
+    size = 8 + server.bf.compute_serialization_size()
+    profiling.drain()
+    profiling.enable()
+    try:
+        wire = _wire(lambda ch: send_bf(ch, server))
+    finally:
+        profiling.disable()
+    spans = [(s.name, s.attrs) for s in profiling.drain()]
+    assert wire == _wire(lambda ch: rsend_bf(RChannel(ch.sock), rserver))
+    assert wire == ref_frames.frame(bytes(server.bf_message())) and len(wire) == 128 + size
+    assert spans == [("roles.bf_join", {"bytes": size}),
+                     ("bloom.table_to_host", {"bytes": server.bf.table_size // 8, "pinned": 0}),
+                     ("transport.send_frame", {"bytes": size})]
 
 
 @pytest.mark.parametrize("announce,receive", [
@@ -530,19 +556,19 @@ def test_listener_takes_a_new_connection_after_a_failed_one():
 
 
 def test_frames_are_program_spans_with_their_bytes():
-    """With the recorder on, ``send_frame``, ``send_frame_stream`` (one span
-    for the stream) and ``recv_frame`` record ``transport.send_frame`` and
-    ``transport.recv_frame`` with ``bytes`` equal to each payload's length."""
+    """With the recorder on, ``send_frame`` and ``recv_frame`` record
+    ``transport.send_frame`` and ``transport.recv_frame`` with ``bytes``
+    equal to each payload's length."""
     a, b = socket.socketpair()
-    chunks = [b"w" * 8, b"", b"abc" * 1000]
+    payload = b"w" * 8 + b"abc" * 1000
     profiling.drain()
     profiling.enable()
     try:
         ca, cb = Channel(a, timeout=5), Channel(b, timeout=5)
         ca.send_frame(b"hello")
-        ca.send_frame_stream(3008, iter(chunks))
+        ca.send_frame(payload)
         assert cb.recv_frame() == b"hello"
-        assert cb.recv_frame_with_header() == (ref_frames.header(3008), b"".join(chunks))
+        assert cb.recv_frame_with_header() == (ref_frames.header(3008), payload)
     finally:
         profiling.disable()
         a.close()

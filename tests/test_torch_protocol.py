@@ -5,7 +5,7 @@
 * With injected randomness (s, a, e and each message's u, e0, e1 drawn with
   numpy) the port's roles and the reference's put byte-identical messages
   on the wire: the three ciphertexts, w ‖ BF, and the blind distance; on
-  both profiles. The streamed w ‖ BF (size and chunks) equals it.
+  both profiles. The w ‖ BF message equals the reference's streamed one.
 * The CLI and ``ProtocolConfig`` defaults equal the reference's (the
   default profile is ``seal``); the seal demo runs from the CLI on the CPU.
 * ``import pplp_tpu_torch`` loads neither jax nor the JAX package; without a
@@ -191,8 +191,9 @@ def _wire_messages_byte_identical(small):
 
 @pytest.mark.parametrize("mode", ["reference", "mixed"])
 def test_bf_message_size_and_chunks_match_reference(mode):
-    """The streamed w ‖ BF message: ``bf_message_size`` and the joined
-    ``bf_message_chunks`` equal the reference server's and ``bf_message``."""
+    """The w ‖ BF message that ``send_bf`` sends: ``bf_message`` equals the
+    reference server's joined ``bf_message_chunks`` (what its ``send_bf``
+    streams), its ``bf_message`` and its ``bf_message_size``."""
     kw = dict(xa=1234, ya=1212, xb=1000, yb=1000, radius=40, bf_index_mode=mode, **SMALL)
     cfg, rcfg = ProtocolConfig(**kw), RProtocolConfig(**kw)
     parms = RClient(rcfg).parms_message()
@@ -201,9 +202,9 @@ def test_bf_message_size_and_chunks_match_reference(mode):
         s.receive_parms(parms)
         s.build_bloom_filter()
     want = b"".join(rserver.bf_message_chunks())
-    assert b"".join(server.bf_message_chunks()) == want
-    assert server.bf_message() == want
-    assert server.bf_message_size() == rserver.bf_message_size() == len(want)
+    message = server.bf_message()
+    assert message == want == rserver.bf_message()
+    assert len(message) == rserver.bf_message_size() == len(want)
 
 
 def _servers(seed, mode="mixed"):
@@ -221,14 +222,14 @@ def _servers(seed, mode="mixed"):
 
 
 def test_bf_message_is_one_buffer_read_in_place():
-    """``bf_message`` is the reference's bytes and the joined
-    ``bf_message_chunks``, as one read-only buffer: it compares with
+    """``bf_message`` is the reference's bytes, as one read-only buffer of
+    ``8 + compute_serialization_size()`` bytes: it compares with
     ``bytes`` to one ``bool``, joins and slices as bytes do; the server's
     filter and the client's read their tables in its place; a host write to
     either filter afterwards leaves it as it was."""
     want, server = _servers(1234)
     message = server.bf_message()
-    assert message == want and b"".join(server.bf_message_chunks()) == want
+    assert message == want and len(message) == 8 + server.bf.compute_serialization_size()
     assert (message != want) is False and (message != want[:-1] + b"?") is True
     assert len(message) == len(want) and b"".join([message[:8], message[8:]]) == want
     assert memoryview(message)[8:] == want[8:] and message.readonly
