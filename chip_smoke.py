@@ -23,6 +23,18 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
                kernels' device times (torch.profiler: at the demo's shapes a
                transform is shorter than its host launch path) and the plain
                versions' CUDA-event times;
+3b. modmath -- the m62 profile's elementwise kernels (``csrc/modmath64.cu``:
+               one launch an op of ``ops.modmath.m62``) at the demo's shapes
+               on the seal chain of n = 8192: residues of the encryption's
+               batch [3, 5, 8192] against the key spectra [5, 8192] and
+               the per-limb constants [5, 1], each kernel bit-exact against
+               the plain chain (``m62_plain``) on the same card tensors;
+               each kernel's device time (torch.profiler) against the bytes
+               bound (each operand read and the result written once at
+               ``pplp_bench/yardstick.py``'s 3.35 TB/s) and the plain
+               chain's CUDA-event time; the kernels line's launches are the
+               slice phase's demos' (each counted alone: the seal demo
+               launches every kernel the BFV stages use, the tpu demo none);
 4. bloom    -- every Bloom filter of the main paths built twice on the card,
                with the kernels (``csrc/bloom.cu``: a packed table of u32
                words) and with the plain version (the unpacked table,
@@ -335,6 +347,10 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
         "behz64_add")},
     **{name: ("pplp_tpu_torch/csrc/dgk_mont.cu", DGK_TPU) for name in (
         "dgk_mulmod", "dgk_powmod_lanes", "dgk_powmod_shared", "dgk_blind_distance")},
+    # No TPU kernel: the reference runs the m62 arithmetic as XLA on u32 pairs.
+    **{name: ("pplp_tpu_torch/csrc/modmath64.cu", "pplp_tpu/ops/modmath.py:283") for name in (
+        "m62_add", "m62_sub", "m62_neg", "m62_shoup", "m62_mulmod", "m62_reduce128",
+        "m62_shoup_pre")},
     # No TPU kernel: the reference's Bloom filter runs as XLA (and native C++).
     **{name: ("pplp_tpu_torch/csrc/bloom.cu", xla) for name, xla in BLOOM_XLA.items()},
 }
@@ -386,12 +402,12 @@ def phase_device():
 
 def phase_build():
     from pplp_tpu_torch.ops import (behz64_cuda, behz_cuda, bloom_cuda, cuda_build, dgk_cuda,
-                                    mulmod_chain, ntt_cuda, pipeline_cuda)
+                                    modmath_cuda, mulmod_chain, ntt_cuda, pipeline_cuda)
 
     t0 = time.perf_counter()
     paths = cuda_build.build(sorted(cuda_build.CSRC.glob("*.cu")))
     for mod in (ntt_cuda, behz_cuda, behz64_cuda, mulmod_chain, dgk_cuda, bloom_cuda,
-                pipeline_cuda):
+                pipeline_cuda, modmath_cuda):
         mod.load()
     log(f"[build] {len(paths)} libraries in {time.perf_counter() - t0:.2f} s: "
         + ", ".join(p.name for p in paths.values()))
@@ -488,6 +504,107 @@ def phase_kernels(dev, demo_shapes):
             f"{bf['bound_by']}), {inv} {t[inv][0]:.4f} ms (plain {t[inv][1]:.4f}; bound "
             f"{bi['bound_ms']:.4f} ms, {bi['bound_by']}){u32} [{card}]")
     return err, times
+
+
+# The m62 ops' input bounds in multiples of q (1 where the op takes
+# canonical residues): the Shoup product takes the butterflies' 4q.
+M62_INPUT_BOUND = {"mulmod_shoup": 4}
+# The kernels the demo's BFV stages launch (kGen, enc, homoCalc; the
+# decrypt's too): every one but the general product.
+M62_DEMO_KERNELS = ("m62_add", "m62_sub", "m62_neg", "m62_shoup", "m62_reduce128",
+                    "m62_shoup_pre")
+MODMATH_BATCH = 3  # the demo's encryption batch (u, 2xa, 2ya)
+MODMATH_PROFILE_CALLS = 20
+
+
+def _m62_demo_operands(op, tb, gen):
+    """``op``'s operands at the demo's shapes on the card: x [3, L, n] below
+    its input bound, the second residue operand [3, L, n], a key spectrum
+    [L, n] with its Shoup companions for the products, q and 2q as [L, 1],
+    the sampler's four word planes [3, 4, L, n] for reduce128."""
+    import torch
+
+    from pplp_tpu_torch.ops.modmath import m62_plain
+
+    q2 = tb.q_b(1)
+
+    def res(lead, bound=1):
+        x = torch.randint(0, 1 << 62, lead + (tb.L, tb.n), generator=gen, device=tb.device,
+                          dtype=torch.int64)
+        return x % (bound * q2)
+
+    batch = (MODMATH_BATCH,)
+    x = res(batch, M62_INPUT_BOUND.get(op, 1))
+    if op == "mulmod_shoup":
+        w = res(())
+        return (x, w, m62_plain(tb.mu_b(1)).shoup_precompute(w, q2), q2)
+    if op in ("add", "sub", "mulmod"):
+        return (x, res(batch), q2)
+    if op == "reduce128":
+        words = torch.randint(0, 1 << 32, batch + (4, tb.L, tb.n), generator=gen,
+                              device=tb.device, dtype=torch.int64)
+        return (tuple(words[:, i] for i in range(4)), q2)
+    return (x, q2)  # neg, shoup_precompute
+
+
+def _m62_device_ms(fn, kernel: str, calls: int):
+    """Device ms a launch of ``kernel`` over ``calls`` calls of fn, from
+    torch.profiler (None if it recorded none)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and f"{kernel}(" in e.name]
+    return sum(us) / len(us) / 1e3 if us else None
+
+
+def phase_modmath(dev) -> dict:
+    """Each m62 kernel at the demo's shapes against the plain chain on the
+    same card tensors; its device time against the bytes bound. Returns the
+    kernels' rows (their launches are the slice phase's)."""
+    import torch
+
+    from pplp_bench.yardstick import HBM_BYTES_PER_S
+    from pplp_tpu_torch.ops import modmath_cuda, ntt
+    from pplp_tpu_torch.ops.modmath import m62_plain
+    from pplp_tpu_torch.ops.primes import Modulus
+
+    card = torch.cuda.get_device_name(dev)
+    n = 1 << DEMO_N_BITS
+    tb = ntt.build_tables([Modulus(q) for q in _chain("seal", n)], n, dev)
+    gen = torch.Generator(device=dev).manual_seed(2026)
+    plain = m62_plain(tb.mu_b(1))
+    rows = {}
+    for op, (kernel, _) in modmath_cuda.OPS.items():
+        args = _m62_demo_operands(op, tb, gen)
+        fn, plain_fn = getattr(tb.prof, op), getattr(plain, op)
+        before = modmath_cuda.launches_by_kernel[kernel]
+        got = fn(*args)
+        want = plain_fn(*args)
+        torch.cuda.synchronize()
+        assert modmath_cuda.launches_by_kernel[kernel] == before + 1, f"{op}: not one launch"
+        differ = int((got != want).sum())
+        assert differ == 0, f"{kernel}: {differ} of {got.numel()} residues differ from plain"
+        flat = [a for arg in args for a in (arg if isinstance(arg, tuple) else (arg,))]
+        nbytes = 8 * (got.numel() + sum(a.numel() for a in flat if torch.is_tensor(a)))
+        ms, source = _m62_device_ms(lambda: fn(*args), kernel, MODMATH_PROFILE_CALLS), "profiler"
+        if ms is None:  # the profiler missed the window: the call's CUDA events
+            ms, source = cuda_ms(lambda: fn(*args)), "events"
+        row = rows[kernel] = {"max_abs_err": differ, "ms": ms, "ms_source": source,
+                              "plain_ms": cuda_ms(lambda: plain_fn(*args), iters=10),
+                              "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+        log(f"[modmath] {kernel} {tuple(got.shape)}: == plain chain; {ms:.4f} ms ({source}), "
+            f"bound {row['bound_ms']:.4f} ms ({nbytes} bytes), "
+            f"{100 * row['bound_ms'] / ms:.1f}% of bound; plain {row['plain_ms']:.4f} ms "
+            f"[{card}]")
+    return rows
 
 
 def _bloom_counted(counts: dict):
@@ -902,14 +1019,15 @@ def phase_bloom(dev):
 
 def phase_slice(dev):
     """The demo on each profile, and at the reference's r = 8192 on seal;
-    returns the NTT launches of these runs."""
+    returns the NTT launches and the m62 kernels' launches of these runs."""
     import torch
 
-    from pplp_tpu_torch.ops import bloom_cuda, ntt_cuda
+    from pplp_tpu_torch.ops import bloom_cuda, modmath_cuda, ntt_cuda
     from pplp_tpu_torch.primitives import Blinding
     from pplp_tpu_torch.protocol import ProtocolConfig, run_local_demo
 
     launches = {k: 0 for k in ntt_cuda.launches_by_kernel}
+    m62_launches = {k: 0 for k in modmath_cuda.launches_by_kernel}
     cases = [(p, c) for p in ("seal", "tpu") for c in DEMO_CASES]
     cases += [("seal", c) for c in DEMO_R8192_CASES]
     for profile, (radius, xa, ya, xb, yb) in cases:
@@ -922,10 +1040,12 @@ def phase_slice(dev):
         torch.cuda.reset_peak_memory_stats(dev)
         ntt_cuda.reset_launches()
         bloom_cuda.reset_launches()
+        modmath_cuda.reset_launches()
         res = run_local_demo(cfg, verbose=False, device=dev)
         torch.cuda.synchronize()
         run_launches = dict(ntt_cuda.launches_by_kernel)
         bf_launches = dict(bloom_cuda.launches_by_kernel)
+        m62_run = dict(modmath_cuda.launches_by_kernel)
         peak = torch.cuda.max_memory_allocated(dev)
         d2 = (xa - xb) ** 2 + (ya - yb) ** 2
         near = d2 < radius * radius
@@ -939,19 +1059,27 @@ def phase_slice(dev):
         want = _bloom_launches([(cfg.sq_radius, cfg.false_positive_probability)])
         assert bf_launches == want, f"{tag}: Bloom kernel launches {bf_launches}, planned {want}"
         assert res.bf_device.type == "cuda", "Bloom filter is not on the card"
+        if profile == "seal":
+            assert all(m62_run[k] > 0 for k in M62_DEMO_KERNELS), (
+                f"{tag}: m62 kernel launches {m62_run}")
+        else:
+            assert not any(m62_run.values()), f"{tag}: m62 kernels on the m31 chain {m62_run}"
         for k, v in run_launches.items():
             launches[k] += v
+        for k, v in m62_run.items():
+            m62_launches[k] += v
         _bloom_counted(bf_launches)
         stages = ", ".join(f"{k} {v / 1e6:.3f} ms" for k, v in res.stage_ns.items())
         log(f"[slice] {tag} d^2={d2}: {res.verdict} (oracle "
             f"{'near' if near else 'far'}), blind distance {res.blind_distance:#x}, "
-            f"launches {run_launches}, {bf_launches}")
+            f"launches {run_launches}, {bf_launches}, "
+            f"{ {k: v for k, v in m62_run.items() if v} }")
         log(f"[slice] {tag} stages: {stages}; total {res.elapsed_s:.3f} s")
         log(f"[slice] {tag} BF {res.bf_table_bits} bits held as "
             f"{4 * ((res.bf_table_bits + 31) // 32)} bytes of words on {res.bf_device}, "
             f"{res.bf_wire_bytes} wire bytes; peak device memory {peak} bytes "
             f"[{torch.cuda.get_device_name(dev)}]")
-    return launches
+    return launches, m62_launches
 
 
 def _negacyclic_mod(a, b, t):
@@ -2886,9 +3014,11 @@ def main() -> int:
     demo_shapes = [(), (3,), (6,)]
     err, times = phase_kernels(dev, demo_shapes)
     done("kernels")
+    modmath_rows = phase_modmath(dev)
+    done("modmath")
     bloom_rows = phase_bloom(dev)
     done("bloom")
-    launches = phase_slice(dev)
+    launches, m62_launches = phase_slice(dev)
     done("slice")
     rows, mult_ntt = phase_multiply(dev)
     done("multiply")
@@ -2921,6 +3051,8 @@ def main() -> int:
     assert all(BLOOM_MAIN.values()), f"Bloom kernels never launched on the main paths: {BLOOM_MAIN}"
     for name, row in bloom_rows.items():
         rows[name] = {"launches": BLOOM_MAIN[name], **row}
+    for name, row in modmath_rows.items():
+        rows[name] = {"launches": m62_launches[name], **row}
     n = 1 << DEMO_N_BITS
     main_shapes = {prof: (6, len(_chain(prof, n)), n) for prof in PROFILE_NTT}
     u32_shape = (ROWS_PER_LIMB, len(_chain("tpu", 32768)), 32768)
@@ -2963,6 +3095,11 @@ def main() -> int:
         f"config[3]'s "
         f"step ({PIPE_ROWS * PIPE_N} blind distances, the table staged in shared memory; "
         f"its launch_floor_ms an empty kernel's device time at the probe's geometry); "
+        f"the m62 kernels a launch at the demo's shapes ({MODMATH_BATCH} x the seal chain "
+        f"of n = {n}; the products by a key spectrum), their plain_ms the plain chain "
+        f"(m62_plain) on the same card tensors, their bound the bytes each operand and the "
+        f"result move once, their launches the slice phase's demos' (seal; the tpu demos "
+        f"none); "
         f"library_ms null: no PyTorch "
         f"call computes these functions")
     log(json.dumps({"kernels": kernels}))

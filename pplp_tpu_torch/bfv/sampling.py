@@ -71,8 +71,8 @@ def ternary_poly_from_bits(bits, ctx) -> torch.Tensor:
 def cbd_poly_from_bits(bits, ctx) -> torch.Tensor:
     """CBD(21) noise from words [*batch, 2, n]: popcount(a) - popcount(b)."""
     b = bits if torch.is_tensor(bits) else _as_words(bits, ctx.device)
-    a = _popcount32(b[..., 0, :] & _CBD_MASK)
-    c = _popcount32(b[..., 1, :] & _CBD_MASK)
+    counts = _popcount32(b & _CBD_MASK)  # both words' in one pass
+    a, c = counts[..., 0, :], counts[..., 1, :]
     return lift_small((a - c).abs(), a < c, ctx)
 
 

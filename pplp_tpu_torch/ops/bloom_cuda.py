@@ -197,19 +197,6 @@ def _check_w(w: int, w_len: int, limit: int):
         raise ValueError(f"need w < 2^w_len, 0 <= w_len < {limit}; got w={w}, w_len={w_len}")
 
 
-def _stream(words: torch.Tensor) -> int:
-    """The raw current stream of the tensor's device. It reads PyTorch's
-    private binding ``torch._C._cuda_getCurrentRawStream`` (the launch path
-    of PyTorch's own generated kernels), a few microseconds a call less
-    than ``torch.cuda.current_stream(device).cuda_stream``; a PyTorch
-    without it raises here."""
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if raw is None:
-        raise RuntimeError("this PyTorch has no torch._C._cuda_getCurrentRawStream; "
-                           "bloom_cuda._stream needs the current stream's handle")
-    return raw(words.get_device())
-
-
 @dataclass(frozen=True)
 class InsertPlan:
     """How ``insert_cuda`` sets ``count`` keys' bits in a table of
@@ -398,7 +385,8 @@ def _direct(words, salts, chain, mixed, key_args):
     lib = load()
     code = lib.pplp_bf_insert(words.data_ptr(), salts.data_ptr(), salts.numel(),
                               chain.ctypes.data, chain.size, int(mixed),
-                              *_chunk(key_args, 0, count), _stream(words))
+                              *_chunk(key_args, 0, count),
+                              cuda_build.raw_stream(words.get_device()))
     cuda_build.check(code, lib, "bf_insert")
     launches_by_kernel["bf_insert"] += 1
 
@@ -444,7 +432,7 @@ def _partitioned(words, salts, chain, mixed, key_args, plan: InsertPlan):
     count = key_args[-1]
     if count == 0:
         return
-    lib, st = load(), _stream(words)
+    lib, st = load(), cuda_build.raw_stream(words.get_device())
     stash, hist, counts = partition_buffers(plan, words.device)
     for c in range(plan.chunks):
         first = c * plan.chunk_keys
@@ -496,7 +484,7 @@ def _subslice(words, salts, chain, mixed, key_args, plan: InsertPlan):
     count = key_args[-1]
     if count == 0:
         return
-    lib, st = load(), _stream(words)
+    lib, st = load(), cuda_build.raw_stream(words.get_device())
     stash, counts = subslice_buffers(plan, words.device)
     for c in range(plan.chunks):
         first = c * plan.chunk_keys
@@ -535,7 +523,7 @@ def count_cuda(words, salts, sizes, mixed: bool, plan: InsertPlan, hist, counts,
     chain, key_args = _check_step(words, salts, sizes, plan, keys, blinded, hist, counts)
     if key_args[-1]:
         _count(load(), _head(salts, chain, mixed, _chunk(key_args, 0, key_args[-1]), plan),
-               hist, counts, _stream(words))
+               hist, counts, cuda_build.raw_stream(words.get_device()))
 
 
 def scatter_cuda(words, salts, sizes, mixed: bool, plan: InsertPlan, hist, counts, stash, *,
@@ -546,7 +534,7 @@ def scatter_cuda(words, salts, sizes, mixed: bool, plan: InsertPlan, hist, count
     chain, key_args = _check_step(words, salts, sizes, plan, keys, blinded, hist, counts, stash)
     if key_args[-1]:
         _scatter(load(), _head(salts, chain, mixed, _chunk(key_args, 0, key_args[-1]), plan),
-                 hist, counts, stash, _stream(words))
+                 hist, counts, stash, cuda_build.raw_stream(words.get_device()))
 
 
 def apply_cuda(words, stash, n: int):
@@ -558,7 +546,7 @@ def apply_cuda(words, stash, n: int):
     if not 0 <= n <= stash.numel():
         raise ValueError(f"{n} indices of a stash of {stash.numel()}")
     if n:
-        _apply(load(), words, stash, n, _stream(words))
+        _apply(load(), words, stash, n, cuda_build.raw_stream(words.get_device()))
 
 
 def _check_sub_step(words, salts, sizes, plan: InsertPlan, counts, stash, keys=None,
@@ -589,7 +577,7 @@ def sub_count_cuda(words, salts, sizes, mixed: bool, plan: InsertPlan, counts, *
     chain, key_args = _check_sub_step(words, salts, sizes, plan, counts, None, keys, blinded)
     if key_args[-1]:
         _sub_count(load(), _sub_head(salts, chain, mixed, _chunk(key_args, 0, key_args[-1]),
-                                     plan), counts, _stream(words))
+                                     plan), counts, cuda_build.raw_stream(words.get_device()))
 
 
 def sub_scatter_cuda(words, salts, sizes, mixed: bool, plan: InsertPlan, counts, stash, *,
@@ -601,7 +589,8 @@ def sub_scatter_cuda(words, salts, sizes, mixed: bool, plan: InsertPlan, counts,
     chain, key_args = _check_sub_step(words, salts, sizes, plan, counts, stash, keys, blinded)
     if key_args[-1]:
         _sub_scatter(load(), _sub_head(salts, chain, mixed, _chunk(key_args, 0, key_args[-1]),
-                                       plan), counts, stash, _stream(words))
+                                       plan), counts, stash,
+                     cuda_build.raw_stream(words.get_device()))
 
 
 def sub_apply_cuda(words, salts, sizes, plan: InsertPlan, counts, stash):
@@ -609,7 +598,7 @@ def sub_apply_cuda(words, salts, sizes, plan: InsertPlan, counts, stash):
     ``counts`` places it) set in ``words`` in shared memory, in place. One
     launch."""
     _check_sub_step(words, salts, sizes, plan, counts, stash, with_keys=False)
-    _sub_apply(load(), words, stash, counts, plan, _stream(words))
+    _sub_apply(load(), words, stash, counts, plan, cuda_build.raw_stream(words.get_device()))
 
 
 def probe_cuda(words: torch.Tensor, salts: torch.Tensor, sizes, mixed: bool, *,
@@ -638,7 +627,7 @@ def probe_cuda(words: torch.Tensor, salts: torch.Tensor, sizes, mixed: bool, *,
     lib = load()
     code = lib.pplp_bf_probe(words.data_ptr(), words.numel(), salts.data_ptr(), salts.numel(),
                              address, chain.size, mixed, *args, out.data_ptr(),
-                             _stream(words))
+                             cuda_build.raw_stream(words.get_device()))
     cuda_build.check(code, lib, "bf_probe")
     launches_by_kernel["bf_probe"] += 1
     return out
@@ -651,5 +640,6 @@ def probe_floor_cuda(words: torch.Tensor, count: int):
     if not words.is_cuda or count < 1:
         raise ValueError("the launch floor takes a CUDA table and at least one key")
     lib = load()
-    cuda_build.check(lib.pplp_bf_probe_floor(words.numel(), count, _stream(words)), lib,
-                     "bf_probe_floor")
+    cuda_build.check(lib.pplp_bf_probe_floor(words.numel(), count,
+                                             cuda_build.raw_stream(words.get_device())),
+                     lib, "bf_probe_floor")

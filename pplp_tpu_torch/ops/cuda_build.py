@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "build", "load",
-           "check", "u32_buffer", "build_info"]
+           "check", "u32_buffer", "raw_stream", "build_info"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -141,6 +141,19 @@ def u32_buffer(values, device) -> torch.Tensor:
         values = values.detach().cpu().numpy()
     host = np.asarray(values, dtype=np.int64).astype(np.uint32).view(np.int32)
     return torch.from_numpy(np.ascontiguousarray(host)).to(device)
+
+
+def raw_stream(device_index: int) -> int:
+    """The raw handle of the current stream of CUDA device ``device_index``.
+    It reads PyTorch's private binding ``torch._C._cuda_getCurrentRawStream``
+    (the launch path of PyTorch's own generated kernels), a few microseconds
+    a call less than ``torch.cuda.current_stream(device).cuda_stream``; a
+    PyTorch without it raises here."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        raise RuntimeError("this PyTorch has no torch._C._cuda_getCurrentRawStream; the "
+                           "kernels' launches need the current stream's handle")
+    return raw(device_index)
 
 
 def check(code: int, lib, what: str):

@@ -17,13 +17,21 @@ wraps int64. A Shoup companion floor(w * 2^64 / q) can reach 2^64 - 1; it is
 stored as the int64 with the same bit pattern and read back as two words.
 2q < 2^63 fits int64 but 4q does not, so code on these tensors keeps every
 residue below 2q (only the CUDA kernel, in u64, runs Harvey-lazy to 4q).
+
+``m62`` routes by where the residues lie (``m62_route``): CUDA residues
+take one launch of a hand-written u64 kernel an op (``modmath_cuda``); CPU
+residues take the int64 chain above, ``m62_plain``, which gives the same
+bits.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["M32", "mul32", "mulhi32", "shoup_ints", "as_int64_bits", "m31", "m62"]
+from . import modmath_cuda
+
+__all__ = ["M32", "mul32", "mulhi32", "shoup_ints", "as_int64_bits", "m31", "m62",
+           "m62_plain", "m62_route"]
 
 M32 = 0xFFFFFFFF
 _U16 = 0xFFFF
@@ -196,10 +204,11 @@ def _mulhi64(x, y):
     return x1 * y1 + (p10 >> 32) + hi01 + (mid >> 32)
 
 
-class m62:
-    """Vector ops mod 2^32 <= q < 2^62 on int64 residues. Results are
-    canonical in [0, q) unless the name says lazy; no input or result may
-    reach 2^63.
+class m62_plain:
+    """Vector ops mod 2^32 <= q < 2^62 on int64 residues, as int64 torch ops
+    on any device: the plain chain, which ``m62`` runs on the CPU and which
+    the card tests hold its kernels to. Results are canonical in [0, q)
+    unless the name says lazy; no input or result may reach 2^63.
 
     An instance binds ``ratio`` = floor(2^128 / q) as three 32-bit words
     (r0, r1, r2), each broadcasting against the residues (``NttTables.mu_b``),
@@ -259,7 +268,7 @@ class m62:
     @staticmethod
     def mulmod_shoup(x, w, w_shoup, q):
         """x * w mod q, canonical."""
-        return m62.csub(m62.mulmod_shoup_lazy(x, w, w_shoup, q), q)
+        return m62_plain.csub(m62_plain.mulmod_shoup_lazy(x, w, w_shoup, q), q)
 
     def reduce128(self, z, q):
         """z mod q for a 128-bit z given as four 32-bit words (z0..z3).
@@ -268,7 +277,7 @@ class m62:
         z - est q lies in [0, 2q): one conditional subtract."""
         prod = _mul_words(list(z), list(self.ratio))  # 7 words
         r = _sub_to_int((z[0], z[1]), _lo64((prod[4], prod[5]), _words(q)))
-        return m62.csub(r, q)
+        return m62_plain.csub(r, q)
 
     def reduce_words(self, z, q):
         """z mod q for z given as up to four little-endian 32-bit words."""
@@ -290,3 +299,60 @@ class m62:
         e0 = e0 + (r >= q).to(torch.int64)
         e1 = (e1 + (e0 >> 32)) & M32
         return _join(e0 & M32, e1)
+
+
+def _on_card(x) -> bool:
+    return torch.is_tensor(x) and x.is_cuda
+
+
+def m62_route(tables) -> str:
+    """"cuda" where ``m62``'s ops launch the kernels for the chain of
+    ``tables`` (an m62 chain whose tables lie on a CUDA device), else
+    "plain"."""
+    return "cuda" if tables.profile == "m62" and _on_card(tables.q) else "plain"
+
+
+def _routed(op: str):
+    """``m62_plain``'s static ``op``, sent to its kernel for CUDA residues."""
+    plain = getattr(m62_plain, op)
+
+    def routed(x, *rest):
+        if _on_card(x):
+            return modmath_cuda.launch(op, x, *rest)
+        return plain(x, *rest)
+
+    routed.__name__, routed.__doc__ = op, plain.__doc__
+    return staticmethod(routed)
+
+
+class m62(m62_plain):
+    """The m62 profile's ops, routed by where the residues lie: on a CUDA
+    device each op below is one launch of its hand-written u64 kernel
+    (``modmath_cuda``, ``csrc/modmath64.cu``); on the CPU it is the plain
+    chain (``m62_plain``). Both give the same bits. The lazy ops
+    (``lazy_add``, ``csub``, ``csub2q``, ``lazy_sub2q``,
+    ``mulmod_shoup_lazy``) are ``m62_plain``'s on either device: only the
+    plain chain's own compositions call them."""
+
+    add = _routed("add")
+    sub = _routed("sub")
+    neg = _routed("neg")
+    mulmod_shoup = _routed("mulmod_shoup")
+
+    def reduce128(self, z, q):
+        """z mod q for a 128-bit z given as four 32-bit words (z0..z3)."""
+        if _on_card(z[0]):
+            return modmath_cuda.launch("reduce128", *z, q, *self.ratio)
+        return m62_plain.reduce128(self, z, q)
+
+    def mulmod(self, x, y, q):
+        """General x * y mod q (both operands variable, below 2^63)."""
+        if _on_card(x):
+            return modmath_cuda.launch("mulmod", x, y, q, *self.ratio)
+        return m62_plain.mulmod(self, x, y, q)
+
+    def shoup_precompute(self, w, q):
+        """floor(w * 2^64 / q) for w in [0, q), as an int64 bit pattern."""
+        if _on_card(w):
+            return modmath_cuda.launch("shoup_precompute", w, q, *self.ratio)
+        return m62_plain.shoup_precompute(self, w, q)

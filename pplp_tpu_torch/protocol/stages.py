@@ -20,7 +20,7 @@ from ..bfv.encryptor import Encryptor
 from ..bfv.evaluator import Evaluator
 from ..bfv.keys import KeyGenerator, PublicKey, SecretKey, make_keys
 from ..bfv.plaintext import Plaintext
-from ..ops import ntt
+from ..ops import modmath, ntt
 from ..utils.hexcodec import uint64_to_hex_string
 from ..utils.profiling import span
 
@@ -30,7 +30,7 @@ __all__ = ["keygen", "keygen_injected", "encrypt_batch", "blind_distance",
 
 def keygen(ctx: BFVContext, generator: torch.Generator) -> tuple[SecretKey, PublicKey]:
     """Ternary secret s, uniform a (NTT domain), CBD noise e -> (sk, pk)."""
-    with span("bfv.keygen"):
+    with span("bfv.keygen", route=modmath.m62_route(ctx.tables)):
         kg = KeyGenerator(ctx, generator)
         return kg.secret_key(), kg.create_public_key()
 
@@ -47,7 +47,7 @@ def encrypt_batch(ctx: BFVContext, pk: PublicKey, m_lo, m_hi,
 
     ``inject``: per message (u, e0, e1) signed numpy arrays [n]; otherwise
     ``generator`` draws them."""
-    with span("bfv.encrypt"):
+    with span("bfv.encrypt", route=modmath.m62_route(ctx.tables)):
         enc = Encryptor(ctx, pk)
         if inject is None:
             return enc.encrypt_pairs(m_lo, m_hi, generator)
@@ -62,7 +62,7 @@ def blind_distance(ctx: BFVContext, c1: Ciphertext, c2: Ciphertext, c3: Cipherte
     Plaintext operands are host (lo, hi) pairs. The six ciphertext
     polynomials transform in one stacked NTT, the three plaintext spectra in
     another, the result comes back in one inverse."""
-    with span("bfv.evaluate"):
+    with span("bfv.evaluate", route=modmath.m62_route(ctx.tables)):
         ev = Evaluator(ctx)
         c1 = ev.add_plain(c1, z)
         spec = ntt.forward(torch.stack(c1.polys + c2.polys + c3.polys), ctx.tables)

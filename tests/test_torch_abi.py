@@ -10,8 +10,8 @@ import re
 
 import pytest
 
-from pplp_tpu_torch.ops import (behz64_cuda, behz_cuda, bloom_cuda, dgk_cuda, mulmod_chain,
-                                ntt_cuda, pipeline_cuda)
+from pplp_tpu_torch.ops import (behz64_cuda, behz_cuda, bloom_cuda, dgk_cuda, modmath_cuda,
+                                mulmod_chain, ntt_cuda, pipeline_cuda)
 
 _ENTRY = re.compile(r"^[\w \*]*?\b(pplp_\w+)\(([^)]*)\)\s*\{", re.M)
 
@@ -42,7 +42,7 @@ def _entry_points(source) -> dict:
 
 
 @pytest.mark.parametrize("wrapper", [ntt_cuda, behz_cuda, behz64_cuda, mulmod_chain, dgk_cuda,
-                                     bloom_cuda, pipeline_cuda],
+                                     bloom_cuda, pipeline_cuda, modmath_cuda],
                          ids=lambda m: m.__name__.rsplit(".", 1)[-1])
 def test_argtypes_match_the_c_entry_points(wrapper):
     lib = _Library()
@@ -82,3 +82,34 @@ def test_bloom_entry_points():
     assert [len(k) for k in sub] == [18, 19, 7]
     assert sub[2] == ["p", "i", "p", "p", "i", "i", "p"]
     assert c_side["pplp_bf_probe_floor"] == ["i", "i", "p"] and len(c_side["pplp_bf_probe"]) == 15
+
+
+def test_modmath_entry_point_and_op_codes():
+    """``csrc/modmath64.cu`` exports one entry point, the op code, the
+    output, ``modmath_cuda.MAX_OPERANDS`` operand pointers, the layout and
+    the stream; its op codes (``enum Op``) name the kernels in
+    ``modmath_cuda.OPS``' order, each op taking as many operands there as
+    the wrapper passes, and its limits (operands, dimensions, the 32-bit
+    index's numel) are the wrapper's."""
+    lib = _Library()
+    modmath_cuda._declare(lib)
+    c_side = _entry_points(modmath_cuda.SOURCE)
+    assert set(c_side) - {"pplp_cuda_error_string"} == {"pplp_m62_elementwise"} == set(
+        lib.functions)
+    assert c_side["pplp_m62_elementwise"] == ["i"] + ["p"] * (modmath_cuda.MAX_OPERANDS + 3)
+    text = modmath_cuda.SOURCE.read_text()
+    enum = re.search(r"enum Op \{([^}]*)\}", text).group(1)
+    codes = [c.strip() for c in enum.split(",") if c.strip()]
+    assert codes[-1] == "kOpCount" and len(codes) - 1 == len(modmath_cuda.OPS)
+    kernels = dict(re.findall(r"^PPLP_M62_KERNEL\((\w+), (\w+)\)$", text, re.M))
+    by_code = {code: f"m62_{name}" for name, code in kernels.items()}
+    assert [by_code[c] for c in codes[:-1]] == [k for k, _ in modmath_cuda.OPS.values()]
+    counts = re.search(r"kOperands\[kOpCount\] = \{([^}]*)\}", text).group(1)
+    assert [int(c) for c in counts.split(",")] == [
+        len(operands) for _, operands in modmath_cuda.OPS.values()]
+    assert f"kMaxOperands = {modmath_cuda.MAX_OPERANDS};" in text
+    assert f"kMaxDims = {modmath_cuda.MAX_DIMS};" in text
+    blocks = re.search(r"kMaxBlocks = (\d+) \* (\d+);", text).groups()
+    threads = re.search(r"kThreads = (\d+);", text).group(1)
+    assert "kMaxNumel = (int64_t{1} << 32) - kMaxBlocks * kThreads;" in text
+    assert modmath_cuda.MAX_NUMEL == (1 << 32) - int(blocks[0]) * int(blocks[1]) * int(threads)

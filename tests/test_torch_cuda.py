@@ -2,7 +2,9 @@
 versions (the u32 NTT in both I/O widths, the u64 NTT,
 the BEHZ multiply + relinearization on the fused and the separate routes,
 the seal (m62) multiply on the u64 route and its steps, the u64 NTT on the
-60-bit B_sk tables, the mulmod chain, the DGK Montgomery kernels), the seal
+60-bit B_sk tables, the m62 profile's elementwise kernels (every op of
+``modmath.m62`` against the plain chain, and the demo's BFV stages on the
+card against the CPU), the mulmod chain, the DGK Montgomery kernels), the seal
 real product and mod switch, the demo on both profiles, the packed pipeline,
 the networked entry points, the DGK batch path and protocol, the 2PC
 predicates (``secure2pc``: in process and a networked party pair), and the
@@ -32,9 +34,9 @@ from pplp_tpu_torch import bfv
 from pplp_tpu_torch.bfv import behz, behz_fused
 from pplp_tpu_torch.bfv.behz_fused import FusedMultiplier
 from pplp_tpu_torch.bfv.rns_decrypt import get_decoder
-from pplp_tpu_torch.ops import (behz64_cuda, behz_cuda, bloom_cuda, mulmod_chain, ntt, ntt_cuda,
-                                pipeline_cuda)
-from pplp_tpu_torch.ops.modmath import m31
+from pplp_tpu_torch.ops import (behz64_cuda, behz_cuda, bloom_cuda, modmath_cuda, mulmod_chain,
+                                ntt, ntt_cuda, pipeline_cuda)
+from pplp_tpu_torch.ops.modmath import m31, m62, m62_plain
 from pplp_tpu_torch.ops.primes import Modulus, bfv_default, get_primes, tpu_default
 
 pytestmark = pytest.mark.cuda
@@ -428,6 +430,232 @@ def test_m62_pipeline_takes_the_plain_route(dev):
     assert not any(pipeline_cuda.launches_by_kernel.values())
     d2 = (xa.astype(np.int64) - 1000) ** 2 + (ya.astype(np.int64) - 900) ** 2
     assert (bd.reshape(-1).cpu().numpy() == (501 * (d2 + 99)) % (1 << 20)).all()
+
+
+# ---------------------------------------------------------------------------
+# The m62 profile's elementwise kernels (csrc/modmath64.cu)
+# ---------------------------------------------------------------------------
+
+M62_BOUND = {"mulmod_shoup": 4}  # x < 2^63 there; 4q - 1 is the Harvey butterflies' top
+# The second operand's shape against x's: a spectrum [L, n] or a per-limb
+# constant [L, 1] under a batch, or both operands batched.
+M62_SHAPES = {"batch_by_spectrum": ((3,), ()), "spectrum_by_column": ((), None),
+              "batch_by_batch": ((3,), (3,))}
+
+
+def _m62_operands(op, n, shapes, seed):
+    """CPU operands of ``op`` on the seal chain of n: residues drawn below
+    the op's input bound with 0, q - 1, 2q - 1 and 4q - 1 (as far as the
+    bound goes) in the first slots, Shoup companions floor(w 2^64 / q) of
+    w near q (bit 63 set) among them, q and 2q as [L, 1], the ratio words."""
+    qs = bfv_default(n)
+    L, rng = len(qs), np.random.default_rng(seed)
+    x_lead, y_lead = M62_SHAPES[shapes]
+    bound = M62_BOUND.get(op, 1)
+
+    def draw(lead, hi_mul, column=False):
+        """Residues below hi_mul q, [*lead, L, n] (or a column [*lead, L,
+        1]); a row's first slots 0, q // 2 + 1 (its companion has bit 63
+        set) and k q - 1 for k = 1, 2, 4 up to hi_mul."""
+        cols = 1 if column else n
+        rows = int(np.prod(lead, dtype=int))
+        v = np.array([[[int(x) % (hi_mul * q)
+                        for x in rng.integers(0, 1 << 63, cols, dtype=np.uint64)] for q in qs]
+                      for _ in range(rows)], dtype=np.uint64)
+        if not column:
+            for li, q in enumerate(qs):
+                v[:, li, :2] = 0, q // 2 + 1
+                for j, k in enumerate(k for k in (1, 2, 4) if k <= hi_mul):
+                    v[:, li, 2 + j] = k * q - 1
+        return torch.from_numpy(v.view(np.int64).reshape(tuple(lead) + (L, cols)))
+
+    q_col = torch.tensor([[q] for q in qs])
+    ratio = tuple(torch.tensor([[((1 << 128) // q >> (32 * i)) & 0xFFFFFFFF] for q in qs])
+                  for i in range(3))
+    column = y_lead is None
+    y_shape = x_lead if column else y_lead
+    x = draw(x_lead, bound)
+    y = draw(y_shape, 1, column)
+    if op == "mulmod_shoup":
+        ws = torch.from_numpy(np.array([(int(w) << 64) // qs[(i // y.shape[-1]) % L]
+                                        for i, w in enumerate(y.reshape(-1).tolist())],
+                                       dtype=np.uint64).view(np.int64)).reshape(y.shape)
+        assert (ws < 0).any()  # bit 63 set: read as a u64
+        args = (x, y, ws, q_col)
+    elif op in ("add", "sub"):
+        args = (x, y, q_col)
+    elif op == "neg":
+        args = (x, q_col)
+    elif op == "mulmod":
+        args = (x, y, q_col)
+    elif op == "reduce128":  # strided word planes of [*lead, 4, L, n], as the sampler reads
+        w = torch.from_numpy(rng.integers(0, 1 << 32, tuple(x_lead) + (4, L, n), dtype=np.int64))
+        w[..., :2] = 0xFFFFFFFF  # 2^128 - 1 and its neighbours
+        w[..., 0, :, 2:4] = 0
+        args = (tuple(w[..., i, :, :] for i in range(4)), q_col)
+    else:  # shoup_precompute
+        args = (x, q_col)
+    return args, ratio
+
+
+def _to(args, dev):
+    return tuple(_to(a, dev) if isinstance(a, tuple) else a.to(dev) for a in args)
+
+
+@pytest.mark.parametrize("shapes", list(M62_SHAPES))
+@pytest.mark.parametrize("n", [4096, 8192])
+@pytest.mark.parametrize("op", list(modmath_cuda.OPS))
+def test_m62_kernel_matches_plain(dev, op, n, shapes):
+    """Each m62 op on CUDA residues is one launch of its kernel, equal bit
+    for bit to the plain chain on the CPU (inputs up to 4q - 1 where the op
+    takes them) at the seal chains of n = 4096 and 8192, over every broadcast the stages use."""
+    args, ratio = _m62_operands(op, n, shapes, seed=n + len(op))
+    want = getattr(m62_plain(ratio), op)(*args)
+    before = dict(modmath_cuda.launches_by_kernel)
+    got = getattr(m62(_to(ratio, dev)), op)(*_to(args, dev))
+    after = dict(modmath_cuda.launches_by_kernel)
+    assert got.device == dev and got.dtype == torch.int64 and got.is_contiguous()
+    assert torch.equal(got.cpu(), want)
+    kernel = modmath_cuda.OPS[op][0]
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == kernel) for k in after}
+
+
+@pytest.mark.parametrize("n", [4096, 8192])
+def test_m62_kernels_read_views_and_immediates(dev, n):
+    """Operands as the callers pass them: a u64 as (lo, hi) words [B, 1, n]
+    under the limbs (``reduce_u64_to_rns``), an expanded view with stride 0
+    (``sampling.lift_small``), a strided half of a reshaped row (the plain
+    NTT's butterflies), Python ints for q; each equal to the plain chain."""
+    qs = bfv_default(n)
+    tb = _tables62(n, dev)
+    p, pc = tb.prof, m62_plain(tuple(r.cpu() for r in tb.mu_b(1)))
+    q2 = tb.q_b(1)
+    rng = np.random.default_rng(n)
+    lo, hi = (torch.from_numpy(rng.integers(0, 1 << 32, (3, 1, n), dtype=np.int64))
+              for _ in range(2))
+    assert torch.equal(p.reduce_words((lo.to(dev), hi.to(dev)), q2).cpu(),
+                       pc.reduce_words((lo, hi), q2.cpu()))
+    mag = torch.from_numpy(rng.integers(0, 40, (3, n), dtype=np.int64))
+    pos = mag.to(dev).unsqueeze(-2).expand(3, tb.L, n)  # stride 0 over the limbs
+    assert pos.stride(1) == 0
+    assert torch.equal(p.neg(pos, q2).cpu(), pc.neg(pos.cpu(), q2.cpu()))
+    x = _residues(tb, (2,), n)
+    half = x.reshape(2, tb.L, 16, 2, n // 32)[..., 1, :]
+    w, ws = tb.w[:, 16:32, None], tb.ws[:, 16:32, None]
+    assert torch.equal(m62.mulmod_shoup(half, w, ws, tb.q_b(2)).cpu(),
+                       m62_plain.mulmod_shoup(half.cpu(), w.cpu(), ws.cpu(), tb.q_b(2).cpu()))
+    for q in qs[:2]:
+        a = x[:, 0].contiguous() % q
+        assert torch.equal(m62.add(a, a, q).cpu(), m62_plain.add(a.cpu(), a.cpu(), q))
+    with pytest.raises(ValueError, match="one device"):
+        m62.add(x, x.cpu(), q2)
+
+
+def _seal_demo_stages(ctx, words, values, plains):
+    """The demo's kGen, enc and homoCalc on ``ctx`` from injected words:
+    the keys, the three ciphertexts' bytes and the blind distance."""
+    from pplp_tpu_torch.bfv.serialize import save_ciphertext
+    from pplp_tpu_torch.protocol import stages
+
+    s_bits, a_bits, e_bits, u_bits, e0_bits, e1_bits = words
+    with torch.no_grad():
+        kg = bfv.KeyGenerator.from_bits(ctx, s_bits, a_bits, e_bits)
+        sk, pk = kg.secret_key(), kg.create_public_key()
+        m_lo = np.stack([p[0] for p in values])
+        m_hi = np.stack([p[1] for p in values])
+        ct = bfv.Encryptor(ctx, pk).encrypt_pairs_from_bits(m_lo, m_hi, u_bits, e0_bits, e1_bits)
+        c = [bfv.Ciphertext((ct.polys[0][i], ct.polys[1][i]), "coeff") for i in range(3)]
+        saved = [save_ciphertext(x, ctx) for x in c]
+        out = stages.blind_distance(ctx, *c, *plains)
+    keys = {"s_ntt": sk.s_ntt, "s_shoup": sk.s_shoup, "pk0_ntt": pk.pk0_ntt,
+            "pk1_ntt": pk.pk1_ntt, "pk0_shoup": pk.pk0_shoup, "pk1_shoup": pk.pk1_shoup}
+    return keys, ct, saved, out, save_ciphertext(out, ctx)
+
+
+def test_seal_demo_stages_equal_on_card_and_cpu(dev):
+    """The demo's kGen, enc and homoCalc at the cell's shape (seal n = 8192,
+    t = 2^56) from one generator seed's words: on the card (the m62
+    kernels) and on the CPU (the plain chain) every key leaf, Shoup
+    companions included, every ciphertext, its saved bytes and the blind
+    distance's bytes are equal."""
+    from pplp_tpu_torch.protocol import stages
+
+    parms = bfv.EncryptionParameters.bfv(8192, 1 << 56, coeff_modulus=bfv_default(8192))
+    ctx_d, ctx_c = bfv.BFVContext.build(parms, dev), bfv.BFVContext.build(parms, "cpu")
+    n, L, t = ctx_c.n, ctx_c.L, ctx_c.t
+    g = torch.Generator().manual_seed(20260)
+    draw = lambda *shape: torch.randint(0, 1 << 32, shape, generator=g,  # noqa: E731
+                                        dtype=torch.int64).numpy()
+    words = (draw(n), draw(4, L, n), draw(2, n), draw(3, n), draw(3, 2, n), draw(3, 2, n))
+    xa, ya, xb, yb, s, r = 1234, 1212, 1000, 1000, 4099, 77
+    values = [stages.plain_pair(v, t, n) for v in (xa * xa + ya * ya, 2 * xa, 2 * ya)]
+    plains = [stages.plain_pair(v, t, n) for v in (xb * xb + yb * yb, xb, yb, s, s * r)]
+    modmath_cuda.reset_launches()
+    card = _seal_demo_stages(ctx_d, words, values, plains)
+    assert sum(modmath_cuda.launches_by_kernel.values()) > 0
+    cpu = _seal_demo_stages(ctx_c, words, values, plains)
+    for leaf in card[0]:
+        assert torch.equal(card[0][leaf].cpu(), cpu[0][leaf]), leaf
+    for a, b in zip(card[1].polys, cpu[1].polys):
+        assert torch.equal(a.cpu(), b)
+    assert card[2] == cpu[2]
+    for a, b in zip(card[3].polys, cpu[3].polys):
+        assert torch.equal(a.cpu(), b)
+    assert card[4] == cpu[4]
+
+
+def test_blind_distance_launches(dev):
+    """One ``stages.blind_distance`` at the demo's shape on the card: the
+    m62 kernels it launches, exactly, beside two forward transforms and one
+    inverse."""
+    from pplp_tpu_torch.protocol import stages
+
+    parms = bfv.EncryptionParameters.bfv(8192, 1 << 56, coeff_modulus=bfv_default(8192))
+    ctx = bfv.BFVContext.build(parms, dev)
+    g = torch.Generator(device=dev).manual_seed(8)
+    sk, pk = stages.keygen(ctx, g)
+    lo, hi = stages.plain_pair(7, ctx.t, ctx.n)
+    ct = stages.encrypt_batch(ctx, pk, np.stack([lo] * 3), np.stack([hi] * 3), g)
+    c = [bfv.Ciphertext((ct.polys[0][i], ct.polys[1][i]), "coeff") for i in range(3)]
+    plains = [stages.plain_pair(v, ctx.t, ctx.n) for v in (5, 6, 7, 8, 9)]
+    torch.cuda.synchronize()
+    modmath_cuda.reset_launches()
+    ntt_cuda.reset_launches()
+    stages.blind_distance(ctx, *c, *plains)
+    torch.cuda.synchronize()
+    # add_plain twice: two reduce_words, a Shoup product by delta, two adds;
+    # the plaintexts' spectra: reduce_words, the centred lift's sub, their
+    # companions; six Shoup products by the spectra, two adds and two subs.
+    assert modmath_cuda.launches_by_kernel == {
+        "m62_add": 6, "m62_sub": 3, "m62_neg": 0, "m62_shoup": 8, "m62_mulmod": 0,
+        "m62_reduce128": 5, "m62_shoup_pre": 1}
+    assert {k: v for k, v in ntt_cuda.launches_by_kernel.items() if v} == {
+        "ntt_forward_u64": 2, "ntt_inverse_u64": 1}
+
+
+def test_bfv_stage_spans_say_the_cuda_route(dev):
+    """On an m62 chain on the card the BFV stages' spans carry route "cuda";
+    on the tpu chain (m31), which the kernels do not take, "plain"."""
+    from pplp_tpu_torch.protocol import stages
+    from pplp_tpu_torch.utils import profiling
+
+    for profile, route in (("seal", "cuda"), ("tpu", "plain")):
+        ctx = bfv.BFVContext.build(bfv.EncryptionParameters.bfv(4096, 1 << 20, profile=profile),
+                                   dev)
+        g = torch.Generator(device=dev).manual_seed(3)
+        profiling.enable()
+        try:
+            profiling.drain()
+            modmath_cuda.reset_launches()
+            sk, pk = stages.keygen(ctx, g)
+            lo, hi = stages.plain_pair(5, ctx.t, ctx.n)
+            stages.encrypt_batch(ctx, pk, lo[None], hi[None], g)
+            got = {s.name: s.attrs for s in profiling.drain()}
+        finally:
+            profiling.disable()
+        assert got["bfv.keygen"] == got["bfv.encrypt"] == {"route": route}
+        assert bool(sum(modmath_cuda.launches_by_kernel.values())) == (route == "cuda")
 
 
 # ---------------------------------------------------------------------------

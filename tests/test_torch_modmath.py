@@ -273,3 +273,296 @@ def test_m62_tensor_constants_broadcast():
     got = port.m62(ratio).mulmod(_as_port(x), _as_port(y), q_col).numpy()
     for li, q in enumerate(qs):
         assert got[li].tolist() == [int(a) * int(b) % q for a, b in zip(x[li], y[li])]
+
+
+# ---------------------------------------------------------------------------
+# m62's route: CPU residues run the plain chain, never the CUDA kernels
+# ---------------------------------------------------------------------------
+
+from pplp_tpu_torch.ops import modmath_cuda  # noqa: E402
+
+M62_ROUTED = list(modmath_cuda.OPS)
+M62_LAZY = ["csub", "csub2q", "lazy_sub2q", "mulmod_shoup_lazy"]  # no kernel
+
+
+def _m62_case(op, L=3, n=64, seed=0):
+    """(m62, m62_plain, operands of ``op``) on CPU residues [2, L, n] of the
+    n = 8192 seal chain's primes, with per-limb [L, 1] constants and ratio."""
+    qs = bfv_default(8192)[:L]
+    rng = np.random.default_rng(seed)
+    q_col = torch.tensor([[q] for q in qs])
+    ratio = tuple(torch.tensor([[((1 << 128) // q >> (32 * i)) & 0xFFFFFFFF] for q in qs])
+                  for i in range(3))
+    p = port.m62(ratio)
+
+    def res(bound):
+        return torch.from_numpy(np.stack([np.stack([_draw62(rng, bound * q)[:n] for q in qs])
+                                          for _ in range(2)]).view(np.int64))
+
+    w = res(1)
+    ws = torch.from_numpy(np.array([[[(int(v) << 64) // q for v in row]
+                                     for row, q in zip(plane, qs)] for plane in w.numpy()],
+                                   dtype=np.uint64).view(np.int64))
+    words = tuple(torch.from_numpy(rng.integers(0, 1 << 32, (2, L, n), dtype=np.int64))
+                  for _ in range(4))
+    two_q = 2 * q_col
+    args = {"add": (res(1), res(1), q_col), "sub": (res(1), res(1), q_col),
+            "neg": (res(1), q_col), "csub": (res(2), q_col), "csub2q": (res(4), two_q),
+            "lazy_sub2q": (res(2), res(2), two_q),
+            "mulmod_shoup_lazy": (res(4), w, ws, q_col), "mulmod_shoup": (res(4), w, ws, q_col),
+            "mulmod": (res(1), res(1), q_col), "reduce128": (words, q_col),
+            "shoup_precompute": (res(1), q_col)}[op]
+    return p, port.m62_plain(ratio), args
+
+
+@pytest.mark.parametrize("op", M62_ROUTED)
+def test_m62_cpu_route_runs_the_plain_chain(op, monkeypatch):
+    """On the CPU every routed op is the plain chain, bit for bit, and no
+    kernel is launched (``launch`` is never reached)."""
+    modmath_cuda.reset_launches()
+
+    def refuse(*args):
+        raise AssertionError("a CPU residue reached the CUDA launch")
+
+    monkeypatch.setattr(modmath_cuda, "launch", refuse)
+    routed, plain, args = _m62_case(op)
+    assert torch.equal(getattr(routed, op)(*args), getattr(plain, op)(*args))
+    assert not any(modmath_cuda.launches_by_kernel.values())
+
+
+def test_m62_reduce_words_pads_on_the_cpu():
+    """reduce_words of two words (a u64 as (lo, hi), the plaintexts' form)
+    is reduce128 with two zero words, on the plain chain."""
+    p, _, (words, q_col) = _m62_case("reduce128")
+    got = p.reduce_words(words[:2], q_col)
+    want = [[[(int(lo) + (int(hi) << 32)) % int(q) for lo, hi in zip(rl, rh)]
+             for rl, rh, q in zip(pl, ph, q_col[:, 0])] for pl, ph in zip(words[0], words[1])]
+    assert got.tolist() == want
+
+
+def _model_offsets(layout_words, count):
+    """csrc/modmath64.cu's indexing of a layout: each operand's element
+    offset (or its immediate) for every output index, in numpy."""
+    numel, ndim = layout_words[0], layout_words[1]
+    shape = layout_words[2:2 + ndim]
+    idx = np.arange(numel, dtype=np.int64)
+    offs, imms = [], []
+    for k in range(count):
+        base = 2 + ndim + k * (1 + ndim)
+        imms.append(layout_words[base])
+        strides = layout_words[base + 1:base + 1 + ndim]
+        rest, off = idx.copy(), np.zeros(numel, dtype=np.int64)
+        for d in range(ndim - 1, -1, -1):
+            off += (rest % shape[d]) * strides[d]
+            rest //= shape[d]
+        offs.append(off)
+    return offs, imms
+
+
+@pytest.mark.parametrize("case", ["limb_column", "spectrum", "batch", "strided_words", "expanded",
+                                  "immediate", "scalar_q", "ntt_stage"])
+def test_m62_layout_reads_each_operand_where_it_lies(case):
+    """The kernels' broadcast layout (``modmath_cuda._layout``) against
+    PyTorch's broadcasting: read through the model of the kernel's
+    indexing, every operand's storage gives the expanded operand, element
+    for element, and the output has the broadcast shape. Dimensions that
+    every operand walks alike are merged."""
+    L, n, B = 5, 16, 3
+    col = torch.arange(L).reshape(L, 1) + 100
+    spec = torch.arange(L * n).reshape(L, n) + 1000
+    batch = torch.arange(B * L * n).reshape(B, L, n) + 5000
+    words = torch.arange(B * 4 * L * n).reshape(B, 4, L, n)
+    operands, merged = {
+        "limb_column": ((spec, col), [L, n]),
+        "spectrum": ((batch, spec, col), [B, L, n]),
+        "batch": ((batch, batch + 1, col), [B, L, n]),
+        "strided_words": ((words[:, 0], words[:, 1], col), [B, L, n]),
+        "expanded": ((spec[0].expand(B, L, n), batch), [B * L, n]),
+        "immediate": ((batch, 7, spec), [B, L * n]),
+        "scalar_q": ((batch, batch, 12345), [B * L * n]),
+        "ntt_stage": ((batch.reshape(B, L, 4, 2, 2)[..., 0, :], col.reshape(L, 1, 1),
+                       spec.reshape(L, n)[:, :4, None]), [B, L, 4, 2]),
+    }[case]
+    shape, layout = modmath_cuda._layout(operands)
+    want_shape = torch.broadcast_shapes(*(a.shape for a in operands if torch.is_tensor(a)))
+    assert shape == tuple(want_shape)
+    words_ = list(layout)
+    assert words_[1] == len(merged) and words_[2:2 + len(merged)] == merged
+    offs, imms = _model_offsets(words_, len(operands))
+    for a, off, imm in zip(operands, offs, imms):
+        if torch.is_tensor(a):
+            storage = torch.as_strided(a, (a.untyped_storage().nbytes() // 8 - a.storage_offset(),),
+                                       (1,))
+            got = storage[torch.from_numpy(off)]
+            assert torch.equal(got, a.expand(shape).reshape(-1))
+        else:
+            assert imm == a
+
+
+def test_m62_launch_takes_cuda_int64_tensors_only():
+    """The launch path refuses what the kernels cannot read: CPU residues,
+    another dtype, a wrong number of operands; it never falls back."""
+    x = torch.zeros(2, 4, dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA"):
+        modmath_cuda.launch("add", x, x, 7)
+    with pytest.raises(TypeError, match="int64"):
+        modmath_cuda.launch("add", x.to(torch.int32), x, 7)
+    with pytest.raises(TypeError, match="operands"):
+        modmath_cuda.launch("add", x, 7)
+    with pytest.raises(ValueError, match="broadcast"):
+        modmath_cuda._layout((torch.zeros(2, 4), torch.zeros(3, 4)))
+    big = torch.zeros(1, dtype=torch.int64).expand(modmath_cuda.MAX_NUMEL)  # the 32-bit index
+    assert modmath_cuda._layout((big[1:], 7))[0] == (modmath_cuda.MAX_NUMEL - 1,)
+    with pytest.raises(ValueError, match="fewer than"):
+        modmath_cuda._layout((big, 7))
+    assert not any(modmath_cuda.launches_by_kernel.values())
+
+
+@pytest.mark.parametrize("profile", ["seal", "tpu"])
+def test_bfv_stage_spans_say_the_plain_route_on_the_cpu(profile):
+    """kGen, enc and homoCalc's spans carry ``route``: "plain" on the CPU
+    (the kernels run only for an m62 chain on a CUDA device)."""
+    from pplp_tpu_torch import bfv
+    from pplp_tpu_torch.protocol import stages
+    from pplp_tpu_torch.utils import profiling
+
+    ctx = bfv.BFVContext.build(bfv.EncryptionParameters.bfv(4096, 1 << 20, profile=profile),
+                               "cpu")
+    assert port.m62_route(ctx.tables) == "plain"
+    g = torch.Generator().manual_seed(3)
+    profiling.enable()
+    try:
+        profiling.drain()
+        sk, pk = stages.keygen(ctx, g)
+        lo, hi = stages.plain_pair(5, ctx.t, ctx.n)
+        ct = stages.encrypt_batch(ctx, pk, lo[None], hi[None], g)
+        one = bfv.Ciphertext((ct.polys[0][0], ct.polys[1][0]), "coeff")
+        pair = stages.plain_pair(1, ctx.t, ctx.n)
+        stages.blind_distance(ctx, one, one, one, pair, pair, pair, pair, pair)
+        got = {s.name: s.attrs for s in profiling.drain() if s.name.startswith("bfv.")
+               and s.name in ("bfv.keygen", "bfv.encrypt", "bfv.evaluate")}
+    finally:
+        profiling.disable()
+    assert got == {name: {"route": "plain"}
+                   for name in ("bfv.keygen", "bfv.encrypt", "bfv.evaluate")}
+
+
+# ---------------------------------------------------------------------------
+# The card's route emulated on the CPU: which ops launch, and how often
+# ---------------------------------------------------------------------------
+
+
+class _EmulatedCard:
+    """``modmath._on_card`` true for every tensor and ``modmath_cuda.launch``
+    running the plain op in its place, counted by kernel as the card counts
+    it. The plain NTT's own elementwise ops are not counted: on the card a
+    transform is one launch of ``csrc/ntt.cu``."""
+
+    def __init__(self, mp):
+        from pplp_tpu_torch.ops import ntt
+
+        self.launches = {kernel: 0 for kernel, _ in modmath_cuda.OPS.values()}
+        self.in_ntt = 0
+        mp.setattr(port, "_on_card", torch.is_tensor)
+        mp.setattr(modmath_cuda, "launch", self.launch)
+        for name in ("forward_plain", "inverse_plain"):
+            mp.setattr(ntt, name, self._uncounted(getattr(ntt, name)))
+
+    def _uncounted(self, fn):
+        def transform(*args):
+            self.in_ntt += 1
+            try:
+                return fn(*args)
+            finally:
+                self.in_ntt -= 1
+        return transform
+
+    def launch(self, op, *operands):
+        if op == "reduce128":
+            got = port.m62_plain(operands[5:]).reduce128(operands[:4], operands[4])
+        elif op in ("mulmod", "shoup_precompute"):
+            got = getattr(port.m62_plain(operands[-3:]), op)(*operands[:-3])
+        else:
+            got = getattr(port.m62_plain, op)(*operands)
+        if not self.in_ntt:
+            self.launches[modmath_cuda.OPS[op][0]] += 1
+        return got
+
+    def take(self) -> dict:
+        got = {k: v for k, v in self.launches.items() if v}
+        self.launches = dict.fromkeys(self.launches, 0)
+        return got
+
+
+@pytest.fixture(scope="module")
+def emulated_stage_launches():
+    """The m62 launches under kGen, enc and homoCalc (``stages.keygen``,
+    ``encrypt_batch`` of the demo's three messages, ``blind_distance``) at
+    the demo cell's shape, seal n = 8192 and t = 2^56, with the card's route
+    emulated on the CPU (``_EmulatedCard``)."""
+    from pplp_tpu_torch import bfv
+    from pplp_tpu_torch.ops.primes import bfv_default
+    from pplp_tpu_torch.protocol import stages
+
+    parms = bfv.EncryptionParameters.bfv(8192, 1 << 56, coeff_modulus=bfv_default(8192))
+    ctx = bfv.BFVContext.build(parms, "cpu")
+    g = torch.Generator().manual_seed(8)
+    counts = {}
+    with pytest.MonkeyPatch.context() as mp:
+        card = _EmulatedCard(mp)
+        sk, pk = stages.keygen(ctx, g)
+        counts["kGen"] = card.take()
+        pairs = [stages.plain_pair(v, ctx.t, ctx.n) for v in (5, 6, 7)]
+        ct = stages.encrypt_batch(ctx, pk, np.stack([p[0] for p in pairs]),
+                                  np.stack([p[1] for p in pairs]), g)
+        counts["enc"] = card.take()
+        c = [port_ct(ct, i) for i in range(3)]
+        plains = [stages.plain_pair(v, ctx.t, ctx.n) for v in (5, 6, 7, 8, 9)]
+        stages.blind_distance(ctx, *c, *plains)
+        counts["homoCalc"] = card.take()
+    return counts
+
+
+def port_ct(ct, i):
+    from pplp_tpu_torch import bfv
+
+    return bfv.Ciphertext((ct.polys[0][i], ct.polys[1][i]), "coeff")
+
+
+# What one demo test launches on the card, stage by stage: 9, 12 and 23.
+# kGen: the samplers' two centred lifts, the uniform a's reduce_words, the
+# three keys' Shoup companions and pk0 = -(a s + e) (a product, an add and a
+# negation); enc: the samplers' three lifts, the products u pk0 and u pk1,
+# scale_plain (two reduce_words, a Shoup product by delta, an add) and four
+# adds.
+# homoCalc: two add_plain (a reduce_words, a Shoup product by delta and an
+# add each), the plaintext spectra (reduce_words, the centred lift's sub,
+# their companions), six Shoup products by the spectra, two adds and two
+# subs; the card's own count is ``test_torch_cuda.py::test_blind_distance_launches``.
+M62_STAGE_LAUNCHES = {
+    "kGen": {"m62_add": 1, "m62_neg": 3, "m62_reduce128": 1, "m62_shoup": 1,
+             "m62_shoup_pre": 3},
+    "enc": {"m62_add": 4, "m62_neg": 3, "m62_reduce128": 2, "m62_shoup": 3},
+    "homoCalc": {"m62_add": 6, "m62_sub": 3, "m62_shoup": 8, "m62_reduce128": 5,
+                 "m62_shoup_pre": 1},
+}
+
+
+@pytest.mark.parametrize("stage", list(M62_STAGE_LAUNCHES))
+def test_m62_launches_under_each_bfv_stage(stage, emulated_stage_launches):
+    """Each BFV stage of the demo launches the m62 kernels it is counted
+    with on the card (``M62_STAGE_LAUNCHES``), by the card's route emulated
+    on the CPU: tens of launches a stage where the int64 chain took
+    hundreds of torch ops."""
+    assert emulated_stage_launches[stage] == M62_STAGE_LAUNCHES[stage]
+
+
+@pytest.mark.parametrize("op", M62_LAZY)
+def test_m62_lazy_ops_run_the_plain_chain_on_either_route(op, monkeypatch):
+    """The lazy ops have no kernel: with the card's route emulated they are
+    still the plain chain's, bit for bit, and launch nothing."""
+    routed, plain, args = _m62_case(op)
+    card = _EmulatedCard(monkeypatch)
+    assert getattr(port.m62, op) is getattr(port.m62_plain, op)
+    assert torch.equal(getattr(routed, op)(*args), getattr(plain, op)(*args))
+    assert card.take() == {}
